@@ -19,6 +19,10 @@ def pytest_configure(config):
         "markers",
         "hazard: test deliberately violates HTP ordering; the autouse "
         "race-gate fixture must not fail it")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (and nvcc for the port's kernels); "
+        "skips with a reason where there is none")
 
 
 @pytest.fixture(autouse=True)

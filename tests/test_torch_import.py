@@ -1,0 +1,72 @@
+"""The PyTorch port must stand on its own: importing its entry point
+pulls in neither JAX nor any module of the JAX package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = str(Path(__file__).resolve().parent.parent / "src")
+
+PORT_MODULES = [
+    "repro_torch.run",
+    "repro_torch.core.interface",
+    "repro_torch.core.target.convert",
+    "repro_torch.kernels.page_walk.ops",
+    "repro_torch.configs.fase_rocket",
+]
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_imports_no_jax_and_no_reference_package(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sources_have_no_jax_or_reference_imports():
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
+    root = Path(SRC) / "repro_torch"
+    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_cuda_default_raises_without_a_card():
+    """The entry points default to the GPU and must not quietly run on
+    the CPU when there is none."""
+    import torch
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.run import run_workload
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchTarget(1, 1 << 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_workload("hello", [], n_cores=1, mem=1 << 22)
+
+
+def test_unported_surfaces_raise():
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.core.runtime import FaseRuntime
+    t = TorchTarget(1, 1 << 20, device="cpu")
+    for call in (lambda: t.trace_arm(16), lambda: t.trace_trigger(None),
+                 lambda: t.trace_drain()):
+        with pytest.raises(NotImplementedError):
+            call()
+    with pytest.raises(NotImplementedError):
+        FaseRuntime(t, telemetry={"interval_ticks": 1000})
+    with pytest.raises(ValueError):
+        TorchTarget(1, 1 << 20, device="cpu", fetch_kernel="pallas")
