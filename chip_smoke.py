@@ -6,22 +6,29 @@ CUDA toolkit::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, reproduces the
-two reference pins (hello@UART, bc@PCIe) on ``TorchTarget(device="cuda")``
-and then drives the main path at full width — the registry's
-``FASE_ROCKET_PCIE`` deployment (4 cores, 64 MiB target image resident on
-the card, PCIe async queue pair) running GAPBS ``bc`` with 4 threads —
-against constants pinned from the pure-Python reference simulator.  Every
-phase prints one JSON line; any mismatch, build failure or launch error
-ends the run with a non-zero exit code, and nothing runs on the CPU when
-no GPU is found.  The last line is ``{"ok": true, "device": {...}}``.
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card, and drives the port's two paths:
+
+* the FASE path: the two reference pins (hello@UART, bc@PCIe) on
+  ``TorchTarget(device="cuda")``, then the full-width run — the registry's
+  ``FASE_ROCKET_PCIE`` deployment (4 cores, 64 MiB target image resident
+  on the card, PCIe async queue pair) running GAPBS ``bc`` with 4 threads
+  — against constants pinned from the pure-Python reference simulator;
+* the serving path: ``ServeEngine`` over qwen3-8b at full width (36
+  layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
+  slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
+  kernels and then in lockstep against the plain versions.
+
+Every phase prints one JSON line; any mismatch, build failure or launch
+error ends the run with a non-zero exit code, and nothing runs on the CPU
+when no GPU is found.  The last line is ``{"ok": true, "device": {...}}``.
 
 Options (none are needed for the full check): ``--scale N`` picks the
 R-MAT scale of the full-width graph (one of ``FULL_WIDTH``), ``--only``
-limits the run to some phases, ``--profile`` adds a ``torch.profiler``
-window over the interpreter loop and writes its tables to ``--out``
-(default ``smoke_out/``).
+limits the run to some phases, ``--profile`` adds ``torch.profiler``
+windows over the interpreter loop and over serving decode steps and
+writes their tables to ``--out`` (default ``smoke_out/``).
 """
 from __future__ import annotations
 
@@ -56,10 +63,55 @@ DEFAULT_SCALE = 5
 #: published peak of one H100 SXM: HBM bytes per second
 HBM_BYTES_PER_S = 3.35e12
 #: the TPU kernel each port kernel replaces (file:line of its pallas_call)
-REPLACES = {"walk_fetch_block":
-            "src/repro/kernels/page_walk/page_walk.py:126"}
+REPLACES = {
+    "walk_fetch_block": "src/repro/kernels/page_walk/page_walk.py:126",
+    "paged_attention":
+    "src/repro/kernels/paged_attention/paged_attention.py:89",
+    "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
+    "page_copy": "src/repro/kernels/page_ops/page_ops.py:38",
+}
+SOURCES = {
+    "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "page_set": "src/repro_torch/csrc/page_ops.cu",
+    "page_copy": "src/repro_torch/csrc/page_ops.cu",
+}
+#: every csrc/<name>.cu the paths launch
+CUDA_LIBS = ("page_walk", "page_ops", "paged_attention")
 
-PHASES = ("kernel", "hello", "bc", "full")
+#: the serve run: qwen3-8b, 4 slots, max_seq 512, and the request mix as
+#: (kind, prompt length, max_new).  Both "S" prompts start with one
+#: 128-token prefix (two prefix hits).  "A" registers a 64-token prefix and
+#: finishes first; "X" starts with the same 64 tokens and is admitted after
+#: A's pages were freed and reused by a running sequence — the reference's
+#: stale prefix hit (serving/pages.py:67), which is the one way a PageCP
+#: (copy-on-write break) reaches the pool in an engine run, because
+#: start_seq sets the host length to the prompt's (pages.py:84).  The
+#: schedule depends on the mix alone unless a request emits its eos early.
+SERVE_ARCH = "qwen3-8b"
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 512
+SERVE_MIX = (("A", 70, 16), ("S", 150, 16), ("S", 140, 16), ("B", 96, 16),
+             ("C", 130, 16), ("X", 100, 16), ("D", 65, 16), ("E", 80, 16))
+#: kernel vs plain route of the serve run (see ``lockstep``): the largest
+#: difference of any logit, and of the plain route's logit at the kernel
+#: route's token below its best where the two argmaxes differ.  Absolute:
+#: the logits are bf16 of magnitude up to ~8, where a bf16 ulp is 1/32,
+#: and the two attention implementations round their bf16 outputs apart
+#: in a few elements, which 36 layers carry into the logits
+SERVE_LOGIT_TOL = 0.25
+#: paged_attention against its plain version on the card, as (atol,
+#: rtol): |kernel - plain| <= atol + rtol * |plain| elementwise.  Both
+#: compute in f32 and differ in summation order only, so f32 outputs agree
+#: to ~1e-6 and bf16 outputs by at most one rounding step (one ulp, at
+#: most 2**-7 of the value).  A kernel that drops one row of a 256-row
+#: sequence moves outputs of ~0.1 by ~0.01, beyond either bound.
+ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
+#: decode steps run on a throwaway engine before the timed serve window,
+#: so that first-call costs (cuBLAS heuristics, allocator growth, pinned
+#: host blocks) fall outside it
+SERVE_WARM_STEPS = 8
+
+PHASES = ("kernel", "hello", "bc", "full", "serve")
 
 
 def emit(obj):
@@ -167,14 +219,16 @@ def walk_fetch_bound_ms(torch, out, lanes, block_words, active=None,
     return (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernel(torch, dev):
+def phase_build():
     from repro_torch.kernels import _build
-    from repro_torch.kernels.page_walk import ops, page_walk
-
     t0 = time.time()
-    _build.load_all(["page_walk"])
-    emit({"phase": "build", "kernels": ["page_walk"],
+    _build.load_all(CUDA_LIBS)
+    emit({"phase": "build", "kernels": list(CUDA_LIBS),
           "seconds": round(time.time() - t0, 3)})
+
+
+def phase_kernel(torch, dev):
+    from repro_torch.kernels.page_walk import ops, page_walk
 
     mem_bytes = 1 << 20
     mask = mem_bytes - 1
@@ -253,7 +307,154 @@ def phase_kernel(torch, dev):
     emit({"phase": "kernel_vs_plain", "kernel": "walk_fetch_block",
           "cases": cases, "random_lanes": lanes, "tolerance": 0,
           "max_abs_err": worst, "equal": True})
-    return worst
+    return {"walk_fetch_block": worst, **check_attention(torch, dev),
+            **check_page_ops(torch, dev)}
+
+
+def attention_err(torch, q, kp, vp, bt, lens):
+    """Largest |kernel - plain version| of paged_attention on one input
+    set; fails beyond the dtype's ``ATTN_TOL`` or on a non-finite
+    output."""
+    from repro_torch.kernels.paged_attention import ops
+    got = ops.paged_decode(q, kp, vp, bt, lens)
+    want = ops.paged_decode(q, kp, vp, bt, lens, impl="ref")
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          "paged_attention: kernel output dtype/shape differs")
+    check(bool(torch.isfinite(got).all()), "paged_attention: non-finite")
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = ATTN_TOL[str(q.dtype).split(".")[1]]
+    over = float((diff - rtol * want.float().abs()).max())
+    check(over <= atol, f"paged_attention {tuple(q.shape)} {q.dtype} "
+          f"kp {tuple(kp.shape)} lens {lens.tolist()}: kernel differs from "
+          f"the plain version by {over} beyond rtol {rtol} > atol {atol} "
+          f"(max abs diff {float(diff.max())})")
+    return float(diff.max())
+
+
+def attention_inputs(torch, dev, B, H, Hkv, D, page, P, dtype, seed,
+                     lens=None, pages=None):
+    """Seeded q, pools of ``pages`` (default B * P) pages and a table of
+    distinct random pages; lens random in [1, P * page] unless given."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    NP = pages or B * P
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((NP, page, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NP, page, Hkv, D), generator=g, device=dev).to(dtype)
+    bt = torch.randperm(NP, generator=g, device=dev)[:B * P] \
+        .reshape(B, P).to(torch.int32)
+    if lens is None:
+        lens = torch.randint(1, P * page + 1, (B,), generator=g, device=dev)
+    lens = torch.as_tensor(lens, device=dev).to(torch.int32)
+    return q, kp, vp, bt, lens
+
+
+def check_attention(torch, dev):
+    """paged_attention == its plain version on the card: the f32 sweep of
+    tests/test_kernels.py:50-65 (every combination), D 128 / page 64 in
+    f32 (more than 48 KiB of shared memory), a GQA group of 16
+    (chatglm3-6b), zero lengths, and bf16 at the serving shape with lens
+    of 1, mid-page, a page boundary and P * page."""
+    import itertools
+    worst, cases, s = 0.0, 0, 0
+    for B, H, Hkv, D, page, P in itertools.product(
+            (1, 2), (2, 4), (1, 2), (16, 32), (8, 16), (1, 2, 3, 4)):
+        if H % Hkv:
+            H = Hkv
+        s += 1
+        worst = max(worst, attention_err(torch, *attention_inputs(
+            torch, dev, B, H, Hkv, D, page, P, torch.float32, s)))
+        cases += 1
+    for B, H, Hkv, D, page, P, dtype, lens in (
+            (3, 8, 2, 128, 64, 4, torch.float32, [1, 130, 256]),
+            (2, 32, 2, 128, 64, 3, torch.float32, [0, 100]),
+            (4, 32, 8, 128, 64, 8, torch.bfloat16, [1, 37, 64, 512]),
+            (4, 32, 8, 128, 64, 8, torch.bfloat16, [65, 300, 511, 0]),
+            (4, 4, 2, 16, 64, 2, torch.bfloat16, [1, 64, 65, 128])):
+        s += 1
+        worst = max(worst, attention_err(torch, *attention_inputs(
+            torch, dev, B, H, Hkv, D, page, P, dtype, s, lens,
+            pages=2 * B * P + 1)))
+        cases += 1
+    # the wrapper refuses what the kernel does not take
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    q, kp, vp, bt, lens = attention_inputs(torch, dev, 1, 2, 1, 16, 8, 1,
+                                           torch.float32, 0)
+    for bad in (lambda: PA.paged_attention(q.cpu(), kp, vp, bt, lens),
+                lambda: PA.paged_attention(q.half(), kp, vp, bt, lens),
+                lambda: PA.paged_attention(q, kp, vp, bt.long(), lens),
+                lambda: PA.paged_attention(q[..., :10].contiguous(),
+                                           kp[..., :10].contiguous(),
+                                           vp[..., :10].contiguous(), bt,
+                                           lens)):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("the paged_attention wrapper accepted an input it must refuse")
+    emit({"phase": "kernel_vs_plain", "kernel": "paged_attention",
+          "cases": cases, "tolerance": ATTN_TOL, "max_abs_err": worst})
+    return {"paged_attention": worst}
+
+
+def check_page_ops(torch, dev):
+    """page_set / page_copy == their plain versions on the card, array
+    equal: the reference test's pool and pairs, a chained pair
+    (``[[0,3],[3,5]]``: page 5 gets the old page 3), a duplicate
+    destination (``[[0,3],[1,3]]``: the last pair wins), random pairs with
+    repeats, on an f32 pool and on a layered bf16 pool of the serving
+    shape."""
+    from repro_torch.kernels.page_ops import ops, page_ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    pools = [torch.randn((8, 16, 2, 32), generator=g, device=dev),
+             torch.randn((3, 1, 65, 64, 8, 128), generator=g,
+                         device=dev).to(torch.bfloat16)]
+    pair_sets = [[[0, 3], [5, 7]], [[0, 3], [3, 5]], [[0, 3], [1, 3]],
+                 torch.randint(0, 8, (16, 2), generator=g, device=dev).tolist()]
+    id_sets = [[1, 4], [4, 4, 2], [7]]
+    cases = {"page_set": 0, "page_copy": 0}
+    for pool in pools:
+        for op, args_list in (("page_copy", pair_sets),
+                              ("page_set", id_sets)):
+            for args in args_list:
+                a = torch.tensor(args, dtype=torch.int32, device=dev)
+                got, want = pool.clone(), pool.clone()
+                if op == "page_copy":
+                    ops.page_copy(got, a)
+                    ops.page_copy(want, a, impl="ref")
+                else:
+                    ops.page_set(got, a, 0.0)
+                    ops.page_set(want, a, 0.0, impl="ref")
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"{op} {args} on {tuple(pool.shape)}: the kernel "
+                      f"differs from the plain version")
+                cases[op] += 1
+        # the documented semantics, directly
+        got = pool.clone()
+        ops.page_copy(got, torch.tensor([[0, 3], [3, 5]], dtype=torch.int32,
+                                        device=dev))
+        check(torch.equal(got[..., 5, :, :, :], pool[..., 3, :, :, :]) and
+              torch.equal(got[..., 3, :, :, :], pool[..., 0, :, :, :]),
+              "page_copy: a chained pair did not read the old source")
+    for bad in (lambda: page_ops.page_set(pools[0].cpu(),
+                                          torch.tensor([1], dtype=torch.int32),
+                                          0.0),
+                lambda: page_ops.page_set(pools[0], torch.tensor(
+                    [1], device=dev), 0.0),
+                lambda: page_ops.page_copy(pools[0], torch.tensor(
+                    [1, 2], dtype=torch.int32, device=dev))):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("a page-op wrapper accepted an input it must refuse")
+    for op, n in cases.items():
+        emit({"phase": "kernel_vs_plain", "kernel": op, "cases": n,
+              "tolerance": 0, "max_abs_err": 0.0, "equal": True})
+    return {"page_set": 0.0, "page_copy": 0.0}
 
 
 def time_walk_fetch(torch, tgt, worst):
@@ -443,6 +644,319 @@ def phase_full(torch, scale, worst, profile_dir):
     return launches, timing
 
 
+# ---------------------------------------------------------------------------
+# the serving path
+# ---------------------------------------------------------------------------
+def serve_requests(vocab, seed=0):
+    """``SERVE_MIX`` as seeded prompts (tokens in [2, vocab), so none is
+    the eos 1 or the padding 0)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+
+    def tok(n):
+        return rng.randint(2, vocab, n).tolist()
+    shared, pfx = tok(128), tok(64)
+    out = []
+    for kind, n, max_new in SERVE_MIX:
+        head = {"S": shared, "A": pfx, "X": pfx}.get(kind, [])
+        out.append((head + tok(n - len(head)), max_new))
+    return out
+
+
+def strip_eos(out, eos):
+    out = list(out)
+    while out and out[-1] == eos:
+        out.pop()
+    return out
+
+
+def new_engine(torch, cfg, params, impl):
+    from repro_torch.serving.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                      impl=impl)
+    for rid, (prompt, max_new) in enumerate(serve_requests(cfg.vocab)):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new=max_new, eos=1))
+    return eng
+
+
+def lockstep(torch, cfg, params):
+    """The kernel route and the plain route, one decode step each in
+    turn, on the same schedule.  After every step, on the slots that
+    carried a request: the logits agree within SERVE_LOGIT_TOL, and where
+    the argmaxes differ on a token the engine uses (one it emits or feeds
+    back — not one made while the slot is still fed its prompt), the
+    kernel route's token is a near tie: its logit on the plain route is
+    within SERVE_LOGIT_TOL of the plain route's best.  The plain route
+    then goes on from the kernel route's tokens, so every step of the run
+    is compared.  Returns the kernel engine, the comparison's numbers, the
+    attention inputs (block table, lengths) of the step with the most
+    valid KV rows while every slot was busy, and the longest PageS and
+    PageCP lists of a step's command batch."""
+    ek = new_engine(torch, cfg, params, "kernel")
+    er = new_engine(torch, cfg, params, "ref")
+    most = {"page_set": 0, "page_copy": 0}
+    stats = {"steps": 0, "max_logit_abs_err": 0.0, "max_abs_logit": 0.0,
+             "used_tokens": 0, "near_ties": [], "tolerance": SERVE_LOGIT_TOL}
+    bad, busiest, best = [], None, -1
+    ek.begin()
+    er.begin()
+    while True:
+        a, b = ek.step(), er.step()
+        check(a == b, "kernel and plain routes disagree on the schedule")
+        if not a:
+            break
+        check(ek.step_slots == er.step_slots,
+              "kernel and plain routes busy different slots")
+        most["page_set"] = max(most["page_set"], len(ek.batch.page_zeros))
+        most["page_copy"] = max(most["page_copy"],
+                                len(ek.batch.page_copies))
+        rows = torch.tensor(ek.step_slots, device=ek.device)
+        lk = ek.logits[rows].float()
+        lr = er.logits[rows].float()
+        check(bool(torch.isfinite(lk).all()),
+              f"step {ek.steps}: non-finite logits on the kernel route")
+        err = float((lk - lr).abs().max())
+        stats["max_logit_abs_err"] = max(stats["max_logit_abs_err"], err)
+        stats["max_abs_logit"] = max(stats["max_abs_logit"],
+                                     float(lr.abs().max()))
+        if err > SERVE_LOGIT_TOL:
+            bad.append(f"step {ek.steps}: logits differ by {err}")
+        tk, tr = lk.argmax(-1).tolist(), lr.argmax(-1).tolist()
+        for i, slot in enumerate(ek.step_slots):
+            if ek._slot_tokens[slot]:      # still fed its prompt
+                continue
+            stats["used_tokens"] += 1
+            if tk[i] != tr[i]:
+                gap = float(lr[i].max() - lr[i, tk[i]])
+                stats["near_ties"].append(
+                    {"step": ek.steps, "slot": slot, "gap": gap})
+                if gap > SERVE_LOGIT_TOL:
+                    bad.append(f"step {ek.steps} slot {slot}: the "
+                               f"kernel's token is {gap} below the "
+                               f"plain route's best")
+        er._cur.copy_(ek._cur)
+        check(torch.equal(er._stop_mask, ek._stop_mask),
+              f"step {ek.steps}: the routes' stop masks differ")
+        lens = ek.state["seq_lens"].clamp(max=SERVE_MAX_SEQ)
+        n = int(lens[rows].sum())
+        if len(ek.step_slots) == SERVE_SLOTS and n > best:
+            best = n
+            busiest = (ek.state["block_tables"].clone(), lens.clone())
+    stats["steps"] = ek.steps
+    emit({"phase": "serve_vs_plain", **stats, "failures": bad[:8]})
+    check(not bad, f"kernel route against the plain route: {bad[:4]}")
+    check(ek.traffic.by_cat == er.traffic.by_cat and
+          ek.kv.stats == er.kv.stats, "kernel and plain routes: traffic or "
+          "page statistics differ")
+    return ek, stats, busiest, most
+
+
+def attention_bound_ms(B, H, Hkv, D, lens, kv_len, esize):
+    """Least time of one paged_attention call: q read and out written
+    once, and every K and V row up to each sequence's length read once
+    (all ``kv_len`` slots at length 0), at the HBM rate.  The
+    multiply-adds (4 * H * D per row) are far below the bf16 peak."""
+    rows = sum(min(int(n), kv_len) if n > 0 else kv_len for n in lens)
+    nbytes = (2 * B * H * D + 2 * rows * Hkv * D) * esize + 4 * B + 4 * B * (
+        (kv_len + 63) // 64)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_serving_kernels(torch, eng, busiest, most, errs):
+    """Each serving kernel, its plain version and the one PyTorch call
+    that computes the same (where there is one), at the serve run's
+    shapes: paged_attention on layer 0's pools with the busiest step's
+    block table and lengths; page_set / page_copy on the whole K pool
+    (every layer) with the largest id list the run gave them."""
+    from repro_torch.kernels.page_ops import ops as page_ops
+    from repro_torch.kernels.paged_attention import ops as attn_ops
+    cfg, dev = eng.cfg, eng.device
+    out = {}
+    bt, lens = busiest
+    kp, vp = eng.state["kpool"][0, 0], eng.state["vpool"][0, 0]
+    B, H, D = SERVE_SLOTS, cfg.n_heads, cfg.d_head
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    err = attention_err(torch, q, kp, vp, bt, lens)
+    kv_len = bt.shape[1] * kp.shape[1]
+    out["paged_attention"] = dict(
+        ms=time_ms(torch, lambda: attn_ops.paged_decode(q, kp, vp, bt, lens),
+                   2000),
+        plain_ms=time_ms(torch, lambda: attn_ops.paged_decode(
+            q, kp, vp, bt, lens, impl="ref"), 200),
+        bound_ms=attention_bound_ms(B, H, cfg.n_kv_heads, D, lens.tolist(),
+                                    kv_len, 2),
+        library_ms=None, max_abs_err=max(errs["paged_attention"], err),
+        shape=dict(q=list(q.shape), pool=list(kp.shape),
+                   block_table=list(bt.shape), lens=lens.tolist(),
+                   dtype="bfloat16"))
+    pool = eng.state["kpool"]
+    layers = pool.shape[0] * pool.shape[1]
+    page_bytes = pool[0, 0, 0].numel() * pool.element_size()
+    n_pages = pool.shape[2]
+    k_set, k_cp = max(most["page_set"], 1), max(most["page_copy"], 1)
+    ids = torch.arange(k_set, dtype=torch.int32, device=dev) * 3 % n_pages
+    src = torch.arange(k_cp, dtype=torch.int32, device=dev) % n_pages
+    pairs = torch.stack([src, (src + 7) % n_pages], 1).contiguous()
+    got, want = pool.clone(), pool.clone()
+    page_ops.page_set(got, ids, 0.0)
+    page_ops.page_set(want, ids, 0.0, impl="ref")
+    page_ops.page_copy(got, pairs)
+    page_ops.page_copy(want, pairs, impl="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "page ops at the serve shape: kernel "
+          "differs from the plain version")
+    del got, want
+    il, sl, dl = ids.long(), pairs[:, 0].long(), pairs[:, 1].long()
+
+    def lib_copy():
+        pool[:, :, dl] = pool[:, :, sl]
+    out["page_set"] = dict(
+        ms=time_ms(torch, lambda: page_ops.page_set(pool, ids, 0.0), 200),
+        plain_ms=time_ms(torch, lambda: page_ops.page_set(
+            pool, ids, 0.0, impl="ref"), 50),
+        library_ms=time_ms(torch, lambda: pool.index_fill_(2, il, 0.0), 200),
+        bound_ms=(k_set * layers * page_bytes + 4 * k_set) /
+        HBM_BYTES_PER_S * 1e3,
+        max_abs_err=errs["page_set"],
+        shape=dict(pool=list(pool.shape), ids=k_set, dtype="bfloat16"))
+    out["page_copy"] = dict(
+        ms=time_ms(torch, lambda: page_ops.page_copy(pool, pairs), 200),
+        plain_ms=time_ms(torch, lambda: page_ops.page_copy(
+            pool, pairs, impl="ref"), 50),
+        library_ms=time_ms(torch, lib_copy, 200),
+        bound_ms=(2 * k_cp * layers * page_bytes + 8 * k_cp) /
+        HBM_BYTES_PER_S * 1e3,
+        max_abs_err=errs["page_copy"],
+        shape=dict(pool=list(pool.shape), pairs=k_cp, dtype="bfloat16"))
+    return out
+
+
+def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
+    """A ``torch.profiler`` window over ``steps`` decode steps of a fresh
+    kernel-route engine after ``warm`` unprofiled ones: launches, device
+    time and the device's busy share per step (against the pace of the
+    ``steps`` unprofiled steps before it, whose host time the engine
+    splits into scheduling, enqueueing and polling), and paged_attention's
+    device time per launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = new_engine(torch, cfg, params, "kernel")
+    eng.begin()
+    for _ in range(warm):
+        eng.step()
+    torch.cuda.synchronize()
+    eng.host_s = dict.fromkeys(eng.host_s, 0.0)
+    t0 = time.time()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / steps
+    host_ms = {k: v / steps * 1e3 for k, v in eng.host_s.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_dev) / steps
+    attn = [e for e in on_dev if "paged_attention" in e.key]
+    n_attn = sum(e.count for e in attn)
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx")) / steps
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+        f.write("\n")
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    out = {"phase": "serve_profile", "steps": steps,
+           "ms_per_step_unprofiled": wall * 1e3,
+           "host_ms_per_step_unprofiled": host_ms,
+           "enqueue_us_per_launch": host_ms["enqueue"] * 1e3 / launches,
+           "kernel_launches_per_step": launches,
+           "device_us_per_step": dev_us,
+           "device_busy_share": dev_us / (wall * 1e6),
+           "paged_attention_device_us": (
+               sum(e.self_device_time_total for e in attn) / n_attn
+               if n_attn else None)}
+    emit(out)
+    return out
+
+
+def phase_serve(torch, errs, profile_dir):
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    cfg = CONFIGS[SERVE_ARCH]
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
+                                       *params["blocks"][0].values(),
+                                       *params["blocks"][1].values()])
+    from repro_torch.kernels.page_ops import page_ops
+    from repro_torch.kernels.paged_attention import paged_attention
+    warm = new_engine(torch, cfg, params, "kernel")
+    for _ in range(SERVE_WARM_STEPS):
+        warm.step()
+    torch.cuda.synchronize()
+    del warm
+    # the timed run, on the kernels; counts set to 0 just before it
+    eng = new_engine(torch, cfg, params, "kernel")
+    counters = (paged_attention.paged_attention, page_ops.page_set,
+                page_ops.page_copy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    streams = {r.rid: strip_eos(r.out, r.eos) for r in done}
+    gen = sum(len(r.out) for r in done)
+    fed = sum(len(p) for p, _ in serve_requests(cfg.vocab))
+    emit({"phase": "serve", "arch": SERVE_ARCH, "params": n_params,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+          "requests": len(SERVE_MIX), "finished": len(done),
+          "init_params_s": round(init_s, 3), "decode_steps": eng.steps,
+          "wall_s": round(wall, 3), "ms_per_step": wall / eng.steps * 1e3,
+          "generated_tokens": gen, "tokens_per_s": gen / wall,
+          "prompt_tokens": fed, "fed_tokens_per_s": (fed + gen) / wall,
+          "host_s": eng.host_s, "warm_steps": SERVE_WARM_STEPS,
+          "kv_stats": eng.kv.stats, "traffic": eng.traffic.by_cat,
+          "launches": launches, "peak_device_bytes": peak,
+          "streams": {str(k): v for k, v in sorted(streams.items())}})
+    check(len(done) == len(SERVE_MIX), "not every request finished")
+    check(launches["paged_attention"] == eng.steps * cfg.n_layers,
+          f"paged_attention launches {launches['paged_attention']} != "
+          f"steps x layers {eng.steps * cfg.n_layers}")
+    for name, n in launches.items():
+        check(n > 0, f"the serve run never launched the {name} kernel")
+    check(eng.kv.stats["prefix_hits"] >= 3 and eng.kv.stats["cow"] >= 1,
+          f"the request mix gave no prefix hits or COW: {eng.kv.stats}")
+    for rid, out in streams.items():
+        check(0 < len(out) <= SERVE_MIX[rid][2] and any(out),
+              f"request {rid}: degenerate stream {out}")
+    check(bool(torch.isfinite(eng.logits).all()), "non-finite logits")
+    # the kernel route against the plain route, step by step
+    del eng
+    ek, _, busiest, most = lockstep(torch, cfg, params)
+    check({r.rid: strip_eos(r.out, r.eos) for r in ek.finished} == streams,
+          "the lockstep kernel run differs from the timed run")
+    timing = time_serving_kernels(torch, ek, busiest, most, errs)
+    if profile_dir:
+        del ek
+        serve_profile(torch, cfg, params, profile_dir)
+    return launches, timing
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=DEFAULT_SCALE,
@@ -470,16 +984,18 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    worst = 0.0
+    phase_build()
+    errs = dict.fromkeys(REPLACES, 0.0)
     kernels = []
     if "kernel" in args.only:
-        worst = phase_kernel(torch, dev)
+        errs = phase_kernel(torch, dev)
     if "hello" in args.only:
         phase_hello(torch)
     if "bc" in args.only:
         phase_bc(torch)
     if "full" in args.only:
-        launches, t = phase_full(torch, args.scale, worst,
+        launches, t = phase_full(torch, args.scale,
+                                 errs["walk_fetch_block"],
                                  args.out if args.profile else None)
         kernels.append({
             "name": "walk_fetch_block", "route": "cuda",
@@ -489,6 +1005,17 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": t["shape"]})
+    if "serve" in args.only:
+        launches, timing = phase_serve(torch, errs,
+                                       args.out if args.profile else None)
+        for name, t in timing.items():
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "library_ms": t["library_ms"],
+                "shape": t["shape"]})
     if set(args.only) != set(PHASES):
         emit({"phase": "partial", "ran": list(args.only),
               "seconds": round(time.time() - t_start, 1)})

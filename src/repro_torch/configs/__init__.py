@@ -1,1 +1,2 @@
-from .registry import FASE_ROCKET, FASE_ROCKET_PCIE  # noqa: F401
+from .registry import (CONFIGS, FASE_ROCKET, FASE_ROCKET_PCIE,  # noqa: F401
+                       get)

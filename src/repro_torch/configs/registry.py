@@ -1,13 +1,77 @@
-"""Target configurations of the paper's own system (FASE on Rocket).
+"""Assigned architectures (public-literature configs) and the target
+configurations of the paper's own system (FASE on Rocket).
 
-The reference registry also carries the language-model configurations of
-its serving/training layer; the port holds only the ``FASE_*`` target
-entries until that layer is ported.  The fleet, fabric and telemetry
-knobs are carried so the entries stay key-for-key comparable with the
-reference; the modules they configure are not ported yet.
+The language-model entries are shape constants only: no weights exist
+for them, and :func:`repro_torch.models.core.init_params` makes seeded
+random ones.  The serving path runs the dense entries; the MoE, hybrid
+and xLSTM sublayers are not ported yet.  The fleet, fabric and telemetry
+knobs of the ``FASE_*`` entries are carried so the entries stay
+key-for-key comparable with the reference; the modules they configure
+are not ported yet.
 """
 from __future__ import annotations
 
+from ..models.config import ModelConfig
+
+CONFIGS: dict[str, ModelConfig] = {}
+
+
+def _add(cfg: ModelConfig):
+    CONFIGS[cfg.name] = cfg
+    return cfg
+
+
+# --- [vlm] InternVL2-76B backbone (InternLM2): frontend = patch embeds ----
+internvl2_76b = _add(ModelConfig(
+    name="internvl2-76b", n_layers=80, d_model=8192, n_heads=64,
+    n_kv_heads=8, d_ff=28672, vocab=128256, frontend="vision"))
+
+# --- [audio] MusicGen-medium: decoder over EnCodec tokens ------------------
+musicgen_medium = _add(ModelConfig(
+    name="musicgen-medium", n_layers=48, d_model=1536, n_heads=24,
+    n_kv_heads=24, d_ff=6144, vocab=2048, frontend="audio"))
+
+# --- dense -----------------------------------------------------------------
+deepseek_coder_33b = _add(ModelConfig(
+    name="deepseek-coder-33b", n_layers=62, d_model=7168, n_heads=56,
+    n_kv_heads=8, d_ff=19200, vocab=32256))
+
+chatglm3_6b = _add(ModelConfig(
+    name="chatglm3-6b", n_layers=28, d_model=4096, n_heads=32,
+    n_kv_heads=2, d_ff=13696, vocab=65024))
+
+qwen3_8b = _add(ModelConfig(
+    name="qwen3-8b", n_layers=36, d_model=4096, n_heads=32,
+    n_kv_heads=8, d_ff=12288, vocab=151936, qk_norm=True))
+
+llama3_405b = _add(ModelConfig(
+    name="llama3-405b", n_layers=126, d_model=16384, n_heads=128,
+    n_kv_heads=8, d_ff=53248, vocab=128256))
+
+# --- MoE ---------------------------------------------------------------
+llama4_scout = _add(ModelConfig(
+    name="llama4-scout-17b-a16e", n_layers=48, d_model=5120, n_heads=40,
+    n_kv_heads=8, d_ff=8192, vocab=202048, arch_type="moe",
+    n_experts=16, top_k=1, moe_d_ff=8192))
+
+phi35_moe = _add(ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", n_layers=32, d_model=4096, n_heads=32,
+    n_kv_heads=8, d_ff=6400, vocab=32064, arch_type="moe",
+    n_experts=16, top_k=2, moe_d_ff=6400))
+
+# --- hybrid (Jamba: 1 attn : 7 mamba per period, MoE every 2nd layer) ------
+jamba_v01 = _add(ModelConfig(
+    name="jamba-v0.1-52b", n_layers=32, d_model=4096, n_heads=32,
+    n_kv_heads=8, d_ff=14336, vocab=65536, arch_type="hybrid",
+    hybrid_period=8, moe_every=2, n_experts=16, top_k=2, moe_d_ff=14336,
+    sliding_window=8192))
+
+# --- ssm (xLSTM: alternating mLSTM/sLSTM blocks) ----------------------------
+xlstm_350m = _add(ModelConfig(
+    name="xlstm-350m", n_layers=24, d_model=1024, n_heads=4,
+    n_kv_heads=4, d_ff=4096, vocab=50304, arch_type="ssm", xlstm=True))
+
+# --- the paper's own target (FASE on Rocket) is a core config, not an LM ---
 # ``link`` selects the host<->target channel backend by name from
 # repro_torch.core.channel.CHANNELS ("uart" | "pcie" | "oracle").  The queue-pair
 # knobs feed repro_torch.core.cq.AsyncHtpSession: ``session`` picks the sync or
@@ -81,3 +145,7 @@ FASE_FLEET_PROVISION = {**FASE_FLEET, "n_devices": 2,
 FASE_FLEET_NET = {**FASE_FLEET, "net_gbits_per_s": 16.0,
                   "net_latency_ticks": 500, "net_flit_bytes": 64,
                   "net_header_bytes": 16, "net_credits": 8}
+
+
+def get(name: str) -> ModelConfig:
+    return CONFIGS[name]

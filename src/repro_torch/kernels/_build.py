@@ -79,3 +79,44 @@ def load_all(names) -> dict[str, ctypes.CDLL]:
 
 def load(name: str) -> ctypes.CDLL:
     return load_all([name])[name]
+
+
+_entries: dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def entry(lib: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``fn`` of ``csrc/<lib>.cu`` (built and loaded at
+    the first call), returning an ``int`` CUDA error code."""
+    key = (lib, fn)
+    if key not in _entries:
+        f = getattr(load(lib), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _entries[key] = f
+    return _entries[key]
+
+
+def check_tensor(op, name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    whose shape matches ``shape`` (entries of None match any extent)."""
+    ok = (t.device == device and t.dtype == dtype and t.is_contiguous()
+          and t.dim() == len(shape)
+          and all(w is None or w == n for w, n in zip(shape, t.shape)))
+    if not ok:
+        raise ValueError(
+            f"{op}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def launch(op, fn, args, device):
+    """Call the C entry point ``fn`` with ``args`` on ``device`` (the
+    launch goes to the current device) and raise on a CUDA error."""
+    import torch
+    if device.index in (None, torch.cuda.current_device()):
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{op}: kernel launch failed with CUDA error {rc}")

@@ -14,32 +14,12 @@ import torch
 
 from .. import _build
 
-_fn = None
-
-
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = _build.load("page_walk").walk_fetch_block_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_uint64, ctypes.c_int, ctypes.c_int] + \
-            [ctypes.c_void_p] * 6
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_uint64, ctypes.c_int,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 6
 
 
 def _check(name, t, dtype, shape, device):
-    """``shape`` entries of None match any extent."""
-    ok = (t.device == device and t.dtype == dtype and t.is_contiguous()
-          and t.dim() == len(shape)
-          and all(w is None or w == n for w, n in zip(shape, t.shape)))
-    if not ok:
-        raise ValueError(
-            f"walk_fetch_block: {name} must be a contiguous {dtype} tensor "
-            f"of shape {shape} on {device}; got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    _build.check_tensor("walk_fetch_block", name, t, dtype, shape, device)
 
 
 def walk_fetch_block(mem, satp, va, mask, block_words, base=None,
@@ -79,15 +59,8 @@ walk_fetch_block_ref`, for tensors on a CUDA device: ``mem`` ``(W,)``
             pa.data_ptr(), fault.data_ptr(), walk_words.data_ptr(),
             insts.data_ptr(), nbytes.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    fn = _launcher()
-    if dev.index in (None, torch.cuda.current_device()):
-        rc = fn(*args)
-    else:                       # the launch goes to the current device
-        with torch.cuda.device(dev):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"walk_fetch_block: kernel launch failed with "
-                           f"CUDA error {rc}")
+    _build.launch("walk_fetch_block", _build.entry(
+        "page_walk", "walk_fetch_block_launch", _ARGS), args, dev)
     walk_fetch_block.launches += 1
     return pa, fault, walk_words, insts, nbytes
 

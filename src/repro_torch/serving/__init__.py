@@ -1,0 +1,1 @@
+"""Layer B of the port: the continuous-batching serving engine."""

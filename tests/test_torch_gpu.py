@@ -6,7 +6,9 @@ where there is none.  On a GPU machine run them with
 (``--noconftest`` because the shared conftest arms a fixture of the JAX
 package; this file imports only the port).  The kernel is held against
 its plain version, and the CUDA target against the CPU target, on the
-same inputs.  Integer results; tolerance 0."""
+same inputs.  Integer results and the page ops: tolerance 0; paged
+attention: the tolerances of tests/test_kernels.py (3e-3 in float32,
+2e-2 in bfloat16)."""
 import importlib.util
 from pathlib import Path
 
@@ -136,3 +138,43 @@ def test_cuda_target_equals_cpu_target(cuda, nc):
         raise AssertionError("program did not finish")
     assert targets[0].get_instret(0) > 200
     assert page_walk.walk_fetch_block.launches > before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_equals_plain_version(cuda, dtype):
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    smoke = _chip_smoke()
+    dt = getattr(torch, dtype)
+    before = PA.paged_attention.launches
+    n = 0
+    for B, H, Hkv, D, page, P, lens in (
+            (2, 4, 2, 32, 16, 3, [1, 48]), (1, 2, 1, 16, 8, 4, [0]),
+            (4, 32, 8, 128, 64, 8, [1, 64, 65, 512]),
+            (2, 32, 2, 128, 64, 2, [100, 3])):
+        args = smoke.attention_inputs(torch, cuda, B, H, Hkv, D, page, P, dt,
+                                      n, lens, pages=2 * B * P + 1)
+        smoke.attention_err(torch, *args)
+        n += 1
+    assert PA.paged_attention.launches == before + n
+
+
+def test_page_ops_kernels_equal_plain_versions(cuda):
+    from repro_torch.kernels.page_ops import page_ops
+    before = (page_ops.page_set.launches, page_ops.page_copy.launches)
+    _chip_smoke().check_page_ops(torch, cuda)
+    assert page_ops.page_set.launches > before[0]
+    assert page_ops.page_copy.launches > before[1]
+
+
+def test_serving_kernel_route_against_plain_route(cuda):
+    """chip_smoke.py's lockstep comparison of the kernel and plain routes
+    at smoke width: logits within its tolerance at every step, every
+    differing used token a near tie, the same schedule and traffic."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    smoke = _chip_smoke()
+    cfg = CONFIGS[smoke.SERVE_ARCH].smoke()
+    params = M.init_params(cfg, 0, device=cuda)
+    eng, stats, busiest, most = smoke.lockstep(torch, cfg, params)
+    assert stats["steps"] > 100 and stats["used_tokens"] > 0
+    assert most["page_set"] > 0 and busiest is not None

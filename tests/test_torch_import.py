@@ -15,6 +15,11 @@ PORT_MODULES = [
     "repro_torch.core.target.convert",
     "repro_torch.kernels.page_walk.ops",
     "repro_torch.configs.fase_rocket",
+    "repro_torch.models.core",
+    "repro_torch.serving.engine",
+    "repro_torch.launch.serve",
+    "repro_torch.kernels.paged_attention.ops",
+    "repro_torch.kernels.page_ops.ops",
 ]
 
 
@@ -58,6 +63,27 @@ def test_cuda_default_raises_without_a_card():
         run_workload("hello", [], n_cores=1, mem=1 << 22)
 
 
+def test_serving_entry_points_default_to_the_card():
+    """init_params, the decode state, ServeEngine and the serve launcher
+    default to the GPU and raise without one."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.launch.serve import main
+    from repro_torch.models import core as M
+    from repro_torch.serving.engine import ServeEngine
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = CONFIGS["qwen3-8b"].smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.make_decode_state(cfg, 1, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--smoke", "--requests", "1"])
+
+
 def test_unported_surfaces_raise():
     from repro_torch.core.interface import TorchTarget
     from repro_torch.core.runtime import FaseRuntime
@@ -70,3 +96,19 @@ def test_unported_surfaces_raise():
         FaseRuntime(t, telemetry={"interval_ticks": 1000})
     with pytest.raises(ValueError):
         TorchTarget(1, 1 << 20, device="cpu", fetch_kernel="pallas")
+
+
+def test_unported_serving_surfaces_raise():
+    """Fleet-sharded serving and the non-dense decode sublayers are later
+    slices (ROADMAP Queue A 7 and 9)."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    from repro_torch.serving.engine import ServeEngine
+    cfg = CONFIGS["qwen3-8b"].smoke()
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
+        ServeEngine(cfg, {}, fleet=object(), device="cpu")
+    moe = CONFIGS["llama4-scout-17b-a16e"].smoke()
+    state = M.make_decode_state(cfg, 1, 64, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 9"):
+        M.decode_step(moe, {}, state, torch.zeros((1,), dtype=torch.long))
