@@ -8,7 +8,7 @@ CUDA toolkit::
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's two paths:
+plain PyTorch version on the card, and drives the port's three paths:
 
 * the FASE path: the two reference pins (hello@UART, bc@PCIe) on
   ``TorchTarget(device="cuda")``, then the full-width run — the registry's
@@ -18,7 +18,13 @@ plain PyTorch version on the card, and drives the port's two paths:
 * the serving path: ``ServeEngine`` over qwen3-8b at full width (36
   layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
   slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
-  kernels and then in lockstep against the plain versions.
+  kernels and then in lockstep against the plain versions;
+* the training path: ``repro_torch.training.train_loop.train`` over
+  qwen3-8b at full width cut to ``TRAIN_LAYERS`` layers (the card's 80 GB
+  cannot hold AdamW's state for all 36), one sequence of 4096 tokens a
+  step, attention through the ``flash_attention`` kernel; one step on the
+  kernel route against the plain route; a failure-restart run at smoke
+  width against an uninterrupted one.
 
 Every phase prints one JSON line; any mismatch, build failure or launch
 error ends the run with a non-zero exit code, and nothing runs on the CPU
@@ -27,16 +33,21 @@ when no GPU is found.  The last line is ``{"ok": true, "device": {...}}``.
 Options (none are needed for the full check): ``--scale N`` picks the
 R-MAT scale of the full-width graph (one of ``FULL_WIDTH``), ``--only``
 limits the run to some phases, ``--profile`` adds ``torch.profiler``
-windows over the interpreter loop and over serving decode steps and
-writes their tables to ``--out`` (default ``smoke_out/``).
+windows over the interpreter loop, over serving decode steps and over a
+train step, and writes their tables to ``--out`` (default
+``smoke_out/``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import gc
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -60,8 +71,10 @@ FULL_WIDTH = {
 #: a slow host (the interpreter loop is launch-bound: ~10 ms a substep)
 DEFAULT_SCALE = 5
 
-#: published peak of one H100 SXM: HBM bytes per second
+#: published peaks of one H100 SXM: HBM bytes per second, dense bf16
+#: tensor-core FLOP per second
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 #: the TPU kernel each port kernel replaces (file:line of its pallas_call)
 REPLACES = {
     "walk_fetch_block": "src/repro/kernels/page_walk/page_walk.py:126",
@@ -69,15 +82,18 @@ REPLACES = {
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
     "page_copy": "src/repro/kernels/page_ops/page_ops.py:38",
+    "flash_attention":
+    "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
 SOURCES = {
     "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 #: every csrc/<name>.cu the paths launch
-CUDA_LIBS = ("page_walk", "page_ops", "paged_attention")
+CUDA_LIBS = ("page_walk", "page_ops", "paged_attention", "flash_attention")
 
 #: the serve run: qwen3-8b, 4 slots, max_seq 512, and the request mix as
 #: (kind, prompt length, max_new).  Both "S" prompts start with one
@@ -99,19 +115,55 @@ SERVE_MIX = (("A", 70, 16), ("S", 150, 16), ("S", 140, 16), ("B", 96, 16),
 #: and the two attention implementations round their bf16 outputs apart
 #: in a few elements, which 36 layers carry into the logits
 SERVE_LOGIT_TOL = 0.25
-#: paged_attention against its plain version on the card, as (atol,
-#: rtol): |kernel - plain| <= atol + rtol * |plain| elementwise.  Both
-#: compute in f32 and differ in summation order only, so f32 outputs agree
-#: to ~1e-6 and bf16 outputs by at most one rounding step (one ulp, at
-#: most 2**-7 of the value).  A kernel that drops one row of a 256-row
-#: sequence moves outputs of ~0.1 by ~0.01, beyond either bound.
+#: paged_attention and flash_attention against their plain versions on
+#: the card, as (atol, rtol): |kernel - plain| <= atol + rtol * |plain|
+#: elementwise.  Kernel and plain version compute in f32 and differ in
+#: summation order only, so f32 outputs agree to ~1e-6 and bf16 outputs by
+#: at most one rounding step (one ulp, at most 2**-7 of the value).  A
+#: kernel that drops one row of a 256-row sequence moves outputs of ~0.1
+#: by ~0.01, beyond either bound; at the training path's S = 4096, where
+#: outputs are ~0.03, dropping one 64-key tile moves a row by ~1/64 of its
+#: spread, about 2**-6 of the value.
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 #: decode steps run on a throwaway engine before the timed serve window,
 #: so that first-call costs (cuBLAS heuristics, allocator growth, pinned
 #: host blocks) fall outside it
 SERVE_WARM_STEPS = 8
 
-PHASES = ("kernel", "hello", "bc", "full", "serve")
+#: the train run: qwen3-8b at full width, depth cut from 36 to 12 layers
+#: (12 bytes a parameter — bf16 weights and gradients, f32 AdamW moments —
+#: are 42.7 GB at 12 layers and 98.3 GB at 36), batch 1 of the repository's
+#: train_4k sequence length (src/repro/launch/steps.py SHAPES), the first
+#: step warm
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 12, 1, 4096, 4
+#: the kernel route's gradients (the CUDA forward, attention_bwd) against
+#: autograd through the plain version, as the relative L2 error of each of
+#: dq, dk, dv: both are f32 arithmetic in another order (1e-4), and in
+#: bf16 the plain route rounds the per-head gradients of K and V to bf16
+#: before it sums a GQA group while attention_bwd sums in f32 (2e-2)
+FLASH_BWD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
+#: one full-width train step on the kernel route against the plain route,
+#: same parameters and batch: the loss (about 12.7) within
+#: TRAIN_LOSS_ATOL, the grad norm within TRAIN_GN_RTOL, and the gradient
+#: of each attention leaf (wq, wk, wv, wo, stacked over the layers) within
+#: TRAIN_LEAF_REL_L2 as a relative L2 error.  The two attention routes
+#: round their bf16 outputs apart in a few elements and their bf16 dK and
+#: dV apart by ~3e-3 relative L2 (the plain route rounds each head's
+#: gradient before it sums a GQA group); bf16 gradients and an unordered
+#: index_add on the embedding make bit-equality no property here.  The
+#: bf16 backward carries such differences through every layer: a one-ulp
+#: change in 0.1 % of the attention outputs alone moves each attention
+#: leaf's gradient by ~2e-2 relative L2, a wrong dK/dV of one GQA group by
+#: 0.4 or more (tests/test_torch_training.py).  The bounds stand a few
+#: times above the gaps measured on the card (PERF.md, training findings)
+TRAIN_LOSS_ATOL, TRAIN_GN_RTOL, TRAIN_LEAF_REL_L2 = 5e-4, 2e-3, 5e-2
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+#: the restart check at smoke width (the reference's fault test): the
+#: losses after the restore against the uninterrupted run's
+RESTART_ATOL = 1e-6
+
+PHASES = ("kernel", "hello", "bc", "full", "serve", "train")
 
 
 def emit(obj):
@@ -308,7 +360,7 @@ def phase_kernel(torch, dev):
           "cases": cases, "random_lanes": lanes, "tolerance": 0,
           "max_abs_err": worst, "equal": True})
     return {"walk_fetch_block": worst, **check_attention(torch, dev),
-            **check_page_ops(torch, dev)}
+            **check_page_ops(torch, dev), **check_flash_attention(torch, dev)}
 
 
 def attention_err(torch, q, kp, vp, bt, lens):
@@ -957,6 +1009,423 @@ def phase_serve(torch, errs, profile_dir):
     return launches, timing
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+def flash_inputs(torch, dev, B, S, H, Hkv, D, dtype, seed):
+    """Seeded q ``(B, S, H, D)``, k and v ``(B, S, Hkv, D)`` on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(h):
+        return torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+    return draw(H), draw(Hkv), draw(Hkv)
+
+
+def flash_err(torch, q, k, v, causal):
+    """Largest |kernel - plain version| of flash_attention on one input
+    set (``flash_mha`` on both routes); fails beyond ``ATTN_TOL`` or on a
+    non-finite output."""
+    from repro_torch.kernels.flash_attention import ops
+    got = ops.flash_mha(q, k, v, causal)
+    want = ops.flash_mha(q, k, v, causal, impl="ref")
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          "flash_attention: kernel output dtype/shape differs")
+    check(bool(torch.isfinite(got).all()), "flash_attention: non-finite")
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = ATTN_TOL[str(q.dtype).split(".")[1]]
+    over = float((diff - rtol * want.float().abs()).max())
+    check(over <= atol, f"flash_attention q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} {q.dtype} causal={causal}: kernel differs from "
+          f"the plain version by {over} beyond rtol {rtol} > atol {atol} "
+          f"(max abs diff {float(diff.max())})")
+    return float(diff.max())
+
+
+def check_flash_attention(torch, dev):
+    """flash_attention == its plain version on the card: the shapes of
+    tests/test_kernels.py as (BH, S, D) problems (B = BH, one head) —
+    (2,256,64) f32, (1,128,128) f32, (3,384,64) bf16 causal, (2,256,64)
+    non-causal — S = 1 and S = 200 (no multiple of a tile) causal and not,
+    the training path's (32, 4096, 128) bf16 causal, and flash_mha's GQA
+    fold at the path's shape (B 1, S 4096, H 32, Hkv 8, D 128)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((2, 256, 1, 1, 64), f32, True), ((1, 128, 1, 1, 128), f32, True),
+             ((3, 384, 1, 1, 64), bf16, True),
+             ((2, 256, 1, 1, 64), f32, False)]
+    for S in (1, 200):
+        cases += [((2, S, 1, 1, 64), f32, c) for c in (True, False)]
+        cases += [((1, S, 4, 2, 128), bf16, c) for c in (True, False)]
+    path = [((32, 4096, 1, 1, 128), bf16, True),
+            ((1, 4096, 32, 8, 128), bf16, True)]
+    errs = [flash_err(torch, *flash_inputs(torch, dev, *shape, dtype,
+                                           100 + i), causal)
+            for i, (shape, dtype, causal) in enumerate(cases + path)]
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    q, k, v = flash_inputs(torch, dev, 1, 8, 2, 1, 16, f32, 0)
+    for bad in (lambda: FA.flash_attention(q.cpu(), k, v),
+                lambda: FA.flash_attention(q.half(), k.half(), v.half()),
+                lambda: FA.flash_attention(q[..., :8].contiguous(),
+                                           k[..., :8].contiguous(),
+                                           v[..., :8].contiguous()),
+                lambda: FA.flash_attention(q.transpose(1, 2), k, v)):
+        try:
+            bad()
+        except ValueError:
+            continue
+        fail("the flash_attention wrapper accepted an input it must refuse")
+    emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
+          "cases": len(errs), "tolerance": ATTN_TOL, "max_abs_err": max(errs),
+          "path_max_abs_err": {str(shape): e for (shape, _, _), e in
+                               zip(path, errs[len(cases):])}})
+    return {"flash_attention": max(errs)}
+
+
+def path_shape(cfg):
+    """flash_attention's shape on the train run: (B, S, H, Hkv, D)."""
+    return (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+
+
+def check_flash_backward(torch, dev, cfg):
+    """The kernel route's gradients (CUDA forward, attention_bwd) against
+    autograd through the plain version, at (2, 256, 64) f32 and at the
+    path's GQA shape in bf16, each of dq, dk, dv within
+    ``FLASH_BWD_REL_L2``."""
+    from repro_torch.kernels.flash_attention import ops
+    out = {}
+    for shape, dtype in (((2, 256, 1, 1, 64), torch.float32),
+                         (path_shape(cfg), torch.bfloat16)):
+        q, k, v = flash_inputs(torch, dev, *shape, dtype, 7)
+        do = flash_inputs(torch, dev, *shape, dtype, 8)[0]
+        grads = []
+        for impl in ("kernel", "ref"):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ops.flash_mha(*leaves, causal=True, impl=impl).backward(do)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_REL_L2[str(dtype).split(".")[1]]
+        rel = {}
+        for name, a, b in zip("qkv", *grads):
+            check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                  f"flash backward d{name}: dtype or non-finite")
+            rel[f"d{name}"] = float((a.float() - b.float()).norm() /
+                                    b.float().norm())
+            check(rel[f"d{name}"] <= tol, f"flash backward {shape} {dtype} "
+                  f"d{name}: relative L2 {rel[f'd{name}']} > {tol}")
+        out[f"{shape}/{str(dtype).split('.')[1]}"] = rel
+    emit({"phase": "flash_backward_vs_plain", "rel_l2": out,
+          "tolerance": FLASH_BWD_REL_L2})
+
+
+def train_flops(cfg, tokens):
+    """Model FLOPs of one train step: 6·N·T (N every parameter, the
+    embedding included) plus the causal attention's 3 × 2·H·S²·D a layer
+    (forward, and twice that backward), per sequence of S = ``tokens``.
+    The recompute of the checkpointed layers is not model work."""
+    attn = 3 * 2 * cfg.n_heads * tokens ** 2 * cfg.d_head * cfg.n_layers
+    return 6 * cfg.param_count() * tokens + attn
+
+
+def gemm_flops(cfg, tokens):
+    """FLOPs of one train step's bf16 GEMMs: the layers' projections and
+    MLP four times (forward, recompute, and twice that backward), the LM
+    head three times (it is outside the checkpointed layers)."""
+    D, Dh = cfg.d_model, cfg.d_head
+    layer = (2 * D * cfg.n_heads * Dh + 2 * D * cfg.n_kv_heads * Dh +
+             3 * D * cfg.d_ff)
+    return 2 * tokens * (4 * layer * cfg.n_layers + 3 * D * cfg.vocab)
+
+
+def train_profile(torch, cfg, out_dir, s_per_step):
+    """A ``torch.profiler`` window over one more full-width train step
+    after the timed run: device time by kernel, launches, the device's
+    busy share against the unprofiled step time.  Before it, unprofiled,
+    the step's split by CUDA events — ``loss_and_grads`` (forward,
+    recompute, backward) and ``adamw_update`` — and the plain attention
+    backward of one layer alone at the path's shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.ref import attention_bwd
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import core as M
+    from repro_torch.training.optim import (AdamWConfig, adamw_update,
+                                            init_opt_state)
+    params = M.init_params(cfg, 0, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=g, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step(params, opt, batch)                                  # warm
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = loss_and_grads(cfg, params, batch)
+    ev[1].record()
+    adamw_update(AdamWConfig(), params, grads, opt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    q, k, v = flash_inputs(torch, params["embed"].device, *path_shape(cfg),
+                           torch.bfloat16, 2)
+    do = flash_inputs(torch, q.device, *path_shape(cfg), torch.bfloat16,
+                      3)[0]
+    split = {"loss_and_grads_ms": ev[0].elapsed_time(ev[1]),
+             "adamw_update_ms": ev[1].elapsed_time(ev[2]),
+             "attention_bwd_ms_per_layer": time_ms(
+                 torch, lambda: attention_bwd(q, k, v, do, True), 3,
+                 warmup=1)}
+    del q, k, v, do
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:12]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=-1))
+    fa = [e for e in on_dev if "flash_attention" in e.key]
+    gemm = {"bf16": [], "f32": []}
+    for e in on_dev:
+        name = e.key.lower()
+        if "nvjet" in name or ("gemm" in name and "bf16" in name):
+            gemm["bf16"].append(e)
+        elif "gemm" in name:
+            gemm["f32"].append(e)
+    gemm_ms = {t: sum(e.self_device_time_total for e in es) / 1e3
+               for t, es in gemm.items()}
+    flops = gemm_flops(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    out = {"phase": "train_profile", "split_ms": split,
+           "gemm_ms": gemm_ms,
+           "gemm_calls": {t: sum(e.count for e in es)
+                          for t, es in gemm.items()},
+           "bf16_gemm_flops": flops,
+           "bf16_gemm_tflop_per_s": flops / gemm_ms["bf16"] / 1e9,
+           "device_ms_per_step": dev_us / 1e3,
+           "kernel_launches_per_step": launches,
+           "device_busy_share": dev_us / (s_per_step * 1e6),
+           "flash_attention_device_ms": (
+               sum(e.self_device_time_total for e in fa) /
+               sum(e.count for e in fa) / 1e3 if fa else None),
+           "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                             for e in top}}
+    emit(out)
+    return out
+
+
+def time_flash(torch, dev, cfg, worst):
+    """flash_attention, its plain version and SDPA (measured only, never
+    on the path) at the path's shape: q (1, 4096, 32, 128), K/V with 8
+    heads, bf16, causal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    B, S, H, Hkv, D = path_shape(cfg)
+    q, k, v = flash_inputs(torch, dev, B, S, H, Hkv, D, torch.bfloat16, 9)
+    worst = max(worst, flash_err(torch, q, k, v, True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    flops = 2 * B * H * S * S * D            # two products, causal half
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    return dict(
+        ms=time_ms(torch, lambda: ops.flash_mha(q, k, v), 20, warmup=3),
+        plain_ms=time_ms(torch, lambda: ops.flash_mha(q, k, v, impl="ref"),
+                         3, warmup=1),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20, warmup=3),
+        library_max_abs_err=float((lib.float() - ops.flash_mha(
+            q, k, v, impl="ref").float()).abs().max()),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOP_PER_S >
+        nbytes / HBM_BYTES_PER_S else "bytes", flops=flops, bytes=nbytes,
+        max_abs_err=worst,
+        shape=dict(q=[B, S, H, D], kv=[B, S, Hkv, D], dtype="bfloat16",
+                   causal=True))
+
+
+def timed_steps(torch, cfg):
+    """``train``'s steps again, each timed on the host clock around a
+    device sync: seed-0 parameters, the pipeline's batches and
+    ``make_train_step`` (what ``train`` calls), without its checkpoint
+    and restart bookkeeping.  Returns each step's loss, grad norm and
+    seconds."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import core as M
+    from repro_torch.training.data import TokenPipeline
+    from repro_torch.training.optim import init_opt_state
+    params = M.init_params(cfg, 0, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        out.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                    "seconds": time.perf_counter() - t0})
+    pipe.close()
+    return out
+
+
+def route_check(torch, cfg, losses):
+    """One train step's loss, grad norm and attention-leaf gradients from
+    seed-0 parameters and the pipeline's first batch (what ``train``'s
+    first step saw) on the kernel route and on the plain route
+    (``impl="ref"``)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import core as M
+    from repro_torch.training.data import TokenPipeline
+    from repro_torch.training.optim import global_norm
+    params = M.init_params(cfg, 0, device="cuda")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
+    pipe.close()
+    got, attn = {}, {}
+    for impl in ("kernel", "ref"):
+        loss, grads = loss_and_grads(cfg, params, batch, impl)
+        got[impl] = (float(loss), float(global_norm(grads)))
+        attn[impl] = {n: grads["blocks"][0][n] for n in ATTN_LEAVES}
+        del grads
+    (lk, gk), (lr, gr) = got["kernel"], got["ref"]
+    leaf, per_layer = {}, {}
+    for n in ATTN_LEAVES:
+        a, b = attn["kernel"][n].float(), attn["ref"][n].float()
+        leaf[n] = float((a - b).norm() / b.norm())
+        per_layer[n] = ((a - b).flatten(1).norm(dim=1) /
+                        b.flatten(1).norm(dim=1)).tolist()
+    out = {"phase": "train_vs_plain", "loss_kernel": lk, "loss_plain": lr,
+           "grad_norm_kernel": gk, "grad_norm_plain": gr,
+           "attn_grad_rel_l2": leaf, "attn_grad_rel_l2_by_layer": per_layer,
+           "train_first_loss": losses[0],
+           "tolerance": {"loss_atol": TRAIN_LOSS_ATOL,
+                         "grad_norm_rtol": TRAIN_GN_RTOL,
+                         "attn_grad_rel_l2": TRAIN_LEAF_REL_L2}}
+    emit(out)
+    check(abs(lk - lr) <= TRAIN_LOSS_ATOL, f"train step: kernel-route loss "
+          f"{lk} vs plain {lr} beyond {TRAIN_LOSS_ATOL}")
+    check(abs(gk - gr) <= TRAIN_GN_RTOL * gr, f"train step: kernel-route "
+          f"grad norm {gk} vs plain {gr} beyond rtol {TRAIN_GN_RTOL}")
+    for n, e in leaf.items():
+        check(math.isfinite(e) and e <= TRAIN_LEAF_REL_L2, f"train step: "
+              f"kernel-route gradient of {n} vs plain: relative L2 {e} > "
+              f"{TRAIN_LEAF_REL_L2}")
+    check(abs(lk - losses[0]) <= TRAIN_LOSS_ATOL, f"train step: loss {lk} "
+          f"from seed-0 parameters is not train's first loss {losses[0]}")
+
+
+def restart_check(torch):
+    """The reference's fault test on the card at smoke width: fail at step
+    6 with checkpoints every 4 gives 12 losses, and the steps after the
+    restore equal an uninterrupted run's (deterministic algorithms on,
+    warning where an operation has none)."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.training.train_loop import FailureInjector, train
+    cfg = CONFIGS[TRAIN_ARCH].smoke()
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_") for _ in range(2)]
+    logs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        hit = train(cfg, steps=10, ckpt_dir=dirs[0], ckpt_every=4,
+                    injector=FailureInjector([6]), log=logs.append)
+        clean = train(cfg, steps=10, ckpt_dir=dirs[1], ckpt_every=4,
+                      log=logs.append)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    diff = max(abs(a - b) for a, b in zip(hit[6:], clean[4:])) \
+        if len(hit) == 12 else None
+    emit({"phase": "train_restart", "arch": f"{TRAIN_ARCH} smoke",
+          "losses": hit, "uninterrupted": clean, "max_abs_diff": diff,
+          "exact": hit[6:] == clean[4:], "tolerance": RESTART_ATOL,
+          "log": logs})
+    check(len(hit) == 12 and len(clean) == 10, f"restart run took "
+          f"{len(hit)} steps, uninterrupted {len(clean)}")
+    check(hit[:6] == clean[:6], "restart run differs before the failure")
+    check(diff <= RESTART_ATOL, f"restart run differs from the "
+          f"uninterrupted run after the restore by {diff}")
+    check(any(m.startswith("FAILURE: injected") for m in logs),
+          "the injected failure was not logged")
+
+
+def phase_train(torch, dev, errs, profile_dir):
+    from repro_torch.configs import CONFIGS
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.training.train_loop import train
+    gc.collect()
+    torch.cuda.empty_cache()                 # the serve phase's 17 GB
+    cfg = CONFIGS[TRAIN_ARCH].scaled(n_layers=TRAIN_LAYERS)
+    check_flash_backward(torch, dev, cfg)
+    logs = []
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0                   # just before the path
+    t0 = time.time()
+    try:
+        losses = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, ckpt_dir=ckdir,
+                       ckpt_every=TRAIN_STEPS + 1, log=logs.append)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = FA.flash_attention.launches           # just after it
+    peak = torch.cuda.max_memory_allocated()
+    records = timed_steps(torch, cfg)
+    timed = [r["seconds"] for r in records[1:]]
+    s_step = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ) * TRAIN_BATCH
+    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": len(losses),
+          "wall_s": round(wall, 3),
+          "first_timed_step_s": records[0]["seconds"],
+          "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+          "model_flops_per_step": flops,
+          "model_tflop_per_s": flops / s_step / 1e12,
+          "losses": losses, "timed_losses": [r["loss"] for r in records],
+          "grad_norms": [r["grad_norm"] for r in records],
+          "flash_attention_launches": launches,
+          "launches_per_step": launches / len(losses),
+          "peak_device_bytes": peak, "log": logs})
+    check(len(losses) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+              for r in records), "non-finite or zero grad norm")
+    check(all(abs(r["loss"] - x) <= TRAIN_LOSS_ATOL
+              for r, x in zip(records, losses)), "the timed steps' losses "
+          f"{[r['loss'] for r in records]} are not train's {losses}")
+    check(launches == 2 * TRAIN_LAYERS * TRAIN_STEPS,
+          f"flash_attention launches {launches} != 2 x layers x steps "
+          f"{2 * TRAIN_LAYERS * TRAIN_STEPS} (forward and recompute)")
+    if profile_dir:
+        train_profile(torch, cfg, profile_dir, s_step)
+        gc.collect()
+        torch.cuda.empty_cache()
+    route_check(torch, cfg, losses)
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart_check(torch)
+    return launches, time_flash(torch, dev, cfg, errs["flash_attention"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=DEFAULT_SCALE,
@@ -1016,6 +1485,18 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": t["library_ms"],
                 "shape": t["shape"]})
+    if "train" in args.only:
+        launches, t = phase_train(torch, dev, errs,
+                                  args.out if args.profile else None)
+        kernels.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_max_abs_err": t["library_max_abs_err"],
+            "shape": t["shape"]})
     if set(args.only) != set(PHASES):
         emit({"phase": "partial", "ran": list(args.only),
               "seconds": round(time.time() - t_start, 1)})

@@ -1,6 +1,7 @@
-"""Carry the reference's parameters and decode state into the port.
+"""Carry the reference's parameters, optimizer state and decode state into
+the port.
 
-Both functions take trees of numpy arrays (``jax.device_get`` of the
+The functions take trees of numpy arrays (``jax.device_get`` of the
 reference's pytrees, done by the caller, so this module imports no JAX)
 and return the port's layout on ``device``.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through
@@ -28,6 +29,16 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """The reference's AdamW state (``m``, ``v`` trees of f32 and the int32
+    ``step``) as the port's: the same trees of tensors and a 0-d int32
+    ``step`` tensor, so a train state carries over whole."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def decode_state_from_jax(state, device="cuda"):

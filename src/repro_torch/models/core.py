@@ -1,12 +1,16 @@
-"""Model substrate of the port: the dense decoder's decode path.
+"""Model substrate of the port: the dense decoder, for training and
+serving.
 
-The counterpart of :mod:`repro.models.core` for what serving runs:
-the primitives (:func:`rmsnorm`, :func:`rope`, :func:`swiglu`), the
-parameter layout and seeded initialisation (:func:`init_params`, plain
-dictionaries of tensors stacked over layers, as the reference's pytrees),
-the paged KV cache (:func:`make_decode_state`) and one decode step
-(:func:`decode_step`).  PyTorch runs eagerly, so the reference's layer
-``lax.scan`` is a Python loop and the decode state is updated in place.
+The counterpart of :mod:`repro.models.core`: the primitives
+(:func:`rmsnorm`, :func:`rope`, :func:`swiglu`), the parameter layout and
+seeded initialisation (:func:`init_params`, plain dictionaries of tensors
+stacked over layers, as the reference's pytrees), the training / prefill
+:func:`forward` and :func:`loss_fn`, the paged KV cache
+(:func:`make_decode_state`) and one decode step (:func:`decode_step`).
+PyTorch runs eagerly, so the reference's layer ``lax.scan`` is a Python
+loop, ``jax.checkpoint`` around a layer is
+``torch.utils.checkpoint.checkpoint`` and the decode state is updated in
+place.
 
 The KV cache is one **global** page pool per K and V, ``(steps, n_attn,
 NP, page, Hkv, D)``, addressed by the block table — the contract of the
@@ -18,20 +22,24 @@ same numbers (flatten the rows to ``B * pages_per_seq`` pages and offset
 row ``b``'s table by ``b * pages_per_seq``, as
 :func:`repro_torch.models.convert.decode_state_from_jax` does).
 
-Decode attention goes through
-:func:`repro_torch.kernels.paged_attention.ops.paged_decode`; the matrix
-products stay ``torch.matmul``, as the reference leaves them to XLA.
-Only the dense layout (``["attn", "mlp"]``, full attention) is ported:
-MoE, Mamba and xLSTM sublayers, sliding windows and the training/prefill
-``forward``/``loss_fn`` raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Attention goes through the ported kernels: :func:`forward` through
+:func:`repro_torch.kernels.flash_attention.ops.flash_mha` (the reference
+calls its own ``_online_attn``, the same function: ``q`` scaled in f32
+first, the causal mask by index, an f32 softmax), decode through
+:func:`repro_torch.kernels.paged_attention.ops.paged_decode`.  The matrix
+products stay ``torch.matmul``, as the reference leaves them to XLA.  Only
+the dense layout (``["attn", "mlp"]``, full attention) is ported: MoE,
+Mamba and xLSTM sublayers and sliding windows raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention.ops import flash_mha
 from ..kernels.paged_attention.ops import paged_decode
 from .config import ModelConfig
 
@@ -41,8 +49,8 @@ I32 = torch.int32
 
 PAGE_SIZE = 64          # tokens per KV page
 
-_NOT_PORTED = ("ROADMAP Queue A 9: only the dense decoder's decode path "
-               "is ported; {} is not")
+_NOT_PORTED = ("ROADMAP Queue A 9b: only the dense decoder is ported; {} "
+               "is not")
 
 
 def resolve_device(device) -> torch.device:
@@ -214,17 +222,88 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return params
 
 
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
+    """Causal self-attention over the whole sequence (the reference's
+    ``attention`` without a cache) with GQA, RoPE (``cos``/``sin`` from
+    :func:`rope_angles`) and qk-norm."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (x @ p["wq"]).reshape(B, S, H, D)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, D)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope_apply(q, cos, sin)
+    k = rope_apply(k, cos, sin)
+    o = flash_mha(q, k, v, causal=True, impl=impl)
+    return o.reshape(B, S, H * D) @ p["wo"]
+
+
+def _layer(cfg, layer, x, cos, sin, impl):
+    """One scan step of the dense layout: ``attn`` then ``mlp``, each
+    ``x + f(rmsnorm(x))`` (the reference's ``_apply_sublayer``)."""
+    attn, mlp = layer
+    x = x + attention(attn, cfg, rmsnorm(x, attn["norm"], cfg.norm_eps),
+                      cos, sin, impl)
+    return x + swiglu(mlp, rmsnorm(x, mlp["norm"], cfg.norm_eps))
+
+
+def _unstack(blocks):
+    """Per-layer views of the stacked block parameters.  ``unbind`` (not
+    one index per layer) so that the backward writes each stacked
+    gradient once, not once per layer."""
+    per = [{n: t.unbind(0) for n, t in sub.items()} for sub in blocks]
+    steps = len(next(iter(per[0].values())))
+    return [[{n: ts[i] for n, ts in sub.items()} for sub in per]
+            for i in range(steps)]
+
+
 def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
-            collect_cache=False, act_spec=None):
-    raise NotImplementedError(
-        "ROADMAP Queue A 9: forward (training/prefill, with the "
-        "flash_attention kernel, Queue B 5) is not ported yet")
+            collect_cache=False, impl="kernel"):
+    """tokens ``(B, S)`` -> ``(logits (B, S, V) bf16, aux)``.
+    ``prefix_embeds`` ``(B, P, d)`` replaces the embeddings of the first
+    ``P`` positions (modality stub).  Each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
+    backward recomputes it — and launches the attention kernel again.
+    ``aux`` (the MoE balance loss) is 0 for the dense layout.  ``impl``
+    picks the attention implementation, as in :func:`decode_step`."""
+    _check_dense(cfg)
+    if collect_cache:
+        raise NotImplementedError(_NOT_PORTED.format(
+            "forward(collect_cache=True), a prefill into the KV cache"))
+    x = params["embed"][tokens.long()].to(BF16)
+    if prefix_embeds is not None:
+        P = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(BF16), x[:, P:]], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
+    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    for layer in _unstack(params["blocks"]):
+        x = checkpoint(_layer, cfg, layer, x, cos, sin, impl,
+                       use_reentrant=False)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return x @ head, torch.zeros((), dtype=F32, device=x.device)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, act_spec=None):
-    raise NotImplementedError(
-        "ROADMAP Queue A 9: loss_fn (training, over forward) is not ported "
-        "yet")
+def loss_fn(cfg: ModelConfig, params, batch, impl="kernel"):
+    """Mean next-token NLL over the labels ``>= 0`` (f32 log-softmax of the
+    bf16 logits), plus ``0.01 * aux``."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("prefix_embeds"), impl=impl)
+    logits = logits.float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

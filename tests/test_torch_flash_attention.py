@@ -1,0 +1,153 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The plain versions (``attention_ref`` on ``(BH, S, D)``, ``flash_mha_ref``
+on ``(B, S, H, D)`` with GQA) against the reference's ``attention_ref``
+and its Pallas ``flash_mha`` in interpret mode, at the tolerances of
+``tests/test_kernels.py`` (2e-3 in float32, 2e-2 in bfloat16); the plain
+backward ``attention_bwd`` against ``jax.grad`` of the reference's
+``attention_ref`` through the GQA fold, in float32, to a relative L2
+error of 1e-5 per gradient (f32 rounding: both sum the same products in
+another order).  The CUDA kernel itself is held against the plain version
+on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import (
+    flash_attention as pallas_flash)
+from repro.kernels.flash_attention.ops import flash_mha as jax_flash_mha
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+                                                     attention_ref,
+                                                     flash_mha_ref)
+
+TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+GRAD_REL_L2 = 1e-5
+#: the shapes of tests/test_kernels.py, (BH, S, D)
+KERNEL_SHAPES = [((2, 256, 64), "float32"), ((1, 128, 128), "float32"),
+                 ((3, 384, 64), "bfloat16")]
+
+
+def _inputs(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    return [rng.standard_normal(s).astype(np_dt) for s in shapes]
+
+
+def _t(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape,dtype", KERNEL_SHAPES)
+def test_attention_ref_matches_the_reference(shape, dtype, causal):
+    q, k, v = _inputs(0, [shape] * 3, dtype)
+    got = attention_ref(_t(q), _t(k), _t(v), causal)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got, jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape,dtype", KERNEL_SHAPES)
+def test_flash_mha_ref_matches_the_pallas_kernel(shape, dtype, causal):
+    """The same shapes as (B=1, S, H=BH, D), against the reference's
+    flash_mha — the Pallas kernel in interpret mode."""
+    BH, S, D = shape
+    q, k, v = _inputs(1, [(1, S, BH, D)] * 3, dtype)
+    want = jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, interpret=True)
+    _close(flash_mha_ref(_t(q), _t(k), _t(v), causal), want, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mha_ref_gqa(causal):
+    """G = 4 (8 query heads on 2 KV heads) at a narrow width."""
+    q, k, v = _inputs(2, [(2, 128, 8, 16), (2, 128, 2, 16),
+                          (2, 128, 2, 16)], "float32")
+    want = jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, interpret=True)
+    _close(flash_mha_ref(_t(q), _t(k), _t(v), causal), want, "float32")
+    # the CPU route of the entry point is the plain version
+    _close(ops.flash_mha(_t(q), _t(k), _t(v), causal), want, "float32")
+
+
+@pytest.mark.parametrize("S", [1, 200])
+def test_attention_ref_at_any_length(S):
+    """S = 1 and an S that is no multiple of the TPU kernel's tile."""
+    for causal in (True, False):
+        q, k, v = _inputs(S, [(2, S, 64)] * 3, "float32")
+        got = attention_ref(_t(q), _t(k), _t(v), causal)
+        assert torch.isfinite(got).all()
+        _close(got, jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal), "float32")
+
+
+def test_pallas_kernel_is_nan_past_a_partial_tile():
+    """ROADMAP Queue C: at S = 200 (over 128 and not a multiple of the
+    128 tile) the reference's Pallas kernel reads its padded K/V rows as
+    NaN and ``p @ v`` carries ``0 * NaN`` into valid rows, while its
+    ``ref.py`` — the specification — and the port's plain version agree
+    and are finite.  The port's kernel computes ``ref.py`` at every S."""
+    q, k, v = _inputs(3, [(2, 200, 64)] * 3, "float32")
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    for causal in (True, False):
+        pallas = np.asarray(pallas_flash(jq, jk, jv, causal=causal,
+                                         interpret=True))
+        assert np.isnan(pallas).any()
+        want = jax_ref(jq, jk, jv, causal=causal)
+        assert np.isfinite(np.asarray(want)).all()
+        _close(attention_ref(_t(q), _t(k), _t(v), causal), want, "float32")
+
+
+def _jax_mha_ref(q, k, v, causal):
+    """The reference's GQA fold (``ops.py``) over its ``attention_ref``:
+    differentiable, unlike the Pallas kernel."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    fold = lambda x: x.transpose(0, 2, 1, 3).reshape(B * H, S, D)
+    o = jax_ref(fold(q), fold(jnp.repeat(k, G, axis=2)),
+                fold(jnp.repeat(v, G, axis=2)), causal=causal)
+    return o.reshape(B, H, S, D).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 64, 2, 2, 32),
+                                         (1, 96, 8, 2, 16)])
+def test_plain_backward_matches_jax_grad(B, S, H, Hkv, D, causal):
+    q, k, v, do = _inputs(4, [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                              (B, S, H, D)], "float32")
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        _jax_mha_ref(q, k, v, causal) * do), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = attention_bwd(_t(q), _t(k), _t(v), _t(do), causal)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        rel = np.linalg.norm(g.numpy() - w) / np.linalg.norm(w)
+        assert g.dtype == torch.float32 and rel < GRAD_REL_L2, (name, rel)
+
+
+def test_entry_point_checks_its_arguments():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_mha(q, q, q, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    # impl="ref" is the plain version by name on any device
+    assert torch.equal(ops.flash_mha(q, q, q, impl="ref"),
+                       flash_mha_ref(q, q, q))

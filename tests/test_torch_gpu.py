@@ -6,9 +6,9 @@ where there is none.  On a GPU machine run them with
 (``--noconftest`` because the shared conftest arms a fixture of the JAX
 package; this file imports only the port).  The kernel is held against
 its plain version, and the CUDA target against the CPU target, on the
-same inputs.  Integer results and the page ops: tolerance 0; paged
-attention: the tolerances of tests/test_kernels.py (3e-3 in float32,
-2e-2 in bfloat16)."""
+same inputs.  Integer results and the page ops: tolerance 0; the
+attention kernels: chip_smoke.py's ``ATTN_TOL`` (1e-5 + 1e-5·|plain| in
+float32, 1e-6 + 2⁻⁷·|plain|, one rounding step, in bfloat16)."""
 import importlib.util
 from pathlib import Path
 
@@ -178,3 +178,25 @@ def test_serving_kernel_route_against_plain_route(cuda):
     eng, stats, busiest, most = smoke.lockstep(torch, cfg, params)
     assert stats["steps"] > 100 and stats["used_tokens"] > 0
     assert most["page_set"] > 0 and busiest is not None
+
+
+def test_flash_attention_kernel_equals_plain_version(cuda):
+    """chip_smoke.py's cases: the test_kernels.py shapes, S = 1 and 200,
+    the training path's shapes, within ``ATTN_TOL``."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    before = FA.flash_attention.launches
+    _chip_smoke().check_flash_attention(torch, cuda)
+    assert FA.flash_attention.launches >= before + 12
+
+
+def test_flash_attention_backward_against_plain_version(cuda):
+    """The kernel route's dq, dk, dv against autograd through the plain
+    version, at (2, 256, 64) f32 and qwen3-8b's GQA shape in bf16."""
+    from repro_torch.configs import CONFIGS
+    _chip_smoke().check_flash_backward(torch, cuda, CONFIGS["qwen3-8b"])
+
+
+def test_training_restart_on_the_card(cuda):
+    """The reference's fault test at smoke width on the card: the steps
+    after the restore equal the uninterrupted run's."""
+    _chip_smoke().restart_check(torch)

@@ -20,6 +20,14 @@ PORT_MODULES = [
     "repro_torch.launch.serve",
     "repro_torch.kernels.paged_attention.ops",
     "repro_torch.kernels.page_ops.ops",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.training.train_loop",
+    "repro_torch.training.checkpoint",
+    "repro_torch.training.optim",
+    "repro_torch.training.data",
+    "repro_torch.launch.train",
+    "repro_torch.launch.steps",
 ]
 
 
@@ -82,6 +90,21 @@ def test_serving_entry_points_default_to_the_card():
         ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--requests", "1"])
+
+
+def test_training_entry_points_default_to_the_card():
+    """train and the train launcher default to the GPU and raise without
+    one."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.launch.train import main
+    from repro_torch.training.train_loop import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(CONFIGS["qwen3-8b"].smoke(), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--smoke", "--steps", "1"])
 
 
 def test_unported_surfaces_raise():
