@@ -82,6 +82,7 @@ REPLACES = {
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
     "page_copy": "src/repro/kernels/page_ops/page_ops.py:38",
+    "page_gather": "src/repro/kernels/page_ops/page_ops.py:94",
     "flash_attention":
     "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
@@ -90,6 +91,7 @@ SOURCES = {
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
+    "page_gather": "src/repro_torch/csrc/page_ops.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 #: every csrc/<name>.cu the paths launch
@@ -115,16 +117,9 @@ SERVE_MIX = (("A", 70, 16), ("S", 150, 16), ("S", 140, 16), ("B", 96, 16),
 #: and the two attention implementations round their bf16 outputs apart
 #: in a few elements, which 36 layers carry into the logits
 SERVE_LOGIT_TOL = 0.25
-#: paged_attention and flash_attention against their plain versions on
-#: the card, as (atol, rtol): |kernel - plain| <= atol + rtol * |plain|
-#: elementwise.  Kernel and plain version compute in f32 and differ in
-#: summation order only, so f32 outputs agree to ~1e-6 and bf16 outputs by
-#: at most one rounding step (one ulp, at most 2**-7 of the value).  A
-#: kernel that drops one row of a 256-row sequence moves outputs of ~0.1
-#: by ~0.01, beyond either bound; at the training path's S = 4096, where
-#: outputs are ~0.03, dropping one 64-key tile moves a row by ~1/64 of its
-#: spread, about 2**-6 of the value.
-ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
+#: page_gather's table on the serve pool's 65 pages: 8 entries, page 5
+#: twice
+GATHER_TABLE = (5, 64, 0, 17, 5, 33, 2, 9)
 #: decode steps run on a throwaway engine before the timed serve window,
 #: so that first-call costs (cuBLAS heuristics, allocator growth, pinned
 #: host blocks) fall outside it
@@ -254,6 +249,23 @@ def time_ms(torch, fn, iters, warmup=10):
     return t0.elapsed_time(t1) / iters
 
 
+#: CUPTI's overhead records as the profiler names them: spans on the host
+#: (a launch waiting for room in the device's command queue, the
+#: tracer's own buffers), not work of the device
+CUPTI_OVERHEAD = frozenset((
+    "Unknown", "Driver Compiler", "Buffer Flush", "Instrumentation",
+    "Resource", "Runtime Triggered Module Loading", "Lazy Function Loading",
+    "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"))
+
+
+def device_events(ka):
+    """The kernels, copies and memsets of a profile's ``key_averages()``:
+    its events on the CUDA device, CUPTI's overhead records left out."""
+    from torch.autograd import DeviceType
+    return [e for e in ka if e.device_type == DeviceType.CUDA and
+            e.key not in CUPTI_OVERHEAD]
+
+
 def walk_fetch_bound_ms(torch, out, lanes, block_words, active=None,
                         base=False):
     """Least time for one call on these inputs: every input read once and
@@ -368,6 +380,7 @@ def attention_err(torch, q, kp, vp, bt, lens):
     set; fails beyond the dtype's ``ATTN_TOL`` or on a non-finite
     output."""
     from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
     got = ops.paged_decode(q, kp, vp, bt, lens)
     want = ops.paged_decode(q, kp, vp, bt, lens, impl="ref")
     torch.cuda.synchronize()
@@ -409,6 +422,7 @@ def check_attention(torch, dev):
     (chatglm3-6b), zero lengths, and bf16 at the serving shape with lens
     of 1, mid-page, a page boundary and P * page."""
     import itertools
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
     worst, cases, s = 0.0, 0, 0
     for B, H, Hkv, D, page, P in itertools.product(
             (1, 2), (2, 4), (1, 2), (16, 32), (8, 16), (1, 2, 3, 4)):
@@ -451,12 +465,14 @@ def check_attention(torch, dev):
 
 
 def check_page_ops(torch, dev):
-    """page_set / page_copy == their plain versions on the card, array
-    equal: the reference test's pool and pairs, a chained pair
+    """page_set / page_copy / page_gather == their plain versions on the
+    card, array equal: the reference test's pool and pairs, a chained pair
     (``[[0,3],[3,5]]``: page 5 gets the old page 3), a duplicate
     destination (``[[0,3],[1,3]]``: the last pair wins), random pairs with
     repeats, on an f32 pool and on a layered bf16 pool of the serving
-    shape."""
+    shape; page_gather with a table of 8 pages holding a repeated id on
+    the f32 pool and on the serve K pool's shape (36, 1, 65, 64, 8, 128)
+    in bf16."""
     from repro_torch.kernels.page_ops import ops, page_ops
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -466,7 +482,7 @@ def check_page_ops(torch, dev):
     pair_sets = [[[0, 3], [5, 7]], [[0, 3], [3, 5]], [[0, 3], [1, 3]],
                  torch.randint(0, 8, (16, 2), generator=g, device=dev).tolist()]
     id_sets = [[1, 4], [4, 4, 2], [7]]
-    cases = {"page_set": 0, "page_copy": 0}
+    cases = {"page_set": 0, "page_copy": 0, "page_gather": 0}
     for pool in pools:
         for op, args_list in (("page_copy", pair_sets),
                               ("page_set", id_sets)):
@@ -491,13 +507,31 @@ def check_page_ops(torch, dev):
         check(torch.equal(got[..., 5, :, :, :], pool[..., 3, :, :, :]) and
               torch.equal(got[..., 3, :, :, :], pool[..., 0, :, :, :]),
               "page_copy: a chained pair did not read the old source")
-    for bad in (lambda: page_ops.page_set(pools[0].cpu(),
-                                          torch.tensor([1], dtype=torch.int32),
-                                          0.0),
+    serve_pool = torch.randn((36, 1, 65, 64, 8, 128), generator=g,
+                             device=dev).to(torch.bfloat16)
+    for pool, ids in ((pools[0], (5, 7, 0, 3, 5, 1, 2, 6)),
+                      (serve_pool, GATHER_TABLE)):
+        table = torch.tensor(ids, dtype=torch.int32, device=dev)
+        got = ops.page_gather(pool, table)
+        want = ops.page_gather(pool, table, impl="ref")
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"page_gather on {tuple(pool.shape)}: the kernel differs "
+              f"from the plain version")
+        cases["page_gather"] += 1
+    one = torch.tensor([1], dtype=torch.int32)
+    too_many = page_ops.COPY_MAX_PAIRS + 1
+    for bad in (lambda: page_ops.page_set(pools[0].cpu(), one, 0.0),
                 lambda: page_ops.page_set(pools[0], torch.tensor(
                     [1], device=dev), 0.0),
                 lambda: page_ops.page_copy(pools[0], torch.tensor(
-                    [1, 2], dtype=torch.int32, device=dev))):
+                    [1, 2], dtype=torch.int32, device=dev)),
+                lambda: page_ops.page_copy(pools[0], torch.zeros(
+                    (too_many, 2), dtype=torch.int32, device=dev)),
+                lambda: page_ops.page_gather(pools[0].cpu(), one),
+                lambda: page_ops.page_gather(pools[0], table.long()),
+                lambda: page_ops.page_gather(pools[0].transpose(1, 2),
+                                             table)):
         try:
             bad()
         except ValueError:
@@ -506,7 +540,7 @@ def check_page_ops(torch, dev):
     for op, n in cases.items():
         emit({"phase": "kernel_vs_plain", "kernel": op, "cases": n,
               "tolerance": 0, "max_abs_err": 0.0, "equal": True})
-    return {"page_set": 0.0, "page_copy": 0.0}
+    return dict.fromkeys(cases, 0.0)
 
 
 def time_walk_fetch(torch, tgt, worst):
@@ -607,7 +641,7 @@ _start:
         torch.cuda.synchronize()
     wall = time.time() - t0
     ka = prof.key_averages()
-    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    on_dev = device_events(ka)
     dev_us = sum(e.self_device_time_total for e in on_dev)
     walk = [e for e in on_dev if "walk_fetch_block" in e.key]
     check(len(walk) == 1, "profile: walk_fetch_block kernel not traced")
@@ -819,7 +853,10 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
     that computes the same (where there is one), at the serve run's
     shapes: paged_attention on layer 0's pools with the busiest step's
     block table and lengths; page_set / page_copy on the whole K pool
-    (every layer) with the largest id list the run gave them."""
+    (every layer) with the largest id list the run gave them; page_gather,
+    which no path calls, on the same pool with a table of 8 pages (one id
+    repeated), beside ``index_select``, its library call and plain
+    version alike."""
     from repro_torch.kernels.page_ops import ops as page_ops
     from repro_torch.kernels.paged_attention import ops as attn_ops
     cfg, dev = eng.cfg, eng.device
@@ -882,6 +919,21 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
         HBM_BYTES_PER_S * 1e3,
         max_abs_err=errs["page_copy"],
         shape=dict(pool=list(pool.shape), pairs=k_cp, dtype="bfloat16"))
+    table = torch.tensor(GATHER_TABLE, dtype=torch.int32, device=dev)
+    got = page_ops.page_gather(pool, table)
+    check(torch.equal(got, page_ops.page_gather(pool, table, impl="ref")),
+          "page_gather at the serve shape: kernel differs from the plain "
+          "version")
+    del got
+    k_g = table.shape[0]
+    gather_ms = time_ms(torch, lambda: pool.index_select(-4, table), 200)
+    out["page_gather"] = dict(
+        ms=time_ms(torch, lambda: page_ops.page_gather(pool, table), 200),
+        plain_ms=gather_ms, library_ms=gather_ms,
+        bound_ms=(2 * k_g * layers * page_bytes + 4 * k_g) /
+        HBM_BYTES_PER_S * 1e3,
+        max_abs_err=errs["page_gather"],
+        shape=dict(pool=list(pool.shape), table=k_g, dtype="bfloat16"))
     return out
 
 
@@ -892,7 +944,6 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
     ``steps`` unprofiled steps before it, whose host time the engine
     splits into scheduling, enqueueing and polling), and paged_attention's
     device time per launch."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng = new_engine(torch, cfg, params, "kernel")
     eng.begin()
@@ -912,7 +963,7 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
             eng.step()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    on_dev = device_events(ka)
     dev_us = sum(e.self_device_time_total for e in on_dev) / steps
     attn = [e for e in on_dev if "paged_attention" in e.key]
     n_attn = sum(e.count for e in attn)
@@ -959,7 +1010,7 @@ def phase_serve(torch, errs, profile_dir):
     # the timed run, on the kernels; counts set to 0 just before it
     eng = new_engine(torch, cfg, params, "kernel")
     counters = (paged_attention.paged_attention, page_ops.page_set,
-                page_ops.page_copy)
+                page_ops.page_copy, page_ops.page_gather)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -990,7 +1041,8 @@ def phase_serve(torch, errs, profile_dir):
           f"paged_attention launches {launches['paged_attention']} != "
           f"steps x layers {eng.steps * cfg.n_layers}")
     for name, n in launches.items():
-        check(n > 0, f"the serve run never launched the {name} kernel")
+        check(n > 0 or name == "page_gather",
+              f"the serve run never launched the {name} kernel")
     check(eng.kv.stats["prefix_hits"] >= 3 and eng.kv.stats["cow"] >= 1,
           f"the request mix gave no prefix hits or COW: {eng.kv.stats}")
     for rid, out in streams.items():
@@ -1025,9 +1077,17 @@ def flash_inputs(torch, dev, B, S, H, Hkv, D, dtype, seed):
 def flash_err(torch, q, k, v, causal):
     """Largest |kernel - plain version| of flash_attention on one input
     set (``flash_mha`` on both routes); fails beyond ``ATTN_TOL`` or on a
-    non-finite output."""
+    non-finite output, and where a bfloat16 case at D = 64 or 128 did not
+    run the tensor-core design."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
     got = ops.flash_mha(q, k, v, causal)
+    want_design = "tensor-core" if q.dtype == torch.bfloat16 and \
+        q.shape[-1] in (64, 128) else "scalar"
+    check(FA.flash_attention.last_design == want_design,
+          f"flash_attention q {tuple(q.shape)} {q.dtype}: ran the "
+          f"{FA.flash_attention.last_design} design, not {want_design}")
     want = ops.flash_mha(q, k, v, causal, impl="ref")
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape,
@@ -1049,7 +1109,11 @@ def check_flash_attention(torch, dev):
     (2,256,64) f32, (1,128,128) f32, (3,384,64) bf16 causal, (2,256,64)
     non-causal — S = 1 and S = 200 (no multiple of a tile) causal and not,
     the training path's (32, 4096, 128) bf16 causal, and flash_mha's GQA
-    fold at the path's shape (B 1, S 4096, H 32, Hkv 8, D 128)."""
+    fold at the path's shape (B 1, S 4096, H 32, Hkv 8, D 128); S = 129
+    and 4097 (one row and one key past a 128 tile) causal and not, and a
+    D = 64 GQA case, in bf16.  Prints which design each case ran."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((2, 256, 1, 1, 64), f32, True), ((1, 128, 1, 1, 128), f32, True),
              ((3, 384, 1, 1, 64), bf16, True),
@@ -1057,12 +1121,21 @@ def check_flash_attention(torch, dev):
     for S in (1, 200):
         cases += [((2, S, 1, 1, 64), f32, c) for c in (True, False)]
         cases += [((1, S, 4, 2, 128), bf16, c) for c in (True, False)]
+    for S in (129, 4097):
+        cases += [((1, S, 4, 2, 128), bf16, c) for c in (True, False)]
+    cases += [((2, 300, 8, 2, 64), bf16, True),
+              ((1, 200, 4, 4, 16), bf16, True)]
     path = [((32, 4096, 1, 1, 128), bf16, True),
             ((1, 4096, 32, 8, 128), bf16, True)]
-    errs = [flash_err(torch, *flash_inputs(torch, dev, *shape, dtype,
-                                           100 + i), causal)
-            for i, (shape, dtype, causal) in enumerate(cases + path)]
-    from repro_torch.kernels.flash_attention import flash_attention as FA
+    errs, designs = [], []
+    for i, (shape, dtype, causal) in enumerate(cases + path):
+        errs.append(flash_err(torch, *flash_inputs(torch, dev, *shape, dtype,
+                                                   100 + i), causal))
+        designs.append({"shape": list(shape), "dtype": str(dtype)[6:],
+                        "causal": causal,
+                        "design": FA.flash_attention.last_design,
+                        "max_abs_err": errs[-1]})
+    emit({"phase": "flash_designs", "cases": designs})
     q, k, v = flash_inputs(torch, dev, 1, 8, 2, 1, 16, f32, 0)
     for bad in (lambda: FA.flash_attention(q.cpu(), k, v),
                 lambda: FA.flash_attention(q.half(), k.half(), v.half()),
@@ -1144,7 +1217,6 @@ def train_profile(torch, cfg, out_dir, s_per_step):
     the step's split by CUDA events — ``loss_and_grads`` (forward,
     recompute, backward) and ``adamw_update`` — and the plain attention
     backward of one layer alone at the path's shape."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention.ref import attention_bwd
@@ -1185,7 +1257,7 @@ def train_profile(torch, cfg, out_dir, s_per_step):
         step(params, opt, batch)
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    on_dev = device_events(ka)
     dev_us = sum(e.self_device_time_total for e in on_dev)
     launches = sum(e.count for e in ka if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
@@ -1212,6 +1284,11 @@ def train_profile(torch, cfg, out_dir, s_per_step):
            "bf16_gemm_flops": flops,
            "bf16_gemm_tflop_per_s": flops / gemm_ms["bf16"] / 1e9,
            "device_ms_per_step": dev_us / 1e3,
+           # host time a launch waited for room in the device's queue:
+           # the host ran ahead of the device
+           "host_ms_command_buffer_full": sum(
+               e.self_cpu_time_total for e in ka
+               if e.key == "Command Buffer Full") / 1e3,
            "kernel_launches_per_step": launches,
            "device_busy_share": dev_us / (s_per_step * 1e6),
            "flash_attention_device_ms": (
@@ -1229,6 +1306,7 @@ def time_flash(torch, dev, cfg, worst):
     heads, bf16, causal."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops
     B, S, H, Hkv, D = path_shape(cfg)
     q, k, v = flash_inputs(torch, dev, B, S, H, Hkv, D, torch.bfloat16, 9)
@@ -1250,6 +1328,7 @@ def time_flash(torch, dev, cfg, worst):
         bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOP_PER_S >
         nbytes / HBM_BYTES_PER_S else "bytes", flops=flops, bytes=nbytes,
+        design=FA.flash_attention.last_design,
         max_abs_err=worst,
         shape=dict(q=[B, S, H, D], kv=[B, S, Hkv, D], dtype="bfloat16",
                    causal=True))
@@ -1485,6 +1564,10 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": t["library_ms"],
                 "shape": t["shape"]})
+            if name == "page_gather":
+                kernels[-1].update(note="no path of the system calls "
+                                        "page_gather; checked and timed "
+                                        "alone")
     if "train" in args.only:
         launches, t = phase_train(torch, dev, errs,
                                   args.out if args.profile else None)
@@ -1496,6 +1579,7 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_max_abs_err": t["library_max_abs_err"],
+            "design": t["design"],
             "shape": t["shape"]})
     if set(args.only) != set(PHASES):
         emit({"phase": "partial", "ran": list(args.only),

@@ -5,7 +5,10 @@ counterpart of the TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py`` with the GQA fold of
 its ``ops.py``; its plain PyTorch version is
 :func:`repro_torch.kernels.flash_attention.ref.flash_mha_ref`.  The
-library is built and loaded at the first call, never at import.
+library is built and loaded at the first call, never at import.  It holds
+two designs, picked by dtype and head dimension in the C launcher: the
+tensor-core kernel (``wgmma`` fed by TMA) for bfloat16 at D = 64 and 128,
+the scalar f32 kernel for float32 and for bfloat16 at D = 16 and 32.
 """
 from __future__ import annotations
 
@@ -17,7 +20,10 @@ from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+#: the kernel's designs, by the code its launch reports
+DESIGNS = ("scalar", "tensor-core")
 
 
 def flash_attention(q, k, v, causal=True):
@@ -45,15 +51,23 @@ flash_mha_ref`, for CUDA tensors: ``q`` ``(B, S, H, D)``, ``k``/``v``
                          f"B, S >= 1; got B={B} S={S} H={H} Hkv={Hkv} D={D}")
     if S > 65535 * 64:
         raise ValueError(f"{op}: S={S} is over the grid's {65535 * 64}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{op}: q, k and v must start at 16-byte aligned "
+                         "addresses (TMA reads them)")
     out = torch.empty_like(q)
+    ran = ctypes.c_int(-1)
     _build.launch(op, _build.entry("flash_attention",
                                    "flash_attention_launch", _ARGS),
                   (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, S, H, Hkv, D, int(causal), _DTYPES[q.dtype],
-                   torch.cuda.current_stream(dev).cuda_stream), dev)
+                   torch.cuda.current_stream(dev).cuda_stream,
+                   ctypes.byref(ran)), dev)
     flash_attention.launches += 1
+    flash_attention.last_design = DESIGNS[ran.value]
     return out
 
 
 #: launches of the CUDA kernel since the counter was last set to 0
 flash_attention.launches = 0
+#: the design the last launch ran (``DESIGNS``), None before the first
+flash_attention.last_design = None

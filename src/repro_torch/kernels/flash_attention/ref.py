@@ -22,6 +22,18 @@ import torch
 
 #: the masked score, as the reference writes it
 NEG = -1e30
+#: how far the attention kernels (``flash_attention``, ``paged_attention``)
+#: may lie from their plain versions on the card, as (atol, rtol) by
+#: dtype: |kernel - plain| <= atol + rtol * |plain| elementwise.  Kernel
+#: and plain version compute in f32 and differ in summation order only
+#: (flash_attention's tensor-core design carries the probabilities as
+#: three bf16 parts, 24 bits of mantissa), so f32 outputs agree to ~1e-6
+#: and bf16 outputs by at most one rounding step (one ulp, at most 2**-7
+#: of the value).  A kernel that drops one row of a 256-row sequence moves
+#: outputs of ~0.1 by ~0.01, beyond either bound; at the training path's
+#: S = 4096, where outputs are ~0.03, dropping one 64-key tile moves a row
+#: by ~1/64 of its spread, about 2**-6 of the value.
+ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 
 
 def attention_ref(q, k, v, causal=True):

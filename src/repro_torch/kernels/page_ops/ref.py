@@ -7,7 +7,7 @@ ids on every layer.  ``page_set_ref`` and ``page_copy_ref`` update the
 pool in place and return it, as the CUDA kernels of
 ``repro_torch/csrc/page_ops.cu`` do; the reference's functional
 ``pool.at[...].set`` becomes an in-place write on a pool nobody else
-holds.  ``page_gather_ref`` has no kernel in the port: no path calls it.
+holds.  ``page_gather_ref`` returns a new tensor, as its kernel does.
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ backward ``attention_bwd`` against ``jax.grad`` of the reference's
 ``attention_ref`` through the GQA fold, in float32, to a relative L2
 error of 1e-5 per gradient (f32 rounding: both sum the same products in
 another order).  The CUDA kernel itself is held against the plain version
-on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``); here its
+tensor-core design's numerics are emulated, to pin why it splits the
+probabilities into three bf16 parts (``ref.ATTN_TOL``, the card check's
+bound).
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +27,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention)
-from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+from repro_torch.kernels.flash_attention.ref import (ATTN_TOL, attention_bwd,
                                                      attention_ref,
                                                      flash_mha_ref)
 
@@ -151,3 +154,101 @@ def test_entry_point_checks_its_arguments():
     # impl="ref" is the plain version by name on any device
     assert torch.equal(ops.flash_mha(q, q, q, impl="ref"),
                        flash_mha_ref(q, q, q))
+
+
+# A pin of the tensor-core design's numerics: the kernel runs only on the
+# card, so its arithmetic is emulated here against the bound the card
+# check holds it to.
+
+def _tensor_core_numerics(q, k, v, causal, parts):
+    """The tensor-core design's arithmetic on the CPU, (BH, S, D) bf16:
+    128-row query tiles over 128-key tiles, scores in f32 scaled by
+    log2(e)/sqrt(D), an online softmax in the exp2 domain from -1e30, the
+    row sum l from the f32 probabilities, and P V accumulated in f32 from
+    P split into ``parts`` bf16 parts, each the rounding of what the parts
+    before it left over (the kernel uses 3)."""
+    BH, S, D = q.shape
+    scale = 1.4426950408889634 / np.sqrt(D)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(qf)
+    rows = torch.arange(S)[:, None]
+    for q0 in range(0, S, 128):
+        qt = qf[:, q0:q0 + 128]
+        n = qt.shape[1]
+        m = torch.full((BH, n, 1), -1e30)
+        l = torch.zeros((BH, n, 1))
+        acc = torch.zeros((BH, n, D))
+        end = min(S, q0 + 128) if causal else S
+        for k0 in range(0, end, 128):
+            s = qt @ kf[:, k0:k0 + 128].transpose(1, 2) * scale
+            cols = torch.arange(k0, min(S, k0 + 128))[None]
+            if causal:
+                s = torch.where(cols <= rows[q0:q0 + n], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            vt = vf[:, k0:k0 + 128]
+            pv = torch.zeros_like(acc)
+            for _ in range(parts):
+                part = p.bfloat16().float()
+                pv = pv + part @ vt
+                p = p - part
+            acc = acc * corr + pv
+            m = m_new
+        out[:, q0:q0 + n] = acc / l
+    return out.to(q.dtype)
+
+
+def _over_chip_tolerance(got, want):
+    atol, rtol = ATTN_TOL["bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    return int((diff > atol + rtol * want.float().abs()).sum())
+
+
+def _folded(seed, B, S, H, Hkv, D):
+    """(B, S, H, Hkv, D) GQA inputs as flash_mha folds them: (B·H, S, D),
+    each KV head read by its H / Hkv query heads."""
+    q, k, v = (_t(x) for x in _inputs(seed, [(B, S, H, D), (B, S, Hkv, D),
+                                              (B, S, Hkv, D)], "bfloat16"))
+
+    def fold(x):
+        return x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2) \
+            .reshape(B * H, S, D)
+    return fold(q), fold(k), fold(v)
+
+
+@pytest.mark.parametrize("shape,causal", [((3, 384, 1, 1, 64), True),
+                                          ((4, 200, 1, 1, 128), False),
+                                          ((1, 200, 4, 2, 128), True),
+                                          ((2, 300, 8, 2, 64), True)])
+def test_tensor_core_numerics_need_three_parts_of_p(shape, causal):
+    """Why the tensor-core kernel issues P three times: split into three
+    bf16 parts its arithmetic meets the card check's ``ATTN_TOL`` against
+    ``attention_ref``; rounded to bf16 once (a textbook FA kernel) it
+    misses it by hundreds of elements or more."""
+    q, k, v = _folded(sum(shape), *shape)
+    want = attention_ref(q, k, v, causal)
+    got = _tensor_core_numerics(q, k, v, causal, parts=3)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert _over_chip_tolerance(got, want) == 0
+    single = _tensor_core_numerics(q, k, v, causal, parts=1)
+    assert _over_chip_tolerance(single, want) > 100
+
+
+#: inputs seeded 0, 1, 2: two parts miss at seeds 0 and 2
+SEEDS_TWO_PARTS = 3
+
+
+def test_two_parts_of_p_miss_the_tolerance_where_outputs_cancel():
+    """Two parts leave 2^-18 of P: at (2, 300, 8, 2, 64) causal an output
+    that cancels to near 0 then misses the 1e-6 absolute floor of
+    ``ATTN_TOL``, which three parts meet."""
+    over = {2: 0, 3: 0}
+    for seed in range(SEEDS_TWO_PARTS):
+        q, k, v = _folded(seed, 2, 300, 8, 2, 64)
+        want = attention_ref(q, k, v, True)
+        for parts in over:
+            over[parts] += _over_chip_tolerance(
+                _tensor_core_numerics(q, k, v, True, parts), want)
+    assert over[2] > 0 and over[3] == 0

@@ -7,8 +7,9 @@ where there is none.  On a GPU machine run them with
 package; this file imports only the port).  The kernel is held against
 its plain version, and the CUDA target against the CPU target, on the
 same inputs.  Integer results and the page ops: tolerance 0; the
-attention kernels: chip_smoke.py's ``ATTN_TOL`` (1e-5 + 1e-5·|plain| in
-float32, 1e-6 + 2⁻⁷·|plain|, one rounding step, in bfloat16)."""
+attention kernels: ``kernels/flash_attention/ref.py::ATTN_TOL`` (1e-5 +
+1e-5·|plain| in float32, 1e-6 + 2⁻⁷·|plain|, one rounding step, in
+bfloat16)."""
 import importlib.util
 from pathlib import Path
 
@@ -164,6 +165,24 @@ def test_page_ops_kernels_equal_plain_versions(cuda):
     _chip_smoke().check_page_ops(torch, cuda)
     assert page_ops.page_set.launches > before[0]
     assert page_ops.page_copy.launches > before[1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_page_gather_kernel_equals_plain_version(cuda, dtype):
+    """A layered pool and a table with a repeated id: the kernel's dense
+    copy equals ``index_select`` bit for bit, and its counter moves."""
+    from repro_torch.kernels.page_ops import ops, page_ops
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    pool = torch.randn((3, 2, 9, 16, 2, 32), generator=g,
+                       device=cuda).to(getattr(torch, dtype))
+    table = torch.tensor([8, 0, 3, 8], dtype=torch.int32, device=cuda)
+    before = page_ops.page_gather.launches
+    got = ops.page_gather(pool, table)
+    want = ops.page_gather(pool, table, impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == (3, 2, 4, 16, 2, 32) and torch.equal(got, want)
+    assert page_ops.page_gather.launches == before + 1
 
 
 def test_serving_kernel_route_against_plain_route(cuda):

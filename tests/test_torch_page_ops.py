@@ -114,3 +114,61 @@ def test_impl_and_device_selection():
         page_ops.page_copy(pool, torch.tensor([[0, 1]], dtype=torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
         ops.page_set(pool.transpose(1, 2), ids, 0.0)
+
+
+def test_page_gather_routing():
+    """A CPU pool goes to the plain version (no launch), ``impl="ref"``
+    names it on any device, and an unknown ``impl`` raises."""
+    pool = torch.from_numpy(_pool())
+    table = torch.tensor([6, 1, 6], dtype=torch.int32)
+    before = page_ops.page_gather.launches
+    got = ops.page_gather(pool, table)
+    assert page_ops.page_gather.launches == before
+    assert torch.equal(got, pool[[6, 1, 6]])
+    assert torch.equal(ops.page_gather(pool, table, impl="ref"), got)
+    with pytest.raises(ValueError, match="impl"):
+        ops.page_gather(pool, table, impl="pallas")
+
+
+def test_page_gather_kernel_wrapper_refuses_what_it_does_not_take():
+    pool = torch.from_numpy(_pool())
+    table = torch.tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_ops.page_gather(pool, table)
+    with pytest.raises(ValueError, match="int32"):
+        page_ops.page_gather(pool, table.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        page_ops.page_gather(pool.transpose(1, 2), table)
+
+
+def test_page_gather_ref_with_layer_axes_matches_jax_per_layer():
+    """A layered pool ``(3, 2, NP, page, H, D)``: each layer's gather is
+    the reference's, and the Pallas kernel's in interpret mode."""
+    pool = _pool(shape=(3, 2, 8, 4, 2, 16))
+    table = np.asarray([5, 0, 5, 7], np.int32)
+    got = ops.page_gather(torch.from_numpy(pool), torch.from_numpy(table))
+    assert got.shape == (3, 2, 4, 4, 2, 16)
+    for a in range(3):
+        for b in range(2):
+            layer = jnp.asarray(pool[a, b])
+            np.testing.assert_array_equal(
+                got[a, b].numpy(),
+                np.asarray(PR.page_gather_ref(layer, jnp.asarray(table))))
+            np.testing.assert_array_equal(
+                got[a, b].numpy(),
+                np.asarray(PK.page_gather(layer, jnp.asarray(table),
+                                          interpret=True)))
+
+
+def test_page_copy_kernel_wrapper_limits_its_pairs():
+    """One CTA holds a chunk of every pair's source in shared memory, a
+    vector of each at the least: more pairs than that raise."""
+    pool = torch.from_numpy(_pool())
+    too_many = torch.zeros((page_ops.COPY_MAX_PAIRS + 1, 2),
+                           dtype=torch.int32)
+    with pytest.raises(ValueError, match="pairs are more than"):
+        page_ops.page_copy(pool, too_many)
+    assert page_ops.COPY_MAX_PAIRS * 16 <= page_ops.COPY_SMEM_BYTES
+    # at the limit only the device is wrong
+    with pytest.raises(ValueError, match="CUDA"):
+        page_ops.page_copy(pool, too_many[1:])
