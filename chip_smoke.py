@@ -11,10 +11,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 plain PyTorch version on the card, and drives the port's three paths:
 
 * the FASE path: the two reference pins (hello@UART, bc@PCIe) on
-  ``TorchTarget(device="cuda")``, then the full-width run — the registry's
-  ``FASE_ROCKET_PCIE`` deployment (4 cores, 64 MiB target image resident
-  on the card, PCIe async queue pair) running GAPBS ``bc`` with 4 threads
-  — against constants pinned from the pure-Python reference simulator;
+  ``TorchTarget(device="cuda")`` on both routes of the interpreter — the
+  chunk kernel (one launch per chunk) and the eager loop
+  (``chunk_kernel="ref"``, the standalone ``walk_fetch_block`` once a
+  substep) — with every state field compared after every chunk; then the
+  full-width run on the chunk kernel — the registry's ``FASE_ROCKET_PCIE``
+  deployment (4 cores, 64 MiB target image resident on the card, PCIe
+  async queue pair) running GAPBS ``bc`` with 4 threads — against
+  constants pinned from the pure-Python reference simulator; then
+  CoreMark (``coremark 1``, 1 core, UART) against its pins;
 * the serving path: ``ServeEngine`` over qwen3-8b at full width (36
   layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
   slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
@@ -33,8 +38,8 @@ when no GPU is found.  The last line is ``{"ok": true, "device": {...}}``.
 Options (none are needed for the full check): ``--scale N`` picks the
 R-MAT scale of the full-width graph (one of ``FULL_WIDTH``), ``--only``
 limits the run to some phases, ``--profile`` adds ``torch.profiler``
-windows over the interpreter loop, over serving decode steps and over a
-train step, and writes their tables to ``--out`` (default
+windows over the interpreter's chunks, over serving decode steps and over
+a train step, and writes their tables to ``--out`` (default
 ``smoke_out/``).
 """
 from __future__ import annotations
@@ -67,9 +72,18 @@ FULL_WIDTH = {
     8: dict(ticks=1_684_458, instret=71_269, traffic=69_810),
     10: dict(ticks=1_606_494, instret=181_583, traffic=125_900),
 }
-#: scale 5 keeps the whole script near a quarter of its 1200 s limit on
-#: a slow host (the interpreter loop is launch-bound: ~10 ms a substep)
-DEFAULT_SCALE = 5
+#: the chunk kernel runs a substep in microseconds, so the full-width run
+#: takes the largest pinned graph
+DEFAULT_SCALE = 10
+#: CoreMark, one iteration, 1 core, 4 MiB image, 921600-baud UART; ticks
+#: and instret from the reference package's pure-Python simulator
+#: (tests/test_torch_golden.py re-derives them)
+COREMARK = dict(ticks=9_402_851, instret=120_853, crc=16356)
+#: the chunk kernel's timed chunk: ``CHUNK_CYCLES`` ticks of a guest loop
+#: without system calls on the full-width target, back to back
+CHUNK_CYCLES = 64
+#: links of the one-thread pointer chase that measures a dependent load
+CHASE_STEPS = 1 << 16
 
 #: published peaks of one H100 SXM: HBM bytes per second, dense bf16
 #: tensor-core FLOP per second
@@ -78,6 +92,8 @@ BF16_FLOP_PER_S = 989e12
 #: the TPU kernel each port kernel replaces (file:line of its pallas_call)
 REPLACES = {
     "walk_fetch_block": "src/repro/kernels/page_walk/page_walk.py:126",
+    # no pallas_call: the reference's XLA while_loop of the chunk
+    "run_chunk": "src/repro/core/target/cpu.py:1089",
     "paged_attention":
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
@@ -88,6 +104,7 @@ REPLACES = {
 }
 SOURCES = {
     "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
+    "run_chunk": "src/repro_torch/csrc/run_chunk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
@@ -95,7 +112,8 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 #: every csrc/<name>.cu the paths launch
-CUDA_LIBS = ("page_walk", "page_ops", "paged_attention", "flash_attention")
+CUDA_LIBS = ("page_walk", "run_chunk", "page_ops", "paged_attention",
+             "flash_attention")
 
 #: the serve run: qwen3-8b, 4 slots, max_seq 512, and the request mix as
 #: (kind, prompt length, max_new).  Both "S" prompts start with one
@@ -158,7 +176,7 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 #: losses after the restore against the uninterrupted run's
 RESTART_ATOL = 1e-6
 
-PHASES = ("kernel", "hello", "bc", "full", "serve", "train")
+PHASES = ("kernel", "chunk", "full", "coremark", "serve", "train")
 
 
 def emit(obj):
@@ -371,8 +389,34 @@ def phase_kernel(torch, dev):
     emit({"phase": "kernel_vs_plain", "kernel": "walk_fetch_block",
           "cases": cases, "random_lanes": lanes, "tolerance": 0,
           "max_abs_err": worst, "equal": True})
+    check_run_chunk_wrapper(torch, dev)
     return {"walk_fetch_block": worst, **check_attention(torch, dev),
             **check_page_ops(torch, dev), **check_flash_attention(torch, dev)}
+
+
+def check_run_chunk_wrapper(torch, dev):
+    """The chunk kernel's wrapper refuses what the kernel does not take:
+    a CPU state, a field of another dtype, more cores than a warp has
+    lanes, block words beyond shared memory."""
+    from repro_torch.core.target import cpu
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    st = cpu.make_state(2, 1 << 20, device=dev)
+    bad_dtype = cpu.make_state(2, 1 << 20, device=dev)
+    bad_dtype.priv = bad_dtype.priv.long()
+    wide = cpu.make_state(RC.LANES_MAX + 1, 1 << 20, device=dev)
+    for call in (lambda: RC.run_chunk(cpu.make_state(2, 1 << 20,
+                                                     device="cpu"),
+                                      2, 1 << 20, 64),
+                 lambda: RC.run_chunk(bad_dtype, 2, 1 << 20, 64),
+                 lambda: RC.run_chunk(wide, RC.LANES_MAX + 1, 1 << 20, 64),
+                 lambda: RC.run_chunk(st, 2, 1 << 20, 64,
+                                      block_words=1 << 16)):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail("the run_chunk wrapper accepted an input it must refuse")
+    emit({"phase": "wrapper_checks", "kernel": "run_chunk", "refused": 4})
 
 
 def attention_err(torch, q, kp, vp, bt, lens):
@@ -569,45 +613,180 @@ def time_walk_fetch(torch, tgt, worst):
 
 
 # ---------------------------------------------------------------------------
-# end-to-end phases
+# end-to-end phases: the FASE path
 # ---------------------------------------------------------------------------
-def phase_hello(torch):
+class target_class:
+    """Within the block, ``run_workload`` builds its target from ``cls``
+    (a ``TorchTarget`` subclass that watches its chunks)."""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __enter__(self):
+        import repro_torch.run as run_mod
+        self.old, run_mod.TorchTarget = run_mod.TorchTarget, self.cls
+
+    def __exit__(self, *exc):
+        import repro_torch.run as run_mod
+        run_mod.TorchTarget = self.old
+
+
+def chase_ns(torch, words, span, dev):
+    """Mean latency of one dependent load, in ns: one thread follows a
+    seeded random cycle through ``span`` words of a ``words``-word image
+    (``CHASE_STEPS`` links, timed by CUDA events, after a warm pass)."""
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import _build
+    fn = _build.entry("run_chunk", "run_chunk_chase_launch",
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p])
+    order = np.random.RandomState(7).permutation(span)
+    nxt = np.zeros(words, dtype=np.int64)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.from_numpy(nxt).to(dev)
+    out = torch.zeros((1,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (nxt.data_ptr(), int(order[0]), CHASE_STEPS, out.data_ptr(),
+            stream)
+    _build.launch("chase", fn, args, dev)              # warm
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    _build.launch("chase", fn, args, dev)
+    t1.record()
+    torch.cuda.synchronize()
+    check(int(out) == int(order[CHASE_STEPS % span]),
+          "pointer chase ended on the wrong word")
+    return t0.elapsed_time(t1) * 1e6 / CHASE_STEPS
+
+
+def phase_latency(torch, dev, words):
+    """The dependent-load latency the chunk kernel's bound uses: a chase
+    inside one 4 KiB page (resident near the SM, as the hot words of a
+    guest loop are) and across the whole image (device memory)."""
+    out = {"page_ns": chase_ns(torch, words, 512, dev),
+           "image_ns": chase_ns(torch, words, words, dev)}
+    emit({"phase": "load_latency", "steps": CHASE_STEPS, "words": words,
+          **out})
+    return out
+
+
+def state_fields(st):
+    from repro_torch.core.target.cpu import STATE_FIELDS
+    return {name: getattr(st, name) for name in STATE_FIELDS}
+
+
+def compare_states(torch, got, want, what):
+    for name, w in want.items():
+        g = got[name]
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:4].tolist()
+            fail(f"{what}: {name} differs at {bad}")
+
+
+def routes_in_lockstep(torch, name, argv, pins, **kw):
+    """``name`` on both routes of the interpreter: the chunk kernel first,
+    each chunk's state kept on the card; then the eager loop with the
+    standalone walk kernel, each chunk's state and substep count held
+    against the kernel route's.  Each route must hit ``pins``.  Returns
+    the launches each route made."""
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.kernels.page_walk import page_walk
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
     from repro_torch.run import run_workload
-    rt, rep, wall = run_workload("hello", [], mode="fase", n_cores=1,
-                                 mem=1 << 22, device="cuda")
-    emit({"phase": "hello_uart", "ticks": rep.ticks,
-          "stdout": rep.stdout.decode(), "substeps": rt.target.substeps,
-          "wall_s": round(wall, 3)})
-    check(rep.ticks == HELLO_UART["ticks"],
-          f"hello@UART ticks {rep.ticks} != {HELLO_UART['ticks']}")
-    check(rep.stdout == HELLO_UART["stdout"], "hello@UART stdout differs")
+    chunks = []
+
+    class Recording(TorchTarget):
+        def run(self, max_cycles=1 << 62):
+            before = self.substeps
+            super().run(max_cycles)
+            chunks.append((self.substeps - before,
+                           {k: v.clone() for k, v in
+                            state_fields(self.st).items()}))
+
+    class Checking(TorchTarget):
+        def run(self, max_cycles=1 << 62):
+            before = self.substeps
+            super().run(max_cycles)
+            i = self.chunks = getattr(self, "chunks", 0) + 1
+            check(i <= len(chunks), f"{name}: the eager route ran more "
+                  f"chunks than the kernel route's {len(chunks)}")
+            sub, want = chunks[i - 1]
+            check(self.substeps - before == sub,
+                  f"{name} chunk {i}: substeps {self.substeps - before} "
+                  f"!= the kernel route's {sub}")
+            compare_states(torch, state_fields(self.st), want,
+                           f"{name} chunk {i}")
+
+    out = {}
+    for route, cls, opts in (
+            ("kernel", Recording, {}),
+            ("ref", Checking, dict(chunk_kernel="ref",
+                                   fetch_kernel="kernel"))):
+        with target_class(cls):
+            run_chunk.launches = 0                  # just before the path
+            page_walk.walk_fetch_block.launches = 0
+            rt, rep, wall = run_workload(name, argv, device="cuda",
+                                         target_opts=opts, **kw)
+            launches = dict(run_chunk=run_chunk.launches,
+                            walk_fetch_block=page_walk.walk_fetch_block
+                            .launches)               # just after it
+        tgt = rt.target
+        got = dict(ticks=rep.ticks, instret=sum(rep.instret),
+                   traffic=rep.traffic_total, stdout=rep.stdout.decode())
+        emit({"phase": f"{name}_{kw.get('link') or 'uart'}", "route": route,
+              **{k: got[k] for k in pins if k in got},
+              "substeps": tgt.substeps, "launches": launches,
+              "wall_s": round(wall, 3),
+              "s_per_substep": wall / tgt.substeps})
+        for k, v in pins.items():
+            check(got[k] == v, f"{name} on the {route} route: {k} "
+                  f"{got[k]!r} != {v!r}")
+        if route == "kernel":
+            check(launches["walk_fetch_block"] == 0,
+                  "the kernel route launched the standalone walk kernel")
+            check(launches["run_chunk"] == len(chunks) > 0,
+                  f"{launches['run_chunk']} chunk launches for "
+                  f"{len(chunks)} chunks")
+        else:
+            check(getattr(tgt, "chunks", 0) == len(chunks),
+                  f"{name}: the eager route ran {getattr(tgt, 'chunks', 0)}"
+                  f" chunks, the kernel route {len(chunks)}")
+            check(launches["run_chunk"] == 0,
+                  "the eager route launched the chunk kernel")
+            check(launches["walk_fetch_block"] == tgt.substeps,
+                  "the eager route did not walk once a substep")
+        out[route] = launches
+    return out, len(chunks)
 
 
-def phase_bc(torch):
+def phase_chunk(torch):
+    """hello@UART and bc@PCIe 2T on both routes, state equal after every
+    chunk; returns the standalone walk kernel's launches on the eager
+    route."""
     from repro_torch.core.workloads import graphgen
-    from repro_torch.run import run_workload
+    t0 = time.time()
+    hello, n_hello = routes_in_lockstep(
+        torch, "hello", [], dict(ticks=HELLO_UART["ticks"],
+                                 stdout=HELLO_UART["stdout"].decode()),
+        mode="fase", n_cores=1, mem=1 << 22)
     g = graphgen.rmat(4, 4, weights=True)
-    rt, rep, wall = run_workload("bc", ["g.bin", "2", "1"], mode="fase",
-                                 link="pcie", n_cores=2, mem=1 << 22,
-                                 device="cuda", files={"g.bin": g})
-    got = dict(ticks=rep.ticks, instret=sum(rep.instret),
-               traffic=rep.traffic_total)
-    emit({"phase": "bc_pcie", **got, "substeps": rt.target.substeps,
-          "wall_s": round(wall, 3)})
-    check(got == BC_PCIE, f"bc@PCIe {got} != {BC_PCIE}")
+    bc, n_bc = routes_in_lockstep(
+        torch, "bc", ["g.bin", "2", "1"], BC_PCIE, mode="fase", link="pcie",
+        n_cores=2, mem=1 << 22, files={"g.bin": g})
+    walks = hello["ref"]["walk_fetch_block"] + bc["ref"]["walk_fetch_block"]
+    emit({"phase": "chunk_vs_plain", "workloads": ["hello@uart", "bc@pcie"],
+          "chunks": n_hello + n_bc, "fields_equal_after_every_chunk": True,
+          "tolerance": 0, "walk_fetch_block_launches_eager": walks,
+          "seconds": round(time.time() - t0, 1)})
+    return walks
 
 
-def profile_window(torch, tgt, s_per_substep, out_dir, substeps=256):
-    """A ``torch.profiler`` window over the interpreter loop alone: a
-    guest loop without system calls (load, add, store, multiply, jump on
-    a private line per core), ``substeps`` ticks.  Writes the by-operator
-    tables under ``out_dir`` and reports the kernel launches and the
-    device time per substep; the device-busy share sets that device time
-    against ``s_per_substep``, the full-width run's unprofiled pace (the
-    profiler itself slows the host several times over)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def loop_target(torch, nc, mem_bytes, **opts):
+    """A target at the full-width run's shape running a guest loop
+    without system calls (load, add, store, multiply, jump on a private
+    line per core): every chunk of it is the same work."""
     from repro_torch.core.interface import TorchTarget
     from repro_torch.core.target import asm
     img = asm.assemble("""
@@ -622,7 +801,7 @@ _start:
     mul t2, t1, t1
     j 1b
 """)
-    t = TorchTarget(tgt.nc, tgt.mem_bytes, device="cuda")
+    t = TorchTarget(nc, mem_bytes, device="cuda", **opts)
     for seg in img.segments:
         data = bytes(seg.data).ljust((len(seg.data) + 7) // 8 * 8, b"\0")
         for i in range(0, len(data), 8):
@@ -631,20 +810,96 @@ _start:
     for c in range(t.nc):
         t.reg_write(c, 10, c)
         t.redirect(c, img.entry)
-    t.run(max_cycles=64)                                   # warm-up
+    return t
+
+
+def state_bytes(st):
+    return sum(v.numel() * v.element_size()
+               for k, v in state_fields(st).items() if k != "mem")
+
+
+def time_run_chunk(torch, tgt, latency):
+    """The chunk kernel and its plain version (the eager loop) on one
+    chunk of ``CHUNK_CYCLES`` ticks at the full-width shape, from the same
+    state; then the kernel back to back on equal chunks."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.fase_rocket import target_kwargs
+    from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
+    from repro_torch.core.target import cpu
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    t = loop_target(torch, tgt.nc, tgt.mem_bytes, **target_kwargs(cfg))
+    t.run(max_cycles=CHUNK_CYCLES)                   # past the start-up
+    snap = {k: v.clone() for k, v in state_fields(t.st).items()}
+
+    def chunk(route):
+        return cpu.run_chunk_fast(
+            t.st, t.nc, t.mem_bytes, CHUNK_CYCLES, t.issue_width,
+            t.block_words, t.block_cache, t.fetch_kernel,
+            dtlb_ways=t.dtlb_ways, chunk_kernel=route)
+
+    trips0 = run_chunk.trips
+    sub_k = chunk("kernel")
+    trips = run_chunk.trips - trips0
+    got = {k: v.clone() for k, v in state_fields(t.st).items()}
+    for k, v in snap.items():
+        v_now = getattr(t.st, k)
+        v_now.copy_(v)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sub_r = chunk("ref")
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    check(sub_k == sub_r, f"timed chunk: substeps {sub_k} != {sub_r}")
+    compare_states(torch, got, state_fields(t.st), "timed chunk")
+    ms = time_ms(torch, lambda: chunk("kernel"), 50, warmup=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            chunk("kernel")
+        torch.cuda.synchronize()
+    kern = [e for e in device_events(prof.key_averages())
+            if "run_chunk" in e.key]
+    check(len(kern) == 1 and kern[0].count >= 10,
+          "profile: the run_chunk kernel was not traced")
+    dev_ms = kern[0].self_device_time_total / kern[0].count / 1e3
+    # bytes: the state fields read once and written once (the image words
+    # a chunk touches depend on the data and only raise the bound)
+    nbytes = 2 * state_bytes(t.st)
+    return dict(shape=dict(W=int(t.st.mem.shape[0]), L=t.nc,
+                           chunk_cycles=CHUNK_CYCLES, substeps=sub_k),
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                round_trips=trips,
+                latency_bound_ms=trips * latency["page_ns"] * 1e-6,
+                max_abs_err=0.0)
+
+
+def profile_window(torch, tgt, s_per_substep, out_dir, chunks=16):
+    """A ``torch.profiler`` window over ``chunks`` chunks of the guest
+    loop at the full-width shape (``CHUNK_CYCLES`` * 4 ticks each).
+    Writes the by-operator tables under ``out_dir`` and reports launches
+    and device time per chunk and per substep, and the device-busy share
+    under the profiler and against ``s_per_substep``, the full-width
+    run's unprofiled pace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.fase_rocket import target_kwargs
+    from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
+    t = loop_target(torch, tgt.nc, tgt.mem_bytes, **target_kwargs(cfg))
+    t.run(max_cycles=CHUNK_CYCLES)                   # warm-up
     before = t.substeps
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t.run(max_cycles=substeps)
+        for _ in range(chunks):
+            t.run(max_cycles=4 * CHUNK_CYCLES)
         torch.cuda.synchronize()
     wall = time.time() - t0
     ka = prof.key_averages()
     on_dev = device_events(ka)
     dev_us = sum(e.self_device_time_total for e in on_dev)
-    walk = [e for e in on_dev if "walk_fetch_block" in e.key]
-    check(len(walk) == 1, "profile: walk_fetch_block kernel not traced")
+    kern = [e for e in on_dev if "run_chunk" in e.key]
+    check(len(kern) == 1, "profile: the run_chunk kernel was not traced")
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
     ran = t.substeps - before
     os.makedirs(out_dir, exist_ok=True)
@@ -652,8 +907,8 @@ _start:
         f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
         f.write("\n")
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    # the kernel alone, every lane walking, at the main path's shape: its
-    # device time without the wrapper's host cost
+    # the standalone walk kernel, every lane walking, at the main path's
+    # shape: its device time without the wrapper's host cost
     from repro_torch.kernels.page_walk import ops
     st = tgt.st
     args = (st.mem, st.satp, st.pc, tgt.mem_bytes - 1, tgt.block_words,
@@ -670,64 +925,122 @@ _start:
     # the tracer may miss a few launches at the start of its window
     check(n_alone >= 100, f"profile: only {n_alone} of 200 "
           f"walk_fetch_block launches traced")
-    out = {"phase": "profile", "substeps": ran,
+    out = {"phase": "profile", "chunks": chunks, "substeps": ran,
            "wall_s_under_profiler": round(wall, 4),
-           "kernel_launches_per_substep": launches / ran,
+           "kernel_launches_per_chunk": launches / chunks,
+           "run_chunk_launches": kern[0].count,
+           "device_us_per_chunk": dev_us / chunks,
            "device_us_per_substep": dev_us / ran,
+           "device_busy_share_under_profiler": dev_us / (wall * 1e6),
            "device_busy_share": dev_us / ran / (s_per_substep * 1e6),
-           "walk_fetch_block_device_us_in_loop":
-           walk[0].self_device_time_total / walk[0].count,
            "walk_fetch_block_device_us_all_lanes":
            sum(e.self_device_time_total for e in alone) / n_alone}
     emit(out)
     return out
 
 
-def phase_full(torch, scale, worst, profile_dir):
+def phase_full(torch, scale, worst, latency, profile_dir):
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.fase_rocket import (runtime_kwargs,
                                                  target_kwargs)
     from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
+    from repro_torch.core.interface import TorchTarget
     from repro_torch.core.workloads import graphgen
     from repro_torch.kernels.page_walk import page_walk
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
     from repro_torch.run import run_workload
+
+    class Counting(TorchTarget):
+        def run(self, max_cycles=1 << 62):
+            self.runs = getattr(self, "runs", 0) + 1
+            super().run(max_cycles)
 
     pins = FULL_WIDTH[scale]
     g = graphgen.rmat(scale, 4, weights=True)
+
+    def drive():
+        return run_workload(
+            "bc", ["g.bin", "4", "1"], mode="fase", n_cores=cfg["n_cores"],
+            mem=cfg["mem_bytes"], device="cuda", files={"g.bin": g},
+            target_opts=target_kwargs(cfg), **runtime_kwargs(cfg))
+
     torch.cuda.reset_peak_memory_stats()
-    page_walk.walk_fetch_block.launches = 0          # just before the path
-    rt, rep, wall = run_workload(
-        "bc", ["g.bin", "4", "1"], mode="fase", n_cores=cfg["n_cores"],
-        mem=cfg["mem_bytes"], device="cuda", files={"g.bin": g},
-        target_opts=target_kwargs(cfg), **runtime_kwargs(cfg))
-    launches = page_walk.walk_fetch_block.launches   # just after it
+    with target_class(Counting):
+        run_chunk.launches = run_chunk.trips = 0     # just before the path
+        page_walk.walk_fetch_block.launches = 0
+        rt, rep, wall = drive()
+        launches = run_chunk.launches                # just after it
+        trips = run_chunk.trips
+        walk_launches = page_walk.walk_fetch_block.launches
     tgt = rt.target
     got = dict(ticks=rep.ticks, instret=sum(rep.instret),
                traffic=rep.traffic_total)
     sub = tgt.substeps
     walks = int(tgt.st.fetch_walks.sum())
-    emit({"phase": "full_width", "config": "FASE_ROCKET_PCIE",
-          "workload": f"bc 4T rmat({scale},4)", "n_cores": tgt.nc,
-          "mem_bytes": tgt.mem_bytes, "image_on": str(tgt.st.mem.device),
-          **got, "substeps": sub, "wall_s": round(wall, 3),
-          "instr_per_s": got["instret"] / wall,
-          "s_per_substep": wall / sub,
-          "walk_fetch_block_launches": launches,
-          "fetch_lanes_walked": walks,
-          "fetch_hits": int(tgt.st.fetch_hits.sum()),
-          "tlb_walks": int(tgt.st.tlb_walks.sum()),
-          "peak_device_bytes": torch.cuda.max_memory_allocated()})
     check(got == pins, f"full-width run {got} != pinned {pins}")
     check(b"bc_delta0" in rep.stdout, "full-width run: bc printed no result")
     check(tgt.st.mem.is_cuda and tgt.st.mem.shape[0] == 1 << 23,
           "full-width image is not 8 Mi words on the card")
-    check(launches > 0,
-          "the main path never launched the walk_fetch_block kernel")
-    check(launches == sub, f"launches {launches} != substeps {sub}")
-    check(0 < walks <= launches * tgt.nc, "fetch_walks out of range")
+    check(launches > 0, "the main path never launched the run_chunk kernel")
+    check(launches == tgt.runs,
+          f"chunk launches {launches} != target.run calls {tgt.runs}")
+    check(walk_launches == 0,
+          "the kernel route launched the standalone walk kernel")
+    check(walks > 0, "the full-width run walked no fetch block")
+    # the same run again under the profiler: the chunk kernel's device time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rt2, rep2, _ = drive()
+        torch.cuda.synchronize()
+    check(rep2.ticks == rep.ticks and rt2.target.substeps == sub,
+          "the profiled full-width run differs")
+    on_dev = device_events(prof.key_averages())
+    kern_us = sum(e.self_device_time_total for e in on_dev
+                  if "run_chunk" in e.key)
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    emit({"phase": "full_width", "config": "FASE_ROCKET_PCIE",
+          "workload": f"bc 4T rmat({scale},4)", "route": "kernel",
+          "n_cores": tgt.nc, "mem_bytes": tgt.mem_bytes,
+          "image_on": str(tgt.st.mem.device), **got, "substeps": sub,
+          "chunks": launches, "wall_s": round(wall, 3),
+          "instr_per_s": got["instret"] / wall,
+          "s_per_substep": wall / sub,
+          "run_chunk_device_us_per_substep": kern_us / sub,
+          "run_chunk_device_us_per_chunk": kern_us / launches,
+          "device_us_all_kernels": dev_us,
+          "host_ms_per_chunk_outside_kernel":
+          (wall * 1e6 - kern_us) / launches / 1e3,
+          "device_busy_share": dev_us / (wall * 1e6),
+          "round_trips": trips, "round_trips_per_substep": trips / sub,
+          "latency_bound_s": trips * latency["page_ns"] * 1e-9,
+          "walk_fetch_block_launches": walk_launches,
+          "fetch_lanes_walked": walks,
+          "fetch_hits": int(tgt.st.fetch_hits.sum()),
+          "tlb_walks": int(tgt.st.tlb_walks.sum()),
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
     timing = time_walk_fetch(torch, tgt, worst)
+    chunk_timing = time_run_chunk(torch, tgt, latency)
+    emit({"phase": "run_chunk_timing", **chunk_timing})
     if profile_dir:
         profile_window(torch, tgt, wall / sub, profile_dir)
-    return launches, timing
+    return launches, timing, chunk_timing
+
+
+def phase_coremark(torch):
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    from repro_torch.run import run_workload
+    run_chunk.launches = 0                           # just before the path
+    rt, rep, wall = run_workload("coremark", ["1"], mode="fase", n_cores=1,
+                                 mem=1 << 22, device="cuda")
+    launches = run_chunk.launches                    # just after it
+    out = dict(line.split() for line in rep.stdout.decode().splitlines())
+    got = dict(ticks=rep.ticks, instret=sum(rep.instret),
+               crc=int(out.get("coremark_crc", -1)))
+    emit({"phase": "coremark", "route": "kernel", **got,
+          "coremark_ns": int(out.get("coremark_ns", -1)),
+          "substeps": rt.target.substeps, "chunks": launches,
+          "wall_s": round(wall, 3), "instr_per_s": got["instret"] / wall})
+    check(got == COREMARK, f"CoreMark {got} != pinned {COREMARK}")
+    check(launches > 0, "CoreMark never launched the run_chunk kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -1537,22 +1850,43 @@ def main():
     kernels = []
     if "kernel" in args.only:
         errs = phase_kernel(torch, dev)
-    if "hello" in args.only:
-        phase_hello(torch)
-    if "bc" in args.only:
-        phase_bc(torch)
+    if "kernel" in args.only or "full" in args.only:
+        from repro_torch.configs.registry import FASE_ROCKET_PCIE
+        latency = phase_latency(torch, dev, FASE_ROCKET_PCIE["mem_bytes"] // 8)
+    walk_launches = None
+    if "chunk" in args.only:
+        walk_launches = phase_chunk(torch)
     if "full" in args.only:
-        launches, t = phase_full(torch, args.scale,
-                                 errs["walk_fetch_block"],
-                                 args.out if args.profile else None)
+        launches, t, c = phase_full(torch, args.scale,
+                                    errs["walk_fetch_block"], latency,
+                                    args.out if args.profile else None)
+        kernels.append({
+            "name": "run_chunk", "route": "cuda",
+            "source": SOURCES["run_chunk"],
+            "replaces": REPLACES["run_chunk"], "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms": c["device_ms"], "round_trips": c["round_trips"],
+            "latency_bound_ms": c["latency_bound_ms"],
+            "load_latency_ns": latency, "shape": c["shape"],
+            "note": "no pallas_call: the chunk loop the reference leaves "
+                    "to XLA's while_loop, with walk_fetch_block as its "
+                    "device function"})
         kernels.append({
             "name": "walk_fetch_block", "route": "cuda",
-            "source": "src/repro_torch/csrc/page_walk.cu",
+            "source": SOURCES["walk_fetch_block"],
             "replaces": REPLACES["walk_fetch_block"],
-            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "launches": walk_launches, "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "shape": t["shape"]})
+            "library_ms": None, "shape": t["shape"],
+            "note": "launched standalone by the eager route "
+                    "(chunk_kernel='ref', phase chunk_vs_plain); on the "
+                    "kernel route its device functions run inside "
+                    "run_chunk"})
+    if "coremark" in args.only:
+        phase_coremark(torch)
     if "serve" in args.only:
         launches, timing = phase_serve(torch, errs,
                                        args.out if args.profile else None)

@@ -74,8 +74,10 @@ class TorchTarget:
 
     State lives in tensors on ``device`` (default ``"cuda"``; a missing
     card raises — pass ``device="cpu"`` to ask for the CPU, as the tests
-    do).  ``run`` steps the lane-vectorized interpreter
-    (:func:`repro_torch.core.target.cpu.run_chunk_fast`); host-side
+    do).  ``run`` steps the interpreter
+    (:func:`repro_torch.core.target.cpu.run_chunk_fast`): on the card one
+    launch of the chunk kernel per call, on the CPU the lane-vectorized
+    eager loop; host-side
     accesses are small in-place updates and batched gathers, so the
     memory image is never copied wholesale.  The knobs trade speed,
     never semantics:
@@ -83,9 +85,12 @@ class TorchTarget:
       * ``issue_width`` — ticks issued per read-back of the loop predicate,
       * ``block_words`` — fetch-block size in 32-bit slots (power of 2),
       * ``block_cache=False`` — re-walk every instruction fetch,
-      * ``fetch_kernel`` — ``"kernel"`` (the CUDA ``walk_fetch_block``
-        for a CUDA image, its plain version for a CPU image) or ``"ref"``
-        (the plain version, asked for by name),
+      * ``chunk_kernel`` — ``"kernel"`` (the CUDA chunk kernel for a
+        CUDA image, the eager loop for a CPU image) or ``"ref"`` (the
+        eager loop, asked for by name),
+      * ``fetch_kernel`` — inside the eager loop, ``"kernel"`` (the CUDA
+        ``walk_fetch_block`` for a CUDA image, its plain version for a
+        CPU image) or ``"ref"`` (the plain version, asked for by name),
       * ``dtlb_ways`` — per-lane data-translation cache ways (power of
         2; 0 disables and re-walks every load/store).
     """
@@ -94,7 +99,7 @@ class TorchTarget:
                  chunk_cycles: int = 1 << 30, issue_width: int = 8,
                  block_words: int = 16, block_cache: bool = True,
                  fetch_kernel: str = "kernel", dtlb_ways: int = 8,
-                 device="cuda"):
+                 chunk_kernel: str = "kernel", device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -103,6 +108,9 @@ class TorchTarget:
         if fetch_kernel not in ("kernel", "ref"):
             raise ValueError("fetch_kernel must be 'kernel' or 'ref', got "
                              f"{fetch_kernel!r}")
+        if chunk_kernel not in _cpu.CHUNK_IMPLS:
+            raise ValueError(f"chunk_kernel must be one of "
+                             f"{_cpu.CHUNK_IMPLS}, got {chunk_kernel!r}")
         if block_words <= 0 or block_words & (block_words - 1):
             raise ValueError(f"block_words must be a power of two, got "
                              f"{block_words}")
@@ -120,6 +128,7 @@ class TorchTarget:
         self.block_cache = block_cache
         self.fetch_kernel = fetch_kernel
         self.dtlb_ways = dtlb_ways
+        self.chunk_kernel = chunk_kernel
         self.substeps = 0            # interpreter substeps issued so far
         self.st = _cpu.make_state(n_cores, mem_bytes, device=self.device)
 
@@ -133,7 +142,7 @@ class TorchTarget:
         self.substeps += _cpu.run_chunk_fast(
             self.st, self.nc, self.mem_bytes, budget, self.issue_width,
             self.block_words, self.block_cache, self.fetch_kernel,
-            dtlb_ways=self.dtlb_ways)
+            dtlb_ways=self.dtlb_ways, chunk_kernel=self.chunk_kernel)
 
     def redirect(self, c, pc, resume_tick=0):
         _cpu.redirect_op(self.st, c, pc, max(resume_tick, 0))

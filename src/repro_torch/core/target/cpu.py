@@ -1,8 +1,11 @@
 """The PyTorch target CPU model (the "FPGA" role).
 
-State is a dataclass of device tensors — the memory image and the
-register file are updated in place, the small per-core vectors are
-rebound — stepped by a host-driven eager loop: all cores execute one global tick
+State is a dataclass of device tensors.  On the card
+:func:`run_chunk_fast` runs a whole chunk in one launch of the chunk
+kernel (``csrc/run_chunk.cu``); its plain version, and the CPU's route,
+is the eager loop described here: the memory image and the register file
+are updated in place, the small per-core vectors are rebound, and a
+host-driven loop steps them: all cores execute one global tick
 as lane-vectorized tensor math (:func:`_exec_substep`), a chunk-local
 fetch-block cache skips the Sv39 fetch walk and instruction gather for
 straight-line code, a chunk-local data-translation cache does the same
@@ -38,6 +41,7 @@ from . import u64
 from .u64 import srl, sx, uge, ugt, ult
 from ...kernels.page_walk import ops as pw_ops
 from ...kernels.page_walk import ref as pw_ref
+from ...kernels.run_chunk import run_chunk as rc_kernel
 
 I64 = torch.int64
 #: ``consts._RES_INVALID`` / ``consts.NO_WORD`` in int64 storage
@@ -579,32 +583,72 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     return new_from, dticks
 
 
+#: the two routes of :func:`run_chunk_fast`, asked for by name
+CHUNK_IMPLS = ("kernel", "ref")
+
+
+def chunk_route(st: CpuState, chunk_kernel: str = "kernel") -> str:
+    """Which loop :func:`run_chunk_fast` runs: ``"kernel"`` (the CUDA
+    chunk kernel) for a CUDA state unless the eager loop is asked for by
+    name, ``"ref"`` (the eager loop) for a CPU state or
+    ``chunk_kernel="ref"``."""
+    if chunk_kernel not in CHUNK_IMPLS:
+        raise ValueError(f"chunk_kernel must be one of {CHUNK_IMPLS}, got "
+                         f"{chunk_kernel!r}")
+    return "kernel" if chunk_kernel == "kernel" and st.mem.is_cuda \
+        else "ref"
+
+
 def run_chunk_fast(st: CpuState, n_cores: int, mem_bytes: int,
                    max_cycles: int, issue_width: int = 8,
                    block_words: int = 16, block_cache: bool = True,
                    fetch_kernel: str = "kernel", trace_on: bool = False,
                    trigger: tuple | None = None,
-                   dtlb_ways: int = 8) -> int:
+                   dtlb_ways: int = 8, chunk_kernel: str = "kernel") -> int:
     """Advance ``st`` in place by up to ``max_cycles`` ticks, stopping
     when a core raises an exception or every core is parked.  Returns the
     number of substeps issued.
 
+    The state's device picks the loop: a CUDA state runs the chunk
+    kernel (``csrc/run_chunk.cu``, one launch, the walks as its device
+    functions), a CPU state the eager loop; ``chunk_kernel="ref"`` asks
+    for the eager loop on any device.  Both give the same state, counters
+    and substep count.
+
     ``block_words`` (a power of two) sizes the per-core fetch block;
     ``block_cache=False`` re-walks the fetch for every instruction.
     ``fetch_kernel`` picks the translate/fetch-gather implementation for
-    block fills: ``"kernel"`` (the CUDA kernel for a CUDA image, the
-    plain version for a CPU image) or ``"ref"`` (the plain version on any
-    device).  ``dtlb_ways`` (a power of two; 0 disables) sizes the
-    chunk-local data-translation cache.
+    block fills inside the eager loop: ``"kernel"`` (the CUDA
+    ``walk_fetch_block`` for a CUDA image, the plain version for a CPU
+    image) or ``"ref"`` (the plain version on any device).
+    ``dtlb_ways`` (a power of two; 0 disables) sizes the chunk-local
+    data-translation cache.
 
-    The loop predicate is read back once per ``issue_width`` substeps;
+    The loop predicate is tested once per ``issue_width`` substeps;
     substeps issued after a trap inside such a group are no-ops.
     """
     assert block_words & (block_words - 1) == 0, "block_words must be pow2"
     assert dtlb_ways & (dtlb_ways - 1) == 0, "dtlb_ways must be pow2 or 0"
+    route = chunk_route(st, chunk_kernel)
     if trace_on or trigger is not None:
         raise NotImplementedError(
             "commit-trace capture is not ported to repro_torch yet")
+    if route == "kernel":
+        return rc_kernel.run_chunk(st, n_cores, mem_bytes, max_cycles,
+                                   issue_width, block_words, block_cache,
+                                   dtlb_ways)
+    return _run_chunk_eager(st, n_cores, mem_bytes, max_cycles, issue_width,
+                            block_words, block_cache, fetch_kernel,
+                            dtlb_ways)
+
+
+def _run_chunk_eager(st: CpuState, n_cores: int, mem_bytes: int,
+                     max_cycles: int, issue_width: int, block_words: int,
+                     block_cache: bool, fetch_kernel: str,
+                     dtlb_ways: int) -> int:
+    """The eager loop: one lane-vectorised :func:`_exec_substep` after
+    another, the predicate read back every ``issue_width`` substeps.  The
+    plain version of the chunk kernel."""
     nc = n_cores
     dev = st.device
     lanes = torch.arange(nc, dtype=I64, device=dev)

@@ -22,6 +22,11 @@
 // 0..block_words-1 each load one slot (neighbouring threads, neighbouring
 // addresses: one or two 32-byte sectors per lane) and store it.
 //
+// The walk and the slot gather are the device functions of page_walk.cuh.
+// The chunk kernel (run_chunk.cu) runs the same functions inside its own
+// loop, so on a CUDA target this kernel is launched only by the eager
+// interpreter (run_chunk_fast's chunk_kernel="ref"), once per substep.
+//
 // `base` (nullable) is a per-lane word offset into a larger buffer holding
 // several images back to back; only the loads are offset, every returned
 // index stays image-local.  `active` (nullable) masks lanes out: an
@@ -30,19 +35,14 @@
 
 #include <cuda_runtime.h>
 
-typedef unsigned long long u64;
+#include "page_walk.cuh"
 
 namespace {
 
-constexpr u64 PTE_V = 1ull << 0;
-constexpr u64 PTE_R = 1ull << 1;
-constexpr u64 PTE_X = 1ull << 3;
-constexpr u64 PTE_U = 1ull << 4;
-constexpr u64 NO_WORD = ~0ull;
 constexpr int WARPS_PER_BLOCK = 4;
 
 __global__ void walk_fetch_block_kernel(
-    const u64* __restrict__ mem, const u64* __restrict__ satp_v,
+    const u64* mem, const u64* __restrict__ satp_v,
     const u64* __restrict__ va_v, const u64* __restrict__ base,
     const unsigned char* __restrict__ active, u64 mask, int lanes,
     int block_words, u64* __restrict__ pa_out,
@@ -56,69 +56,28 @@ __global__ void walk_fetch_block_kernel(
 
   u64 pa = 0;
   if (t == 0) {
-    u64 w[3] = {NO_WORD, NO_WORD, NO_WORD};
-    bool fault = false;
+    pw::Walk w = pw::no_walk();
     u64 nbytes = 0;
     if (act) {
-      const u64 satp = satp_v[lane];
       const u64 va = va_v[lane];
-      if ((satp >> 60) != 8ull) {
-        pa = va & mask;                      // Bare: identity under the mask
-      } else {
-        const u64 need = PTE_U | PTE_X;
-        u64 a = (satp & ((1ull << 44) - 1)) << 12;
-        bool done = false;
-        for (int slot = 0; slot < 3 && !done; ++slot) {
-          const int level = 2 - slot;
-          const u64 idx = (va >> (12 + 9 * level)) & 0x1FFull;
-          const u64 widx = ((a + idx * 8ull) & mask) >> 3;
-          w[slot] = widx;
-          const u64 pte = m[widx];
-          const bool valid = (pte & PTE_V) != 0;
-          const bool leaf = valid && (pte & (PTE_R | PTE_X)) != 0;
-          if (!valid) {
-            fault = true;
-            done = true;
-          } else if (leaf) {
-            if ((pte & need) == need) {
-              const u64 off_mask = (1ull << (12 + 9 * level)) - 1;
-              pa = (((pte >> 10) << 12) | (va & off_mask)) & mask;
-            } else {
-              fault = true;
-            }
-            done = true;
-          } else {
-            a = (pte >> 10) << 12;
-          }
-        }
-        fault = fault || !done;              // three pointers, no leaf
-      }
-      if (!fault) {
-        const u64 remain = 0x1000ull - (va & 0xFFFull);
-        const u64 want = 4ull * (u64)block_words;
-        nbytes = remain < want ? remain : want;
-      }
+      w = pw::sv39_walk(m, satp_v[lane], va, pw::PTE_U | pw::PTE_X, mask);
+      nbytes = pw::fetch_nbytes(va, w.fault, block_words);
     }
-    pa_out[lane] = pa;
-    fault_out[lane] = fault ? 1 : 0;
-    words_out[3 * lane + 0] = w[0];
-    words_out[3 * lane + 1] = w[1];
-    words_out[3 * lane + 2] = w[2];
+    pa = w.pa;
+    pa_out[lane] = w.pa;
+    fault_out[lane] = w.fault ? 1 : 0;
+    words_out[3 * lane + 0] = w.words[0];
+    words_out[3 * lane + 1] = w.words[1];
+    words_out[3 * lane + 2] = w.words[2];
     nbytes_out[lane] = nbytes;
   }
   pa = __shfl_sync(0xffffffffu, pa, 0);
 
   // the slots are gathered on a fault too (from pa = 0), as the plain
   // version does; consumers ignore them through nbytes = 0
-  for (int k = t; k < block_words; k += 32) {
-    unsigned int inst = 0;
-    if (act) {
-      const u64 addr = pa + 4ull * (u64)k;
-      const u64 word = m[(addr & mask) >> 3];
-      inst = (unsigned int)(word >> (((addr >> 2) & 1ull) * 32ull));
-    }
-    insts_out[(size_t)lane * block_words + k] = inst;
-  }
+  for (int k = t; k < block_words; k += 32)
+    insts_out[(size_t)lane * block_words + k] =
+        act ? pw::fetch_slot(m, pa, k, mask) : 0u;
 }
 
 }  // namespace

@@ -1,0 +1,667 @@
+// The FASE target's chunk loop as one persistent kernel for NVIDIA Hopper
+// (sm_90a), plain C interface.
+//
+// Replaces, on a CUDA target, two pieces of the reference at once:
+//   * the XLA loop of src/repro/core/target/cpu.py:1089-1169
+//     (_run_chunk_fast: lax.while_loop over issue_width substeps of
+//     _exec_substep), which PyTorch has no device-side form of, and
+//   * the TPU kernel walk_fetch_block
+//     (src/repro/kernels/page_walk/page_walk.py:126), which becomes the
+//     device functions of page_walk.cuh called from inside this loop.
+// What it computes is, bit for bit, the eager loop
+// repro_torch/core/target/cpu.py::_run_chunk_eager (its plain version):
+// every CpuState field, the four model counters and the substep count.
+//
+// Design.  One CTA of one warp runs the whole chunk; lane l of the warp is
+// core l (the contract: at most LANES_MAX = 32 cores, the wrapper refuses
+// more).  So every cross-lane step of a substep -- the same-tick conflict
+// test, the prefix of safe lanes, any/argmax, the u64 minimum of the stall
+// gaps and the loop predicate -- is a ballot or a shuffle, with no block
+// barrier and no host round trip.  Architectural state lives in registers
+// (the register file in shared memory, indexed by rs1/rs2/rd) and is
+// loaded once and written back once per launch.  The fetch-block cache and
+// the data TLB are rebuilt empty in shared memory at every launch: the
+// chunk-local invalidation of the eager loop (interface.py sfence), with no
+// protocol.  The memory image stays in device memory and is read and
+// written in place.  Each substep has the eager loop's two phases: every
+// lane executes from pre-substep state (reads only), then, after a
+// __syncwarp, the conflict-free prefix commits its stores; the next
+// substep's reads come after a further __syncwarp, which orders the stores
+// before them.  Loads of the image go through the coherent path (see
+// page_walk.cuh).
+//
+// What bounds it: neither bytes nor operations but the chain of dependent
+// global-memory round trips in a substep -- an instruction fetch that
+// misses the block cache (up to three PTE loads, then the slots), a data
+// access that misses the TLB (up to three PTE loads), then the data word
+// itself, then the commit.  A substep that hits both caches costs one
+// dependent load (the data word of a load/store/AMO) plus a few hundred
+// instructions of decode, conflict test and bookkeeping.  The kernel counts
+// the longest such chain of each substep (out[1]); chip_smoke.py sets the
+// sum against a one-thread pointer chase over the image.
+
+#include <cuda_runtime.h>
+
+#include "page_walk.cuh"
+
+namespace {
+
+constexpr int LANES_MAX = 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr u64 RES_INVALID = ~0ull;
+constexpr u64 M32 = 0xFFFFFFFFull;
+
+// major opcodes and the few encodings the interpreter names
+constexpr u64 OP_LOAD = 0x03, OP_MISC_MEM = 0x0F, OP_IMM = 0x13,
+              OP_AUIPC = 0x17, OP_IMM_32 = 0x1B, OP_STORE = 0x23,
+              OP_AMO = 0x2F, OP_OP = 0x33, OP_LUI = 0x37, OP_OP_32 = 0x3B,
+              OP_BRANCH = 0x63, OP_JALR = 0x67, OP_JAL = 0x6F,
+              OP_SYSTEM = 0x73;
+constexpr u64 INST_ECALL = 0x00000073ull, INST_EBREAK = 0x00100073ull;
+constexpr u64 AMO_ADD = 0x00, AMO_SWAP = 0x01, AMO_LR = 0x02, AMO_SC = 0x03,
+              AMO_XOR = 0x04, AMO_OR = 0x08, AMO_AND = 0x0C, AMO_MIN = 0x10,
+              AMO_MAX = 0x14, AMO_MINU = 0x18;
+
+struct Params {
+  u64* mem;               // (W,) the image, read and written in place
+  u64* regs;              // (nc, 32)
+  u64* pc;
+  int* priv;              // 0 user, 3 parked (read only here)
+  unsigned char* pending;
+  const u64* stall_until;
+  const u64* satp;
+  u64* mcause;
+  u64* mepc;
+  u64* mtval;
+  u64* res;
+  u64* ticks;             // () the global clock
+  u64* uticks;
+  u64* instret;
+  u64* stall_ticks;
+  u64* fetch_hits;
+  u64* fetch_walks;
+  u64* tlb_walks;
+  long long* out;         // (2,) out: substeps issued, dependent round
+                          // trips to global memory on the critical path
+  u64 mask;               // mem_bytes - 1
+  long long limit;        // max_cycles
+  int nc;
+  int issue_width;
+  int block_words;        // power of two
+  int block_cache;
+  int ways;               // data-TLB ways per lane (power of two or 0)
+};
+
+__device__ __forceinline__ u64 sx(u64 v, int bits) {
+  const u64 m = 1ull << (bits - 1);
+  return (v ^ m) - m;
+}
+
+__device__ __forceinline__ u64 sra(u64 v, int sh) {
+  return (u64)((long long)v >> sh);
+}
+
+__device__ __forceinline__ bool slt(u64 a, u64 b) {
+  return (long long)a < (long long)b;
+}
+
+__device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
+
+// RISC-V signed division: x / 0 = (-1, x), int_min / -1 = (int_min, 0).
+// The W forms pass operands already sign-extended from 32 bits.
+__device__ __forceinline__ void sdiv(u64 a, u64 b, u64 int_min, u64& q,
+                                     u64& r) {
+  if (b == 0) {
+    q = ~0ull;
+    r = a;
+  } else if (a == int_min && b == ~0ull) {
+    q = a;
+    r = 0;
+  } else {
+    q = (u64)((long long)a / (long long)b);
+    r = (u64)((long long)a % (long long)b);
+  }
+}
+
+// _alu64 of the eager interpreter (cpu.py:134-152)
+__device__ __forceinline__ u64 alu64(u64 f3, bool is_sub, bool is_sra,
+                                     bool is_m, u64 a, u64 b) {
+  if (is_m) {
+    const u64 hu = __umul64hi(a, b);
+    const u64 hsu = hu - (slt(a, 0) ? b : 0);
+    u64 q, r;
+    switch (f3) {
+      case 0: return a * b;
+      case 1: return hsu - (slt(b, 0) ? a : 0);        // mulh
+      case 2: return hsu;
+      case 3: return hu;
+      case 4: sdiv(a, b, 1ull << 63, q, r); return q;
+      case 5: return b == 0 ? ~0ull : a / b;
+      case 6: sdiv(a, b, 1ull << 63, q, r); return r;
+      default: return b == 0 ? a : a % b;
+    }
+  }
+  const int sh = (int)(b & 63);
+  switch (f3) {
+    case 0: return is_sub ? a - b : a + b;
+    case 1: return a << sh;
+    case 2: return slt(a, b) ? 1 : 0;
+    case 3: return a < b ? 1 : 0;
+    case 4: return a ^ b;
+    case 5: return is_sra ? sra(a, sh) : a >> sh;
+    case 6: return a | b;
+    default: return a & b;
+  }
+}
+
+// _alu32 of the eager interpreter (cpu.py:155-173), sign-extended result
+__device__ __forceinline__ u64 alu32(u64 f3, bool is_sub, bool is_sra,
+                                     bool is_m, u64 a, u64 b) {
+  const u64 a32 = a & M32, b32 = b & M32;
+  const u64 sa = sx(a32, 32), sb = sx(b32, 32);
+  u64 v;
+  if (is_m) {
+    const u64 ur = b32 == 0 ? a32 : a32 % b32;
+    u64 q, r;
+    switch (f3) {
+      case 0: v = a32 * b32; break;
+      case 4: sdiv(sa, sb, sx(1ull << 31, 32), q, r); v = q; break;
+      case 5: v = b32 == 0 ? ~0ull : a32 / b32; break;
+      case 6: sdiv(sa, sb, sx(1ull << 31, 32), q, r); v = r; break;
+      // f3 1..3 are not W-form M ops; the reference's select leaves the
+      // unsigned remainder there
+      default: v = ur; break;
+    }
+  } else {
+    const int sh = (int)(b & 31);
+    if (f3 == 0)
+      v = is_sub ? a - b : a + b;
+    else if (f3 == 1)
+      v = a32 << sh;
+    else
+      v = is_sra ? sra(sa, sh) : a32 >> sh;
+  }
+  return sx(v & M32, 32);
+}
+
+__device__ __forceinline__ u64 warp_umin(u64 v) {
+  for (int o = 16; o > 0; o >>= 1) v = umin(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int nc = p.nc;
+  const bool on = lane < nc;
+  const u64 mask = p.mask;
+  const int bw = p.block_words;
+  const int ways = p.ways;
+  u64* const mem = p.mem;
+
+  // shared memory: the register file, the data TLB (tag, ppn, perms and
+  // backing PTE word per way), then the fetch blocks' slots
+  u64* const regs_sh = (u64*)smem;
+  u64* const tlb_vpn = regs_sh + nc * 32;
+  u64* const tlb_ppn = tlb_vpn + nc * ways;
+  u64* const tlb_perm = tlb_ppn + nc * ways;
+  u64* const tlb_ptw = tlb_perm + nc * ways;
+  unsigned* const slots_sh = (unsigned*)(tlb_ptw + nc * ways);
+  u64* const R = regs_sh + lane * 32;
+  u64* const TV = tlb_vpn + lane * ways;
+  u64* const TP = tlb_ppn + lane * ways;
+  u64* const TM = tlb_perm + lane * ways;
+  u64* const TW = tlb_ptw + lane * ways;
+
+  // ---- state in: once per launch ------------------------------------------
+  u64 pc = 0, stall = 0, satp = 0, mcause = 0, mepc = 0, mtval = 0;
+  u64 res = RES_INVALID, uticks = 0, instret = 0;
+  u64 c_stall = 0, c_hits = 0, c_walks = 0, c_tlb = 0;
+  int priv = 3;
+  bool pending = false;
+  u64 fb_vbase = 0, fb_pbase = 0, fb_nbytes = 0;   // this lane's block
+  if (on) {
+    for (int k = 0; k < 32; ++k) R[k] = p.regs[lane * 32 + k];
+    for (int w = 0; w < ways; ++w) {
+      TV[w] = pw::NO_WORD;
+      TP[w] = TM[w] = TW[w] = 0;
+    }
+    pc = p.pc[lane];
+    priv = p.priv[lane];
+    pending = p.pending[lane] != 0;
+    stall = p.stall_until[lane];
+    satp = p.satp[lane];
+    mcause = p.mcause[lane];
+    mepc = p.mepc[lane];
+    mtval = p.mtval[lane];
+    res = p.res[lane];
+    uticks = p.uticks[lane];
+    instret = p.instret[lane];
+    c_stall = p.stall_ticks[lane];
+    c_hits = p.fetch_hits[lane];
+    c_walks = p.fetch_walks[lane];
+    c_tlb = p.tlb_walks[lane];
+  }
+  u64 ticks = *p.ticks;
+  const bool active = on && priv != 3;       // priv is not written here
+  const unsigned any_active = __ballot_sync(FULL, active);
+  __syncwarp();
+
+  long long cycles = 0;
+  int exec_from = 0;
+  long long substeps = 0;
+  long long trips = 0;
+  while (true) {
+    // the loop predicate of cpu.py:631-632, tested every issue_width
+    const bool go = (cycles < p.limit && !__ballot_sync(FULL, pending) &&
+                     any_active) || exec_from > 0;
+    if (!go) break;
+    for (int it = 0; it < p.issue_width; ++it) {
+      const bool gate = !__ballot_sync(FULL, pending) && cycles < p.limit;
+      const u64 budget_left = (u64)(p.limit - cycles);
+      const bool cont = exec_from > 0;
+      const bool runnable = active && !pending && ticks >= stall;
+      const bool cand = (cont || gate) && runnable && lane >= exec_from;
+
+      // ---- phase 1: execute from pre-substep state, reads only ----------
+      // fetch: block-cache hit, or walk + fill on a miss
+      u64 off = 0;
+      bool hit = false;
+      if (p.block_cache) {
+        off = pc - fb_vbase;
+        hit = cand && off < fb_nbytes && (off & 3) == 0;
+      }
+      const bool miss = cand && !hit;
+      pw::Walk fw = pw::no_walk();
+      u64 wnb = 0;
+      unsigned inst = 0;
+      if (miss) {
+        fw = pw::sv39_walk(mem, satp, pc, pw::PTE_U | pw::PTE_X, mask);
+        wnb = pw::fetch_nbytes(pc, fw.fault, bw);
+        // slot 0 is gathered on a fault too, from pa 0 (the plain version)
+        inst = pw::fetch_slot(mem, fw.pa, 0, mask);
+      } else if (hit) {
+        inst = slots_sh[lane * bw + ((off >> 2) & (u64)(bw - 1))];
+      }
+      const bool ifault = fw.fault;
+      const u64 ipa = hit ? fb_pbase + off : fw.pa;
+      if (p.block_cache) {
+        // every missing lane that translated fills, deferred ones too; the
+        // whole warp gathers each filling lane's slots
+        const bool fill = miss && !ifault;
+        for (unsigned m = __ballot_sync(FULL, fill); m; m &= m - 1) {
+          const int f = __ffs(m) - 1;
+          const u64 fpa = __shfl_sync(FULL, fw.pa, f);
+          for (int k = lane; k < bw; k += 32)
+            slots_sh[f * bw + k] = pw::fetch_slot(mem, fpa, k, mask);
+        }
+        if (fill) {
+          fb_vbase = pc;
+          fb_pbase = fw.pa;
+          fb_nbytes = wnb;
+        }
+      }
+
+      // decode (inst is a u32, so >> is logical)
+      const u64 in = inst;
+      const u64 op = in & 0x7F;
+      const u64 rd = (in >> 7) & 0x1F;
+      const u64 f3 = (in >> 12) & 7;
+      const u64 rs1 = (in >> 15) & 0x1F;
+      const u64 rs2 = (in >> 20) & 0x1F;
+      const u64 f7 = in >> 25;
+      const u64 imm_i = sx(in >> 20, 12);
+      const u64 imm_s = sx((f7 << 5) | rd, 12);
+      const u64 imm_b = sx((((in >> 8) & 0xF) << 1) |
+                           (((in >> 25) & 0x3F) << 5) |
+                           (((in >> 7) & 1) << 11) | ((in >> 31) << 12), 13);
+      const u64 imm_u = sx(in & 0xFFFFF000ull, 32);
+      const u64 imm_j = sx((((in >> 21) & 0x3FF) << 1) |
+                           (((in >> 20) & 1) << 11) |
+                           (((in >> 12) & 0xFF) << 12) | ((in >> 31) << 20),
+                           21);
+      const u64 a = on ? R[rs1] : 0;
+      const u64 b = on ? R[rs2] : 0;
+
+      const bool is_load = op == OP_LOAD, is_fence = op == OP_MISC_MEM,
+                 is_opimm = op == OP_IMM, is_auipc = op == OP_AUIPC,
+                 is_opimm32 = op == OP_IMM_32, is_store = op == OP_STORE,
+                 is_amo = op == OP_AMO, is_op = op == OP_OP,
+                 is_lui = op == OP_LUI, is_op32 = op == OP_OP_32,
+                 is_branch = op == OP_BRANCH, is_jalr = op == OP_JALR,
+                 is_jal = op == OP_JAL, is_system = op == OP_SYSTEM;
+      const bool is_ecall = is_system && in == INST_ECALL;
+      const bool is_ebreak = is_system && in == INST_EBREAK;
+      // SYSTEM is illegal unless ECALL/EBREAK
+      const bool illegal =
+          !(is_load || is_fence || is_opimm || is_auipc || is_opimm32 ||
+            is_store || is_amo || is_op || is_lui || is_op32 || is_branch ||
+            is_jalr || is_jal || is_ecall || is_ebreak);
+
+      // ALU
+      const bool reg_form = is_op || is_op32;
+      const u64 bop = reg_form ? b : imm_i;
+      const bool is_m = reg_form && f7 == 1;
+      const bool f7_20 = f7 == 0x20;
+      const bool is_sub = reg_form && f7_20 && f3 == 0;
+      const bool is_sra =
+          (reg_form ? f7_20 : ((in >> 30) & 1) != 0) && f3 == 5;
+
+      // data access: translate through the TLB, or walk
+      const u64 funct5 = f7 >> 2;
+      const bool is_lr = is_amo && funct5 == AMO_LR;
+      const bool is_sc = is_amo && funct5 == AMO_SC;
+      const u64 dva = is_amo ? a : a + (is_store ? imm_s : imm_i);
+      const bool is_memop = is_load || is_store || is_amo;
+      const bool want_w = is_store || (is_amo && !is_lr);
+      const u64 dneed = pw::PTE_U | (want_w ? pw::PTE_W : pw::PTE_R);
+      pw::Walk dw = pw::no_walk();
+      bool dwalk = false, dhit = false;
+      u64 dpa = 0, vpn = 0;
+      int way = 0;
+      if (ways) {
+        const bool bare = (satp >> 60) != 8;
+        vpn = dva >> 12;
+        way = (int)(vpn & (u64)(ways - 1));
+        const bool xlate = cand && is_memop && !bare;
+        dhit = xlate && TV[way] == vpn && (TM[way] & dneed) == dneed;
+        dwalk = xlate && !dhit;
+        if (dwalk) dw = pw::sv39_walk(mem, satp, dva, dneed, mask);
+        dpa = dhit ? ((TP[way] << 12) | (dva & 0xFFF)) & mask
+                   : bare ? dva & mask : dw.pa;
+      } else {
+        dwalk = cand && is_memop;
+        if (dwalk) dw = pw::sv39_walk(mem, satp, dva, dneed, mask);
+        dpa = dw.pa;
+      }
+      const bool dfault = dwalk && dw.fault;
+      const u64 szb = is_amo ? (f3 == 2 ? 4 : 8) : 1ull << (f3 & 3);
+      const bool misal = is_memop && (dva & (szb - 1)) != 0;
+      const u64 stw = dpa >> 3;                 // dpa is masked
+      const u64 dword = cand && is_memop ? mem[stw] : 0;
+      const int dshift = (int)((dpa & 7) << 3);
+      const u64 sizemask = szb == 8 ? ~0ull : (1ull << (szb << 3)) - 1;
+      const u64 rawv = (dword >> dshift) & sizemask;
+      const u64 sbit = 1ull << ((szb << 3) - 1);
+      const u64 loaded = (f3 & 4) ? rawv : (rawv ^ sbit) - sbit;
+
+      // AMO
+      const bool amo_w = f3 == 2;
+      const u64 amo_old = rawv;
+      const u64 amo_b = b & sizemask;
+      const u64 s_old = amo_w ? sx(amo_old, 32) : amo_old;
+      const u64 s_b = amo_w ? sx(amo_b, 32) : amo_b;
+      u64 amo_new;
+      switch (funct5) {
+        case AMO_SWAP: amo_new = amo_b; break;
+        case AMO_ADD: amo_new = amo_old + amo_b; break;
+        case AMO_XOR: amo_new = amo_old ^ amo_b; break;
+        case AMO_AND: amo_new = amo_old & amo_b; break;
+        case AMO_OR: amo_new = amo_old | amo_b; break;
+        case AMO_MIN: amo_new = slt(s_old, s_b) ? amo_old : amo_b; break;
+        case AMO_MAX: amo_new = slt(s_b, s_old) ? amo_old : amo_b; break;
+        case AMO_MINU: amo_new = amo_old < amo_b ? amo_old : amo_b; break;
+        // AMOMAXU, and any unlisted funct5: the reference select's default
+        default: amo_new = amo_old > amo_b ? amo_old : amo_b; break;
+      }
+      const bool sc_ok = is_sc && res == dpa;
+      const u64 amo_rdval = is_sc ? (sc_ok ? 0 : 1) : s_old;
+
+      // traps, in the reference's priority order
+      const bool dtrap = is_memop && (misal || dfault);
+      const bool traps = ifault || illegal || is_ecall || is_ebreak || dtrap;
+      const u64 cause = ifault ? 12
+                        : illegal ? 2
+                        : is_ecall ? 8
+                        : is_ebreak ? 3
+                        : misal ? ((is_load || is_lr) ? 4 : 6)
+                        : (want_w ? 15 : 13);
+      const u64 tval = ifault ? pc
+                       : illegal ? in
+                       : (is_ecall || is_ebreak) ? 0 : dva;
+      const bool commit0 = cand && !traps &&
+                           (is_store || (is_amo && !is_lr && (!is_sc || sc_ok)));
+
+      // ---- same-tick conflicts: the applied prefix ------------------------
+      // Lane j's read set: its instruction word, its data word, the fetch
+      // walk's PTE words (miss only), the data walk's (walk only); an
+      // earlier lane's commit into it, onto the word j also writes, or onto
+      // j's reservation line defers j and every later lane.
+      const u64 r_inst = cand ? sra(ipa, 3) : pw::NO_WORD;
+      const u64 r_data = cand && is_memop ? stw : pw::NO_WORD;
+      const u64 res_word =
+          cand && res != RES_INVALID ? sra(res, 3) : pw::NO_WORD;
+      bool conf = false;
+      const unsigned commits0 = __ballot_sync(FULL, commit0);
+      for (unsigned m = commits0; m; m &= m - 1) {
+        const int i = __ffs(m) - 1;
+        const u64 si = __shfl_sync(FULL, stw, i);
+        if (i < lane && cand)
+          conf = conf || si == r_inst || si == r_data ||
+                 si == fw.words[0] || si == fw.words[1] ||
+                 si == fw.words[2] || si == dw.words[0] ||
+                 si == dw.words[1] || si == dw.words[2] ||
+                 (commit0 && si == stw) || si == res_word;
+      }
+      const unsigned confs = __ballot_sync(FULL, conf);
+      const int first_conf = confs ? __ffs(confs) - 1 : LANES_MAX;
+      const bool safe = cand && lane < first_conf;
+      const bool deferred = cand && !safe;
+      const bool tr = safe && traps;
+      const bool ret = safe && !traps;
+      const bool commit = commit0 && safe;
+      const unsigned commits = __ballot_sync(FULL, commit);
+
+      // ---- phase 2: the prefix commits -------------------------------------
+      __syncwarp();
+      if (commit) {
+        const u64 sval = (is_store || is_sc) ? b : amo_new;
+        const u64 wmask = sizemask << dshift;
+        mem[stw] = (dword & ~wmask) | ((sval << dshift) & wmask);
+      }
+
+      // data-TLB fill: an applied walk lane that reached a 4 KiB leaf;
+      // deferred lanes re-walk next substep and fill then
+      if (ways && on && dwalk && safe && !dfault && dw.leaf0) {
+        TV[way] = vpn;
+        TP[way] = dw.pa >> 12;
+        TM[way] = dw.perms;
+        TW[way] = dw.leaf_widx;
+      }
+
+      // Then, for every applied commit: the reservation of any other lane
+      // on that line is lost; a cached fetch block it lands in (one filled
+      // this substep included) is killed; a TLB entry whose backing leaf
+      // PTE it overwrites (one filled this substep included) is killed.
+      const u64 own = (ret && is_lr) ? dpa : (ret && is_sc) ? RES_INVALID
+                                                            : res;
+      bool inv = false;
+      bool kill = false;
+      for (unsigned m = commits; m; m &= m - 1) {
+        const int i = __ffs(m) - 1;
+        const u64 si = __shfl_sync(FULL, stw, i);
+        inv = inv || (i != lane && si == sra(own, 3));
+        const long long sb = (long long)(si << 3);
+        kill = kill || (sb + 8 > (long long)fb_pbase &&
+                        sb < (long long)(fb_pbase + fb_nbytes));
+        if (on)
+          for (int w = 0; w < ways; ++w)
+            if (TW[w] == si) TV[w] = pw::NO_WORD;
+      }
+      res = inv ? RES_INVALID : own;
+      if (kill) fb_nbytes = 0;
+
+      // next pc, register write-back; f3 2/3 are not branches and take
+      // BGEU's compare, the reference select's default
+      const bool ge_u = a >= b;
+      bool taken;
+      switch (f3) {
+        case 0: taken = a == b; break;
+        case 1: taken = a != b; break;
+        case 4: taken = slt(a, b); break;
+        case 5: taken = !slt(a, b); break;
+        case 6: taken = !ge_u; break;
+        default: taken = ge_u; break;
+      }
+      taken = taken && is_branch;
+      const u64 pc4 = pc + 4;
+      u64 next_pc = taken ? pc + imm_b : pc4;
+      if (is_jal) next_pc = pc + imm_j;
+      if (is_jalr) next_pc = (a + imm_i) & ~1ull;
+      u64 wval = 0;
+      if (is_opimm || is_op) wval = alu64(f3, is_sub, is_sra, is_m, a, bop);
+      if (is_opimm32 || is_op32)
+        wval = alu32(f3, is_sub, is_sra, is_m, a, bop);
+      if (is_load) wval = loaded;
+      if (is_lui) wval = imm_u;
+      if (is_auipc) wval = pc + imm_u;
+      if (is_jal || is_jalr) wval = pc4;
+      if (is_amo) wval = amo_rdval;
+      const bool writes_rd = is_load || is_opimm || is_auipc || is_opimm32 ||
+                             is_amo || is_op || is_lui || is_op32 ||
+                             is_jalr || is_jal;
+      if (ret && writes_rd && rd != 0) R[rd] = wval;
+
+      // ---- tick bookkeeping --------------------------------------------------
+      const unsigned defs = __ballot_sync(FULL, deferred);
+      const bool started = __ballot_sync(FULL, cand) != 0 || cont;
+      const bool tick_done = started && !defs;
+      const bool skip = gate && !cont && !__ballot_sync(FULL, runnable) &&
+                        any_active;
+      const u64 wait = stall - ticks;
+      u64 dticks = tick_done ? 1 : 0;
+      if (skip)           // warp-uniform: every lane takes this branch
+        dticks = umin(warp_umin(active ? wait : ~0ull), budget_left);
+      exec_from = defs ? __ffs(defs) - 1 : 0;
+      const bool stalled = active && stall > ticks;
+      if (stalled) c_stall += umin(wait, dticks);
+      if (ret) pc = next_pc;
+      if (tr) {
+        pending = true;
+        mcause = cause;
+        mepc = pc;
+        mtval = tval;
+      }
+      ticks += dticks;
+      cycles += (long long)dticks;
+      uticks += ret;
+      instret += ret;
+      c_hits += hit && safe;
+      c_walks += miss && safe;
+      if (ways) c_tlb += dwalk && safe;
+      // the substep's chain of dependent global loads: the fetch walk's
+      // PTEs and the slot behind them, the data walk's PTEs, the data word;
+      // lanes run side by side, so the longest chain counts
+      int chain = (cand && is_memop) ? 1 : 0;
+      for (int k = 0; k < 3; ++k)
+        chain += (fw.words[k] != pw::NO_WORD) + (dw.words[k] != pw::NO_WORD);
+      chain += miss;
+      trips += __reduce_max_sync(FULL, (unsigned)chain);
+      __syncwarp();          // the commits land before the next reads
+    }
+    substeps += p.issue_width;
+  }
+
+  // ---- state out: once per launch -----------------------------------------
+  if (on) {
+    for (int k = 0; k < 32; ++k) p.regs[lane * 32 + k] = R[k];
+    p.pc[lane] = pc;
+    p.pending[lane] = pending ? 1 : 0;
+    p.mcause[lane] = mcause;
+    p.mepc[lane] = mepc;
+    p.mtval[lane] = mtval;
+    p.res[lane] = res;
+    p.uticks[lane] = uticks;
+    p.instret[lane] = instret;
+    p.stall_ticks[lane] = c_stall;
+    p.fetch_hits[lane] = c_hits;
+    p.fetch_walks[lane] = c_walks;
+    p.tlb_walks[lane] = c_tlb;
+  }
+  if (lane == 0) {
+    *p.ticks = ticks;
+    p.out[0] = substeps;
+    p.out[1] = trips;
+  }
+}
+
+// One thread follows `steps` links of `next` from `start` (the measure of
+// one dependent load's latency on the path the chunk kernel's loads take).
+__global__ void chase_kernel(const long long* next, long long start,
+                             long long steps, long long* out) {
+  long long i = start;
+  for (long long k = 0; k < steps; ++k) i = next[i];
+  *out = i;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a launch needs for `lanes` cores.
+size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
+  return (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
+         (size_t)lanes * block_words * 4;
+}
+
+// Runs one chunk on `stream` (one CTA of one warp) and returns
+// cudaGetLastError() (0 on success); does not synchronise and allocates
+// nothing.  Pointers are the CpuState fields in STATE_FIELDS order.
+int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
+                     void* pending, void* stall_until, void* satp,
+                     void* mcause, void* mepc, void* mtval, void* res,
+                     void* ticks, void* uticks, void* instret,
+                     void* stall_ticks, void* fetch_hits, void* fetch_walks,
+                     void* tlb_walks, void* out, u64 mask,
+                     long long limit, int lanes, int issue_width,
+                     int block_words, int block_cache, int ways,
+                     void* stream) {
+  if (lanes <= 0 || lanes > LANES_MAX) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.mem = (u64*)mem;
+  p.regs = (u64*)regs;
+  p.pc = (u64*)pc;
+  p.priv = (int*)priv;
+  p.pending = (unsigned char*)pending;
+  p.stall_until = (const u64*)stall_until;
+  p.satp = (const u64*)satp;
+  p.mcause = (u64*)mcause;
+  p.mepc = (u64*)mepc;
+  p.mtval = (u64*)mtval;
+  p.res = (u64*)res;
+  p.ticks = (u64*)ticks;
+  p.uticks = (u64*)uticks;
+  p.instret = (u64*)instret;
+  p.stall_ticks = (u64*)stall_ticks;
+  p.fetch_hits = (u64*)fetch_hits;
+  p.fetch_walks = (u64*)fetch_walks;
+  p.tlb_walks = (u64*)tlb_walks;
+  p.out = (long long*)out;
+  p.mask = mask;
+  p.limit = limit;
+  p.nc = lanes;
+  p.issue_width = issue_width;
+  p.block_words = block_words;
+  p.block_cache = block_cache;
+  p.ways = ways;
+  const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        run_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  run_chunk_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Launches the pointer chase on `stream` (one thread); returns
+// cudaGetLastError().
+int run_chunk_chase_launch(const void* next, long long start,
+                           long long steps, void* out, void* stream) {
+  chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (const long long*)next, start, steps, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

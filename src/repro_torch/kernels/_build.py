@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers,
 so a build takes seconds) and becomes ``build/lib<name>_<hash>.so`` under
 the checkout root — or under ``$REPRO_TORCH_BUILD_DIR`` — at first use.
-The hash is of the source text, so an edited source rebuilds and an
-unchanged one is reused.  A failed build raises with ``nvcc``'s output;
+The hash is of the source text and of the shared headers
+(``csrc/*.cuh``), so an edited source or header rebuilds and an unchanged
+one is reused.  A failed build raises with ``nvcc``'s output;
 nothing falls back.
 """
 from __future__ import annotations
@@ -44,8 +45,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, build_dir() / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # what a source includes
+        h.update(header.read_bytes())
+    return src, build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def load_all(names) -> dict[str, ctypes.CDLL]:

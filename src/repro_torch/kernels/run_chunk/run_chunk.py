@@ -1,0 +1,120 @@
+"""Launching wrapper of the CUDA chunk kernel.
+
+The kernel (``repro_torch/csrc/run_chunk.cu``) runs the FASE target's
+whole chunk loop — every substep of
+:func:`repro_torch.core.target.cpu.run_chunk_fast` up to the loop
+predicate — in one launch of one warp, with the Sv39 walk and the
+fetch-block fill as device functions (``csrc/page_walk.cuh``).  Its plain
+version is the eager loop ``cpu._run_chunk_eager``.  The library is built
+and loaded at the first call, never at import (the CPU tests import this
+module).
+
+Contract: one lane of the warp per core, so at most :data:`LANES_MAX`
+cores; the wrapper raises ``ValueError`` beyond.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+#: most cores one launch takes: the lanes of one warp
+LANES_MAX = 32
+#: dynamic shared memory one CTA may hold on Hopper (227 KiB)
+SMEM_MAX = 232_448
+
+#: the ``CpuState`` fields the kernel reads or writes, in the order of
+#: ``run_chunk_launch``'s pointers, with their dtype and per-core shape
+#: (``ticks`` is the 0-d global clock)
+FIELDS = (("regs", torch.int64, (32,)), ("pc", torch.int64, ()),
+          ("priv", torch.int32, ()), ("pending", torch.bool, ()),
+          ("stall_until", torch.int64, ()), ("satp", torch.int64, ()),
+          ("mcause", torch.int64, ()), ("mepc", torch.int64, ()),
+          ("mtval", torch.int64, ()), ("res", torch.int64, ()),
+          ("ticks", torch.int64, None), ("uticks", torch.int64, ()),
+          ("instret", torch.int64, ()), ("stall_ticks", torch.int64, ()),
+          ("fetch_hits", torch.int64, ()), ("fetch_walks", torch.int64, ()),
+          ("tlb_walks", torch.int64, ()))
+
+_ARGS = [ctypes.c_void_p] * (2 + len(FIELDS)) + [
+    ctypes.c_uint64, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+
+
+def smem_bytes(n_cores, block_words, dtlb_ways):
+    """Shared memory of one launch: the register files, the data TLB and
+    the fetch blocks' slots (``run_chunk_smem_bytes`` in the source)."""
+    return n_cores * (32 + 4 * dtlb_ways) * 8 + n_cores * block_words * 4
+
+
+def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways):
+    """Raise ``ValueError`` unless the kernel takes this state and these
+    knobs: ``n_cores`` within :data:`LANES_MAX`, every field a contiguous
+    tensor of its dtype and shape on the image's device, the image
+    ``mem_bytes // 8`` words."""
+    op = "run_chunk"
+    if not 0 < n_cores <= LANES_MAX:
+        raise ValueError(f"{op}: the kernel runs one core per lane of one "
+                         f"warp, at most {LANES_MAX} cores; got {n_cores}")
+    dev = st.mem.device
+    _build.check_tensor(op, "mem", st.mem, torch.int64, (mem_bytes // 8,),
+                        dev)
+    for name, dtype, tail in FIELDS:
+        shape = () if tail is None else (n_cores, *tail)
+        _build.check_tensor(op, name, getattr(st, name), dtype, shape, dev)
+    if block_words <= 0 or block_words & (block_words - 1):
+        raise ValueError(f"{op}: block_words must be a power of two, got "
+                         f"{block_words}")
+    if dtlb_ways < 0 or dtlb_ways & (dtlb_ways - 1):
+        raise ValueError(f"{op}: dtlb_ways must be a power of two or 0, "
+                         f"got {dtlb_ways}")
+    need = smem_bytes(n_cores, block_words, dtlb_ways)
+    if need > SMEM_MAX:
+        raise ValueError(f"{op}: {n_cores} cores with block_words "
+                         f"{block_words} and dtlb_ways {dtlb_ways} need "
+                         f"{need} bytes of shared memory, over {SMEM_MAX}")
+
+
+def launch_args(st, out, n_cores, mem_bytes, max_cycles, issue_width,
+                block_words, block_cache, dtlb_ways, stream):
+    """The arguments of ``run_chunk_launch`` for this state, in order."""
+    return (st.mem.data_ptr(),
+            *(getattr(st, name).data_ptr() for name, _, _ in FIELDS),
+            out.data_ptr(), (mem_bytes - 1) & ((1 << 64) - 1),
+            int(max_cycles), n_cores, issue_width, block_words,
+            int(bool(block_cache)), dtlb_ways, stream)
+
+
+def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
+              block_words=16, block_cache=True, dtlb_ways=8) -> int:
+    """Advance the CUDA state ``st`` in place by up to ``max_cycles``
+    ticks in one launch; returns the substeps issued (a whole
+    ``issue_width`` group per predicate test), read back once with the
+    launch's round-trip count."""
+    check_state(st, n_cores, mem_bytes, block_words, dtlb_ways)
+    if not st.mem.is_cuda:
+        raise ValueError("run_chunk: the kernel needs a CUDA state; the "
+                         "eager loop runs a CPU state")
+    if issue_width <= 0:
+        raise ValueError(f"run_chunk: issue_width must be positive, got "
+                         f"{issue_width}")
+    dev = st.mem.device
+    out = torch.empty((2,), dtype=torch.int64, device=dev)
+    args = launch_args(st, out, n_cores, mem_bytes, max_cycles,
+                       issue_width, block_words, block_cache, dtlb_ways,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    _build.launch("run_chunk", _build.entry(
+        "run_chunk", "run_chunk_launch", _ARGS), args, dev)
+    run_chunk.launches += 1
+    substeps, trips = out.tolist()
+    run_chunk.trips += trips
+    return substeps
+
+
+#: launches of the CUDA kernel since the counter was last set to 0
+run_chunk.launches = 0
+#: dependent round trips to global memory on the kernel's critical path
+#: (the longest chain of each substep, summed) since last set to 0
+run_chunk.trips = 0

@@ -19,7 +19,7 @@ def run_workload(name, argv_tail, mode="fase", n_cores=4, baud=921600,
     :class:`~repro_torch.core.interface.TorchTarget` on ``device`` and run
     it to completion.  ``target_opts`` are extra ``TorchTarget`` kwargs
     (``issue_width``/``block_words``/``block_cache``/``fetch_kernel``/
-    ``dtlb_ways``), e.g. from
+    ``dtlb_ways``/``chunk_kernel``), e.g. from
     :func:`repro_torch.configs.fase_rocket.target_kwargs`.  Returns
     ``(runtime, report, wall_seconds)``; the wall clock stops after the
     device has finished."""

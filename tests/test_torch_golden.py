@@ -98,6 +98,19 @@ def test_full_width_constants_come_from_pysim(scale):
     assert cs.DEFAULT_SCALE in cs.FULL_WIDTH
 
 
+def test_coremark_constants_come_from_pysim():
+    """``chip_smoke.py``'s CoreMark phase (``coremark 1``, 1 core, 4 MiB,
+    UART, the chunk kernel) is held to what the reference package's
+    pure-Python simulator yields."""
+    cs = _chip_smoke()
+    _, rep, _ = jax_run_workload("coremark", ["1"], mode="fase", n_cores=1,
+                                 mem=1 << 22, target="pysim")
+    out = dict(line.split() for line in rep.stdout.decode().splitlines())
+    assert dict(ticks=rep.ticks, instret=sum(rep.instret),
+                crc=int(out["coremark_crc"])) == cs.COREMARK
+    assert cs.COREMARK["crc"] == 16356
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     import subprocess
     import sys

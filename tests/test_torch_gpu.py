@@ -6,10 +6,13 @@ where there is none.  On a GPU machine run them with
 (``--noconftest`` because the shared conftest arms a fixture of the JAX
 package; this file imports only the port).  The kernel is held against
 its plain version, and the CUDA target against the CPU target, on the
-same inputs.  Integer results and the page ops: tolerance 0; the
+same inputs; the chunk kernel against the eager loop on the CPU, every
+state field after every chunk.  Integer results and the page ops:
+tolerance 0; the
 attention kernels: ``kernels/flash_attention/ref.py::ATTN_TOL`` (1e-5 +
 1e-5·|plain| in float32, 1e-6 + 2⁻⁷·|plain|, one rounding step, in
 bfloat16)."""
+import ast
 import importlib.util
 from pathlib import Path
 
@@ -21,6 +24,7 @@ from repro_torch.core.interface import TorchTarget
 from repro_torch.core.target import asm, isa
 from repro_torch.core.target.convert import state_to_numpy
 from repro_torch.kernels.page_walk import ops, page_walk
+from repro_torch.kernels.run_chunk import run_chunk as RC
 
 pytestmark = pytest.mark.gpu
 
@@ -95,7 +99,51 @@ def test_kernel_equals_plain_version_on_the_card(cuda, block_words):
     assert page_walk.walk_fetch_block.launches == before + 2
 
 
-def _load(t, img, nc):
+#: the lockstep fuzzer's axes (tests/test_torch_cpu_differential.py CONFIGS)
+FUZZ_CONFIGS = [dict(block_cache=True, dtlb_ways=8),
+                dict(block_cache=False, dtlb_ways=8),
+                dict(block_cache=True, dtlb_ways=0),
+                dict(block_cache=False, dtlb_ways=0)]
+#: the fuzzer's program generator and the tables it draws from
+_GEN_NAMES = ("ALU_RR", "ALU_RI", "SHIFTS", "LOADS", "STORES", "AMOS",
+              "BRANCHES", "GPRS", "EDGE_VALS", "_ProgGen")
+
+
+def fuzz_program(seed):
+    """The program the lockstep fuzzer runs for ``seed``: the JAX
+    package's generator (``tests/test_cpu_differential.py::_ProgGen``),
+    taken from that file's source so that this file needs no JAX."""
+    path = Path(__file__).resolve().parent / "test_cpu_differential.py"
+    tree = ast.parse(path.read_text())
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.Assign) and
+                isinstance(n.targets[0], ast.Name) and
+                n.targets[0].id in _GEN_NAMES) or
+            (isinstance(n, ast.ClassDef) and n.name in _GEN_NAMES)]
+    ns = {"np": np}
+    exec(compile(ast.Module(keep, type_ignores=[]), str(path), "exec"), ns)
+    return ns["_ProgGen"](seed).build()
+
+
+def amo_table_program():
+    """Every AMO, W and D, on a cell holding more, less, and a negative
+    against its operand: each old value and each new cell value is stored
+    to ``out``."""
+    lines = ["_start:", "    la s0, cell", "    la s1, out"]
+    for amo in ("amoswap", "amoadd", "amoxor", "amoand", "amoor", "amomin",
+                "amomax", "amominu", "amomaxu"):
+        for w in (".w", ".d"):
+            for old, b in ((5, 3), (3, 5), (-1, 1), (1 << 40, -7)):
+                lines += [f"    li t0, {old}", "    sd t0, 0(s0)",
+                          f"    li t1, {b}", f"    {amo}{w} t2, t1, (s0)",
+                          "    ld t3, 0(s0)", "    sd t2, 0(s1)",
+                          "    sd t3, 8(s1)", "    addi s1, s1, 16"]
+    lines += ["    li a7, 93", "    ecall", ".data", "cell: .dword 0",
+              "out: .zero 2400"]
+    return "\n".join(lines)
+
+
+def _load(t, img, nc, mmu=True):
     for seg in img.segments:
         data = bytes(seg.data)
         data = data.ljust((len(data) + 7) // 8 * 8, b"\0")
@@ -105,40 +153,79 @@ def _load(t, img, nc):
     root, l1, l0 = 2, 3, 4
     flags = (isa.PTE_V | isa.PTE_R | isa.PTE_W | isa.PTE_X | isa.PTE_U |
              isa.PTE_A | isa.PTE_D)
-    t.mem_write_word(root * 4096, (l1 << 10) | isa.PTE_V)
-    t.mem_write_word(l1 * 4096, (l0 << 10) | isa.PTE_V)
-    for vpn0 in list(range(16, 96)) + list(range(256, 272)):
-        t.mem_write_word(l0 * 4096 + vpn0 * 8, (vpn0 << 10) | flags)
+    if mmu:
+        t.mem_write_word(root * 4096, (l1 << 10) | isa.PTE_V)
+        t.mem_write_word(l1 * 4096, (l0 << 10) | isa.PTE_V)
+        for vpn0 in list(range(16, 96)) + list(range(256, 272)):
+            t.mem_write_word(l0 * 4096 + vpn0 * 8, (vpn0 << 10) | flags)
     for c in range(nc):
-        t.set_satp(c, (8 << 60) | root)
+        if mmu:
+            t.set_satp(c, (8 << 60) | root)
         t.reg_write(c, 10, c)
         t.redirect(c, img.entry)
 
 
-@pytest.mark.parametrize("nc", [1, 4])
-def test_cuda_target_equals_cpu_target(cuda, nc):
-    img = asm.assemble(PROGRAM)
-    targets = [TorchTarget(nc, 1 << 21, device="cuda"),
-               TorchTarget(nc, 1 << 21, device="cpu")]
+def _lockstep(src, nc, chunk, mmu=True, max_chunks=400, **kw):
+    """``src`` on a CUDA target (its default route, or ``chunk_kernel``
+    in ``kw``) and on a CPU target (the eager loop) in lockstep chunks:
+    every state field and the substep count equal after every chunk.
+    Returns the CUDA target."""
+    img = asm.assemble(src)
+    targets = [TorchTarget(nc, 1 << 21, device="cuda", **kw),
+               TorchTarget(nc, 1 << 21, device="cpu",
+                           **{k: v for k, v in kw.items()
+                              if k != "chunk_kernel"})]
     for t in targets:
-        _load(t, img, nc)
-    before = page_walk.walk_fetch_block.launches
-    for _ in range(40):
+        _load(t, img, nc, mmu)
+    for step in range(max_chunks):
         for t in targets:
-            t.run(max_cycles=97)
+            t.run(max_cycles=chunk)
         a, b = (state_to_numpy(t.st) for t in targets)
         for name in a:
-            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"chunk {step}: {name}")
+        assert targets[0].substeps == targets[1].substeps, step
         for t in targets:
             for c in t.pending_cores():
                 t.clear_pending(c)
                 t.park(c)
         if all(t.get_priv(c) == 3 for t in targets for c in range(nc)):
-            break
+            return targets[0]
+    raise AssertionError("program did not finish")
+
+
+@pytest.mark.parametrize("chunk_kernel", ["kernel", "ref"])
+@pytest.mark.parametrize("nc", [1, 4])
+def test_cuda_target_equals_cpu_target(cuda, nc, chunk_kernel):
+    """Both card routes: the chunk kernel (one launch per chunk, no
+    standalone walk) and the eager loop (the walk kernel each substep)."""
+    walks = page_walk.walk_fetch_block.launches
+    chunks = RC.run_chunk.launches
+    t = _lockstep(PROGRAM, nc, 97, chunk_kernel=chunk_kernel)
+    assert t.get_instret(0) > 200
+    if chunk_kernel == "kernel":
+        assert RC.run_chunk.launches > chunks
+        assert page_walk.walk_fetch_block.launches == walks
     else:
-        raise AssertionError("program did not finish")
-    assert targets[0].get_instret(0) > 200
-    assert page_walk.walk_fetch_block.launches > before
+        assert RC.run_chunk.launches == chunks
+        assert page_walk.walk_fetch_block.launches > walks
+
+
+@pytest.mark.parametrize("kw", FUZZ_CONFIGS,
+                         ids=["cache-dtlb8", "nocache-dtlb8", "cache-dtlb0",
+                              "nocache-dtlb0"])
+@pytest.mark.parametrize("seed", range(6))
+def test_chunk_kernel_equals_eager_loop_on_fuzz_programs(cuda, seed, kw):
+    """The lockstep fuzzer's programs (1/2/4 cores, MMU on/off, shared
+    atomics) on the chunk kernel against the CPU's eager loop."""
+    nc = (1, 2, 4)[seed % 3]
+    chunks = RC.run_chunk.launches
+    _lockstep(fuzz_program(seed), nc, 379, mmu=seed % 3 != 1, **kw)
+    assert RC.run_chunk.launches > chunks
+
+
+def test_chunk_kernel_equals_eager_loop_on_the_amo_table(cuda):
+    _lockstep(amo_table_program(), 1, 61)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -14,6 +14,7 @@ PORT_MODULES = [
     "repro_torch.core.interface",
     "repro_torch.core.target.convert",
     "repro_torch.kernels.page_walk.ops",
+    "repro_torch.kernels.run_chunk.run_chunk",
     "repro_torch.configs.fase_rocket",
     "repro_torch.models.core",
     "repro_torch.serving.engine",

@@ -1,0 +1,213 @@
+"""The chunk kernel's route and wrapper, on the CPU.
+
+The kernel itself (``csrc/run_chunk.cu``) runs only on a card
+(``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold it against the
+eager loop there).  Here: which loop ``run_chunk_fast`` picks, what the
+wrapper refuses and that its arguments line up with the kernel's C
+signature, and the programs the card tests run, held against the
+reference's generator and ``PySim``.
+"""
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from repro.core.target import asm as jasm
+from repro.core.target.pysim import PySim
+from repro_torch.core.interface import TorchTarget
+from repro_torch.core.target import cpu
+from repro_torch.kernels import _build
+from repro_torch.kernels.run_chunk import run_chunk as RC
+
+from test_cpu_differential import _ProgGen
+from test_torch_cpu_differential import CONFIGS
+from test_torch_gpu import (FUZZ_CONFIGS, amo_table_program, fuzz_program,
+                            _load)
+
+CSRC = Path(__file__).resolve().parent.parent / "src/repro_torch/csrc"
+MEM = 1 << 20
+
+
+def _state(nc=2):
+    return cpu.make_state(nc, MEM, device="cpu")
+
+
+def _cuda_like():
+    return SimpleNamespace(mem=SimpleNamespace(is_cuda=True))
+
+
+def test_route_is_chosen_by_device_and_by_name():
+    st = _state()
+    assert cpu.chunk_route(st) == "ref"
+    assert cpu.chunk_route(st, "kernel") == "ref"
+    assert cpu.chunk_route(st, "ref") == "ref"
+    assert cpu.chunk_route(_cuda_like()) == "kernel"
+    assert cpu.chunk_route(_cuda_like(), "ref") == "ref"
+    for bad in ("pallas", "eager", None):
+        with pytest.raises(ValueError, match="chunk_kernel must be one of"):
+            cpu.chunk_route(st, bad)
+
+
+def test_cpu_state_runs_the_eager_loop(monkeypatch):
+    """A CPU state never reaches the kernel's wrapper, whatever the
+    keyword; both names give the same state."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel wrapper was called for a CPU state")
+    monkeypatch.setattr(cpu.rc_kernel, "run_chunk", refuse)
+    img = jasm.assemble("_start:\n    addi t0, t0, 1\n    j _start\n")
+    out = {}
+    for name in ("kernel", "ref"):
+        t = TorchTarget(1, MEM, device="cpu", chunk_kernel=name)
+        _load(t, img, 1, mmu=False)
+        t.run(max_cycles=40)
+        out[name] = (t.substeps, t.reg_read(0, 5), t.get_ticks())
+    assert out["kernel"] == out["ref"] == (40, 20, 40)
+
+
+def test_kernel_route_calls_the_wrapper_once_per_chunk(monkeypatch):
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 16
+    monkeypatch.setattr(cpu, "chunk_route", lambda st, name: name)
+    monkeypatch.setattr(cpu.rc_kernel, "run_chunk", record)
+    st = _state()
+    n = cpu.run_chunk_fast(st, 2, MEM, 99, 4, 8, False, "ref", dtlb_ways=2)
+    assert n == 16 and calls == [(st, 2, MEM, 99, 4, 8, False, 2)]
+    t = TorchTarget(2, MEM, device="cpu")
+    t.st = st
+    t.run(max_cycles=7)
+    assert t.substeps == 16 and len(calls) == 2
+
+
+@pytest.mark.parametrize("name", ["kernel", "ref"])
+def test_trace_capture_raises_on_both_routes(monkeypatch, name):
+    monkeypatch.setattr(cpu, "chunk_route", lambda st, n: n)
+    monkeypatch.setattr(cpu.rc_kernel, "run_chunk", None)
+    st = _state()
+    with pytest.raises(NotImplementedError, match="commit-trace"):
+        cpu.run_chunk_fast(st, 2, MEM, 10, trace_on=True, chunk_kernel=name)
+    with pytest.raises(NotImplementedError, match="commit-trace"):
+        cpu.run_chunk_fast(st, 2, MEM, 10, trigger=("pc", 0),
+                           chunk_kernel=name)
+
+
+def test_target_refuses_an_unknown_route():
+    with pytest.raises(ValueError, match="chunk_kernel"):
+        TorchTarget(1, MEM, device="cpu", chunk_kernel="jit")
+    assert TorchTarget(1, MEM, device="cpu").chunk_kernel == "kernel"
+
+
+def _refused(st, match, nc=2, **kw):
+    with pytest.raises(ValueError, match=match):
+        RC.run_chunk(st, nc, MEM, 64, **kw)
+
+
+def test_wrapper_refuses_a_cpu_state():
+    _refused(_state(), "needs a CUDA state")
+
+
+def test_wrapper_refuses_a_field_of_another_dtype():
+    st = _state()
+    st.priv = st.priv.long()
+    _refused(st, r"priv must be a contiguous torch.int32")
+    st = _state()
+    st.pending = st.pending.to(torch.uint8)
+    _refused(st, r"pending must be a contiguous torch.bool")
+
+
+def test_wrapper_refuses_a_field_of_another_shape():
+    st = _state()
+    st.regs = st.regs[:, :16].contiguous()
+    _refused(st, r"regs must be a contiguous torch.int64 tensor of shape "
+                 r"\(2, 32\)")
+    st = _state()
+    st.ticks = st.ticks.reshape(1)
+    _refused(st, r"ticks must be .* of shape \(\)")
+    with pytest.raises(ValueError, match="mem must be"):
+        RC.run_chunk(_state(), 2, 2 * MEM, 64)
+
+
+def test_wrapper_refuses_a_non_contiguous_field():
+    st = _state()
+    st.regs = torch.zeros((32, 2), dtype=torch.int64).t()
+    _refused(st, r"regs must be .*\(not contiguous\)")
+
+
+def test_wrapper_refuses_more_lanes_than_a_warp():
+    n = RC.LANES_MAX + 1
+    _refused(cpu.make_state(n, MEM, device="cpu"),
+             f"at most {RC.LANES_MAX} cores; got {n}", nc=n)
+    with pytest.raises(ValueError, match="at most 32 cores"):
+        RC.check_state(_state(), 0, MEM, 16, 8)
+
+
+def test_wrapper_refuses_knobs_the_kernel_cannot_hold():
+    _refused(_state(), "block_words must be a power of two",
+             block_words=12)
+    _refused(_state(), "dtlb_ways must be a power of two", dtlb_ways=3)
+    assert RC.smem_bytes(4, 16, 8) == 4 * (32 + 32) * 8 + 4 * 16 * 4
+    _refused(_state(32), "bytes of shared memory", nc=32,
+             block_words=1 << 11)
+
+
+def test_launch_arguments_follow_the_kernel_signature():
+    """The wrapper's argument tuple lines up, name by name, with
+    ``run_chunk_launch``'s parameters in the CUDA source."""
+    src = (CSRC / "run_chunk.cu").read_text()
+    sig = re.search(r"int run_chunk_launch\((.*?)\)\s*\{", src, re.S)[1]
+    params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    assert params == ["mem", *(f for f, _, _ in RC.FIELDS), "out", "mask",
+                      "limit", "lanes", "issue_width", "block_words",
+                      "block_cache", "ways", "stream"]
+    st = _state()
+    out = torch.zeros((2,), dtype=torch.int64)
+    args = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0)
+    assert len(args) == len(RC._ARGS) == len(params)
+    assert args[0] == st.mem.data_ptr() == st.mem_store.data_ptr()
+    assert args[1 + [f for f, _, _ in RC.FIELDS].index("priv")] == \
+        st.priv.data_ptr()
+    assert args[-9:] == (out.data_ptr(), MEM - 1, 99, 2, 8, 16, 1, 8, 0)
+    # the C side sizes shared memory as the wrapper does
+    assert "lanes * (32 + 4 * (size_t)ways) * 8" in src
+    assert "lanes * block_words * 4" in src
+
+
+def test_a_shared_header_change_rebuilds(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build._target("k")[1]
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k")[1] != first
+    assert set((p.name for p in CSRC.glob("*.cuh"))) == {"page_walk.cuh"}
+
+
+def test_card_tests_run_the_fuzzers_programs():
+    """``tests/test_torch_gpu.py`` runs the lockstep fuzzer's programs
+    and axes without importing JAX: the same sources, the same configs."""
+    for seed in range(6):
+        assert fuzz_program(seed) == _ProgGen(seed).build()
+    assert FUZZ_CONFIGS == [p.values[0] for p in CONFIGS]
+
+
+@pytest.mark.parametrize("kw", FUZZ_CONFIGS[:1] + FUZZ_CONFIGS[3:])
+def test_amo_table_program_on_the_eager_loop_equals_pysim(kw):
+    """The card test's AMO table (every AMO, W and D, operands above,
+    below and negative) on the CPU's eager loop against ``PySim``."""
+    img = jasm.assemble(amo_table_program())
+    tt = TorchTarget(1, 1 << 21, device="cpu", **kw)
+    ps = PySim(1, 1 << 21)
+    for t in (tt, ps):
+        _load(t, img, 1)
+        t.run(max_cycles=1 << 20)
+        assert t.pending_cores() == [0]
+    out = img.symbols["out"]
+    got = [tt.mem_read_word(out + 8 * i) for i in range(144)]
+    want = [ps.mem_read_word(out + 8 * i) for i in range(144)]
+    assert got == want
+    assert len(set(got)) > 10 and tt.csr_read(0, "mcause") == 8
+    assert tt.get_instret(0) == ps.get_instret(0) > 500
