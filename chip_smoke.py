@@ -135,6 +135,16 @@ SERVE_MIX = (("A", 70, 16), ("S", 150, 16), ("S", 140, 16), ("B", 96, 16),
 #: and the two attention implementations round their bf16 outputs apart
 #: in a few elements, which 36 layers carry into the logits
 SERVE_LOGIT_TOL = 0.25
+#: paged_attention at qwen3-8b's native context (Qwen3 model card: 32 768
+#: tokens) on 4 slots: B, H, Hkv, D, page, P; each pool 2 048 pages of
+#: 64 x 8 x 128 bf16 (268 MB).  Timed full; checked with one full, one
+#: single-token, one mid-page and one empty sequence
+LONG_SHAPE = (4, 32, 8, 128, 64, 512)
+LONG_TIMED_LENS = (32768, 32768, 32768, 32768)
+LONG_CHECK_LENS = (32768, 1, 20000, 0)
+#: page_copy pairs past the one-grid limit (COPY_MAX_PAIRS + 1): the staged
+#: route, checked on a small pool
+STAGED_PAIRS = 12_801
 #: page_gather's table on the serve pool's 65 pages: 8 entries, page 5
 #: twice
 GATHER_TABLE = (5, 64, 0, 17, 5, 33, 2, 9)
@@ -264,6 +274,33 @@ def time_ms(torch, fn, iters, warmup=10):
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(torch, fn, iters):
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, replayed, timed by CUDA events, divided by ``iters`` — the
+    kernels back to back without the host's launch cost."""
+    fn()                                   # warm: build, workspace, plan
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # capture warms a side stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / iters
 
 
@@ -462,9 +499,10 @@ def attention_inputs(torch, dev, B, H, Hkv, D, page, P, dtype, seed,
 def check_attention(torch, dev):
     """paged_attention == its plain version on the card: the f32 sweep of
     tests/test_kernels.py:50-65 (every combination), D 128 / page 64 in
-    f32 (more than 48 KiB of shared memory), a GQA group of 16
-    (chatglm3-6b), zero lengths, and bf16 at the serving shape with lens
-    of 1, mid-page, a page boundary and P * page."""
+    f32, a GQA group of 16 (chatglm3-6b), zero lengths, bf16 at the
+    serving shape with lens of 1, mid-page, a page boundary and P * page,
+    and bf16 at ``LONG_SHAPE`` (32 768 tokens a slot) with
+    ``LONG_CHECK_LENS``."""
     import itertools
     from repro_torch.kernels.flash_attention.ref import ATTN_TOL
     worst, cases, s = 0.0, 0, 0
@@ -487,6 +525,9 @@ def check_attention(torch, dev):
             torch, dev, B, H, Hkv, D, page, P, dtype, s, lens,
             pages=2 * B * P + 1)))
         cases += 1
+    worst = max(worst, attention_err(torch, *attention_inputs(
+        torch, dev, *LONG_SHAPE, torch.bfloat16, s + 1, LONG_CHECK_LENS)))
+    cases += 1
     # the wrapper refuses what the kernel does not take
     from repro_torch.kernels.paged_attention import paged_attention as PA
     q, kp, vp, bt, lens = attention_inputs(torch, dev, 1, 2, 1, 16, 8, 1,
@@ -514,9 +555,10 @@ def check_page_ops(torch, dev):
     (``[[0,3],[3,5]]``: page 5 gets the old page 3), a duplicate
     destination (``[[0,3],[1,3]]``: the last pair wins), random pairs with
     repeats, on an f32 pool and on a layered bf16 pool of the serving
-    shape; page_gather with a table of 8 pages holding a repeated id on
-    the f32 pool and on the serve K pool's shape (36, 1, 65, 64, 8, 128)
-    in bf16."""
+    shape; ``STAGED_PAIRS`` random pairs on the f32 pool (the staged
+    route); page_set on two pools in one launch; page_gather with a table
+    of 8 pages holding a repeated id on the f32 pool and on the serve K
+    pool's shape (36, 1, 65, 64, 8, 128) in bf16."""
     from repro_torch.kernels.page_ops import ops, page_ops
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -563,15 +605,39 @@ def check_page_ops(torch, dev):
               f"page_gather on {tuple(pool.shape)}: the kernel differs "
               f"from the plain version")
         cases["page_gather"] += 1
+    # past the one-grid limit: the staged route, with repeated sources and
+    # destinations (the last pair of each destination wins)
+    check(page_ops.copy_route(STAGED_PAIRS) == "staged",
+          f"{STAGED_PAIRS} pairs do not take the staged route")
+    pairs = torch.randint(0, 8, (STAGED_PAIRS, 2), generator=g, device=dev,
+                          dtype=torch.int32)
+    got, want = pools[0].clone(), pools[0].clone()
+    ops.page_copy(got, pairs)
+    ops.page_copy(want, pairs, impl="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"page_copy of {STAGED_PAIRS} pairs: the "
+          "kernel differs from the plain version")
+    cases["page_copy"] += 1
+    # both pools of a step in one launch
+    for pool in pools:
+        a = torch.tensor([4, 1, 4], dtype=torch.int32, device=dev)
+        got = (pool.clone(), pool.clone() + 1)
+        want = tuple(t.clone() for t in got)
+        ops.page_set(got, a, 0.0)
+        ops.page_set(want, a, 0.0, impl="ref")
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"page_set on two pools {tuple(pool.shape)}: the kernel "
+              "differs from the plain version")
+        cases["page_set"] += 1
     one = torch.tensor([1], dtype=torch.int32)
-    too_many = page_ops.COPY_MAX_PAIRS + 1
     for bad in (lambda: page_ops.page_set(pools[0].cpu(), one, 0.0),
                 lambda: page_ops.page_set(pools[0], torch.tensor(
                     [1], device=dev), 0.0),
+                lambda: page_ops.page_set((pools[0], pools[1]), torch.tensor(
+                    [1], dtype=torch.int32, device=dev), 0.0),
                 lambda: page_ops.page_copy(pools[0], torch.tensor(
                     [1, 2], dtype=torch.int32, device=dev)),
-                lambda: page_ops.page_copy(pools[0], torch.zeros(
-                    (too_many, 2), dtype=torch.int32, device=dev)),
                 lambda: page_ops.page_gather(pools[0].cpu(), one),
                 lambda: page_ops.page_gather(pools[0], table.long()),
                 lambda: page_ops.page_gather(pools[0].transpose(1, 2),
@@ -1095,7 +1161,8 @@ def lockstep(torch, cfg, params):
     er = new_engine(torch, cfg, params, "ref")
     most = {"page_set": 0, "page_copy": 0}
     stats = {"steps": 0, "max_logit_abs_err": 0.0, "max_abs_logit": 0.0,
-             "used_tokens": 0, "near_ties": [], "tolerance": SERVE_LOGIT_TOL}
+             "used_tokens": 0, "near_ties": [], "page_set_steps": 0,
+             "tolerance": SERVE_LOGIT_TOL}
     bad, busiest, best = [], None, -1
     ek.begin()
     er.begin()
@@ -1107,6 +1174,7 @@ def lockstep(torch, cfg, params):
         check(ek.step_slots == er.step_slots,
               "kernel and plain routes busy different slots")
         most["page_set"] = max(most["page_set"], len(ek.batch.page_zeros))
+        stats["page_set_steps"] += bool(ek.batch.page_zeros)
         most["page_copy"] = max(most["page_copy"],
                                 len(ek.batch.page_copies))
         rows = torch.tensor(ek.step_slots, device=ek.device)
@@ -1165,11 +1233,13 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
     """Each serving kernel, its plain version and the one PyTorch call
     that computes the same (where there is one), at the serve run's
     shapes: paged_attention on layer 0's pools with the busiest step's
-    block table and lengths; page_set / page_copy on the whole K pool
-    (every layer) with the largest id list the run gave them; page_gather,
-    which no path calls, on the same pool with a table of 8 pages (one id
-    repeated), beside ``index_select``, its library call and plain
-    version alike."""
+    block table and lengths (and at ``LONG_SHAPE``, full); page_set on the
+    K and V pools (every layer) in one launch and page_copy on the K pool,
+    with the largest id lists the run gave them; page_gather, which no
+    path calls, on the K pool with a table of 8 pages (one id repeated),
+    beside ``index_select``, its library call and plain version alike.
+    ``device_ms`` is a launch's device time without the host's
+    (``graph_ms``)."""
     from repro_torch.kernels.page_ops import ops as page_ops
     from repro_torch.kernels.paged_attention import ops as attn_ops
     cfg, dev = eng.cfg, eng.device
@@ -1185,6 +1255,9 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
     out["paged_attention"] = dict(
         ms=time_ms(torch, lambda: attn_ops.paged_decode(q, kp, vp, bt, lens),
                    2000),
+        device_ms=graph_ms(torch, lambda: attn_ops.paged_decode(
+            q, kp, vp, bt, lens), 500),
+        long_context=time_long_attention(torch, dev),
         plain_ms=time_ms(torch, lambda: attn_ops.paged_decode(
             q, kp, vp, bt, lens, impl="ref"), 200),
         bound_ms=attention_bound_ms(B, H, cfg.n_kv_heads, D, lens.tolist(),
@@ -1193,7 +1266,8 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
         shape=dict(q=list(q.shape), pool=list(kp.shape),
                    block_table=list(bt.shape), lens=lens.tolist(),
                    dtype="bfloat16"))
-    pool = eng.state["kpool"]
+    pool, vpool = eng.state["kpool"], eng.state["vpool"]
+    both = (pool, vpool)
     layers = pool.shape[0] * pool.shape[1]
     page_bytes = pool[0, 0, 0].numel() * pool.element_size()
     n_pages = pool.shape[2]
@@ -1201,28 +1275,36 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
     ids = torch.arange(k_set, dtype=torch.int32, device=dev) * 3 % n_pages
     src = torch.arange(k_cp, dtype=torch.int32, device=dev) % n_pages
     pairs = torch.stack([src, (src + 7) % n_pages], 1).contiguous()
-    got, want = pool.clone(), pool.clone()
+    got, want = (pool.clone(), vpool.clone()), (pool.clone(), vpool.clone())
     page_ops.page_set(got, ids, 0.0)
     page_ops.page_set(want, ids, 0.0, impl="ref")
-    page_ops.page_copy(got, pairs)
-    page_ops.page_copy(want, pairs, impl="ref")
+    page_ops.page_copy(got[0], pairs)
+    page_ops.page_copy(want[0], pairs, impl="ref")
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "page ops at the serve shape: kernel "
-          "differs from the plain version")
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "page ops at the serve shape: kernel differs from the plain "
+          "version")
     del got, want
     il, sl, dl = ids.long(), pairs[:, 0].long(), pairs[:, 1].long()
 
     def lib_copy():
         pool[:, :, dl] = pool[:, :, sl]
+
+    def lib_set():
+        pool.index_fill_(2, il, 0.0)
+        vpool.index_fill_(2, il, 0.0)
     out["page_set"] = dict(
-        ms=time_ms(torch, lambda: page_ops.page_set(pool, ids, 0.0), 200),
+        ms=time_ms(torch, lambda: page_ops.page_set(both, ids, 0.0), 200),
+        device_ms=graph_ms(torch, lambda: page_ops.page_set(both, ids, 0.0),
+                           50),
         plain_ms=time_ms(torch, lambda: page_ops.page_set(
-            pool, ids, 0.0, impl="ref"), 50),
-        library_ms=time_ms(torch, lambda: pool.index_fill_(2, il, 0.0), 200),
-        bound_ms=(k_set * layers * page_bytes + 4 * k_set) /
+            both, ids, 0.0, impl="ref"), 50),
+        library_ms=time_ms(torch, lib_set, 200),
+        bound_ms=(2 * k_set * layers * page_bytes + 4 * k_set) /
         HBM_BYTES_PER_S * 1e3,
         max_abs_err=errs["page_set"],
-        shape=dict(pool=list(pool.shape), ids=k_set, dtype="bfloat16"))
+        shape=dict(pools=2, pool=list(pool.shape), ids=k_set,
+                   dtype="bfloat16"))
     out["page_copy"] = dict(
         ms=time_ms(torch, lambda: page_ops.page_copy(pool, pairs), 200),
         plain_ms=time_ms(torch, lambda: page_ops.page_copy(
@@ -1247,6 +1329,32 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
         HBM_BYTES_PER_S * 1e3,
         max_abs_err=errs["page_gather"],
         shape=dict(pool=list(pool.shape), table=k_g, dtype="bfloat16"))
+    return out
+
+
+def time_long_attention(torch, dev):
+    """paged_attention at ``LONG_SHAPE`` with every slot at 32 768 tokens:
+    the kernel through its wrapper and on the device alone, its plain
+    version, the byte bound, and the largest difference between the
+    two."""
+    from repro_torch.kernels.paged_attention import ops as attn_ops
+    B, H, Hkv, D, page, P = LONG_SHAPE
+    args = attention_inputs(torch, dev, *LONG_SHAPE, torch.bfloat16, 7,
+                            LONG_TIMED_LENS)
+    err = attention_err(torch, *args)
+    out = dict(ms=time_ms(torch, lambda: attn_ops.paged_decode(*args), 50),
+               device_ms=graph_ms(torch, lambda: attn_ops.paged_decode(
+                   *args), 20),
+               plain_ms=time_ms(torch, lambda: attn_ops.paged_decode(
+                   *args, impl="ref"), 5, warmup=1),
+               bound_ms=attention_bound_ms(B, H, Hkv, D, LONG_TIMED_LENS,
+                                           P * page, 2),
+               max_abs_err=err,
+               shape=dict(q=[B, H, D], pool=[B * P, page, Hkv, D],
+                          block_table=[B, P], lens=list(LONG_TIMED_LENS),
+                          dtype="bfloat16"))
+    del args
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1364,9 +1472,13 @@ def phase_serve(torch, errs, profile_dir):
     check(bool(torch.isfinite(eng.logits).all()), "non-finite logits")
     # the kernel route against the plain route, step by step
     del eng
-    ek, _, busiest, most = lockstep(torch, cfg, params)
+    ek, stats, busiest, most = lockstep(torch, cfg, params)
     check({r.rid: strip_eos(r.out, r.eos) for r in ek.finished} == streams,
           "the lockstep kernel run differs from the timed run")
+    # the same schedule: one page_set launch (K and V) per allocating step
+    check(launches["page_set"] == stats["page_set_steps"],
+          f"page_set launches {launches['page_set']} != allocating steps "
+          f"{stats['page_set_steps']}")
     timing = time_serving_kernels(torch, ek, busiest, most, errs)
     if profile_dir:
         del ek
@@ -1897,6 +2009,7 @@ def main():
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": t["library_ms"],
+                **{k: t[k] for k in ("device_ms", "long_context") if k in t},
                 "shape": t["shape"]})
             if name == "page_gather":
                 kernels[-1].update(note="no path of the system calls "

@@ -651,7 +651,11 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+#ifdef __CUDACC__
   run_chunk_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(p);
+#else  // g++ under the CPU emulation of tests/cuda_shim
+  cuda_shim::launch(run_chunk_kernel, 1, 32, smem, p);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -659,8 +663,13 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
 // cudaGetLastError().
 int run_chunk_chase_launch(const void* next, long long start,
                            long long steps, void* out, void* stream) {
+#ifdef __CUDACC__
   chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (const long long*)next, start, steps, (long long*)out);
+#else
+  cuda_shim::launch(chase_kernel, 1, 1, 0, (const long long*)next, start,
+                    steps, (long long*)out);
+#endif
   return (int)cudaGetLastError();
 }
 

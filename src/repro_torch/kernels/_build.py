@@ -112,6 +112,15 @@ def check_tensor(op, name, t, dtype, shape, device):
             f"{t.device}{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
+def current_stream(device):
+    """The handle of ``device``'s current CUDA stream, as an int (what a
+    C entry point takes), without building a ``torch.cuda.Stream``."""
+    import torch
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
 def launch(op, fn, args, device):
     """Call the C entry point ``fn`` with ``args`` on ``device`` (the
     launch goes to the current device) and raise on a CUDA error."""

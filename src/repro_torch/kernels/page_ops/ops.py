@@ -22,18 +22,19 @@ def _kernel(pool, impl):
     return impl == "kernel" and pool.is_cuda
 
 
-def page_set(pool, ids, value, impl="kernel"):
-    if _kernel(pool, impl):
-        return K.page_set(pool, ids, value)
-    return R.page_set_ref(pool, ids, value)
+def page_set(pools, ids, value, impl="kernel"):
+    """PageS on one pool or on a tuple of pools of one shape (one launch
+    for all of them on the kernel route)."""
+    first = pools[0] if isinstance(pools, (tuple, list)) else pools
+    if _kernel(first, impl):
+        return K.page_set(pools, ids, value)
+    return R.page_set_ref(pools, ids, value)
 
 
 def page_copy(pool, pairs, impl="kernel"):
     """PageCP: page ``dst`` of every layer gets page ``src`` as it was
-    before the call, for each row ``[src, dst]`` of ``pairs``.  The kernel
-    takes at most ``page_ops.COPY_MAX_PAIRS`` (12 800) pairs a call and
-    raises ``ValueError`` beyond: a limit the reference's ``page_copy``
-    does not have (a serve step sends at most one pair per slot)."""
+    before the call, for each row ``[src, dst]`` of ``pairs``; on
+    duplicate destinations the last pair wins."""
     if _kernel(pool, impl):
         return K.page_copy(pool, pairs)
     return R.page_copy_ref(pool, pairs)

@@ -6,9 +6,10 @@ counterparts of the TPU kernels ``repro/kernels/page_ops/page_ops.py``
 ``page_set`` / ``page_copy`` / ``page_gather``; their plain PyTorch
 versions are in :mod:`repro_torch.kernels.page_ops.ref`.  The pool
 ``(..., NP, page, H, D)`` is updated in place by the first two and read
-by the third; one launch covers every leading layer.  The library is
-built and loaded at the first call, never at import.  Page ids must lie
-in ``[0, NP)``: the kernels do not check them (that would cost a host
+by the third; one launch covers every leading layer (and, for
+``page_set``, a tuple of pools of one shape).  The library is built and
+loaded at the first call, never at import.  Page ids must lie in
+``[0, NP)``: the kernels do not check them (that would cost a host
 sync).
 """
 from __future__ import annotations
@@ -21,12 +22,18 @@ import torch
 from .. import _build
 
 _ARGS = {
-    "page_set_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p],
+    "page_set_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_uint64, ctypes.c_uint64,
+                        ctypes.c_void_p],
     "page_copy_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                          ctypes.c_int, ctypes.c_void_p],
+    "page_copy_staged_launch": [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_longlong,
+                                ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p],
     "page_gather_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_longlong, ctypes.c_void_p,
@@ -38,8 +45,20 @@ COPY_SMEM_BYTES = 200 * 1024
 #: 8 KiB, so a single pair of 128 KiB pages still spreads over 16 CTAs a
 #: layer
 COPY_CHUNK_VECS = 512
-#: most pairs of one ``page_copy``: a chunk of one vector of each
+#: most pairs of one ``page_copy`` in one grid (a chunk of one vector of
+#: each in shared memory); more are staged through device memory
 COPY_MAX_PAIRS = COPY_SMEM_BYTES // 16
+#: most pools of one ``page_set`` launch (``MAX_POOLS`` of the source)
+SET_MAX_POOLS = 8
+
+
+def copy_route(k):
+    """How ``page_copy`` moves ``k`` pairs: ``"grid"``, one launch whose
+    CTAs hold a chunk of every source in shared memory, up to
+    ``COPY_MAX_PAIRS``; ``"staged"`` beyond, every source gathered into a
+    scratch buffer of ``k`` pages a layer, then scattered with the last
+    pair of each destination winning (three launches)."""
+    return "grid" if k <= COPY_MAX_PAIRS else "staged"
 
 
 def _fn(name):
@@ -64,50 +83,84 @@ def _geometry(op, pool):
     return layers, pool.shape[-4], page_bytes // 16
 
 
-def page_set(pool, ids, value):
-    """PageS on a CUDA pool: pages ``ids`` ``(K,)`` int32 of every layer
-    are set to ``value``.  Launches on the current stream (no launch for
-    ``K = 0``) and returns ``pool``."""
-    layers, np_, vecs = _geometry("page_set", pool)
+#: the 16-byte fill pattern of each (dtype, value), as two u64 halves
+_patterns: dict[tuple, tuple[int, int]] = {}
+
+
+def _pattern(dtype, value):
+    key = (dtype, value)
+    if key not in _patterns:
+        # the value in the pool's dtype, repeated over 16 bytes
+        pat = torch.full((16 // dtype.itemsize,), value, dtype=dtype)
+        _patterns[key] = tuple(int(w) & ((1 << 64) - 1)
+                               for w in pat.view(torch.int64))
+    return _patterns[key]
+
+
+def page_set(pools, ids, value):
+    """PageS on CUDA pools: pages ``ids`` ``(K,)`` int32 of every layer
+    of ``pools`` — one pool, or a tuple of pools of one shape, dtype and
+    device (the serving engine's K and V pools) — are set to ``value``.
+    One launch on the current stream (none for ``K = 0``); returns
+    ``pools``."""
+    many = isinstance(pools, (tuple, list))
+    group = tuple(pools) if many else (pools,)
+    if not 0 < len(group) <= SET_MAX_POOLS:
+        raise ValueError(f"page_set: takes 1 to {SET_MAX_POOLS} pools, got "
+                         f"{len(group)}")
+    first = group[0]
+    layers, np_, vecs = _geometry("page_set", first)
+    for pool in group[1:]:
+        if (pool.shape != first.shape or pool.dtype != first.dtype or
+                pool.device != first.device):
+            raise ValueError("page_set: the pools must share shape, dtype "
+                             f"and device; got {tuple(pool.shape)} "
+                             f"{pool.dtype} {pool.device} beside "
+                             f"{tuple(first.shape)} {first.dtype} "
+                             f"{first.device}")
+        _geometry("page_set", pool)
     _build.check_tensor("page_set", "ids", ids, torch.int32, (None,),
-                        pool.device)
+                        first.device)
     k = ids.shape[0]
     if k == 0:
-        return pool
-    # the value in the pool's dtype, repeated over 16 bytes
-    pat = torch.full((16 // pool.element_size(),), value, dtype=pool.dtype)
-    lo, hi = (int(w) & ((1 << 64) - 1) for w in pat.view(torch.int64))
+        return pools
+    lo, hi = _pattern(first.dtype, value)
+    ptrs = (ctypes.c_void_p * len(group))(*(p.data_ptr() for p in group))
     _build.launch("page_set", _fn("page_set_launch"),
-                  (pool.data_ptr(), ids.data_ptr(), k, layers, np_, vecs,
-                   lo, hi, torch.cuda.current_stream(pool.device).cuda_stream),
-                  pool.device)
+                  (ptrs, len(group), ids.data_ptr(), k, layers, np_, vecs,
+                   lo, hi, _build.current_stream(first.device)),
+                  first.device)
     page_set.launches += 1
-    return pool
+    return pools
 
 
 def page_copy(pool, pairs):
     """PageCP on a CUDA pool: for each row ``[src, dst]`` of ``pairs``
     ``(K, 2)`` int32, page ``dst`` of every layer gets page ``src`` as it
     was before the call; on duplicate destinations the last pair wins.
-    Launches one grid on the current stream (none for ``K = 0``),
-    allocates nothing, and returns ``pool``.  Each CTA holds a chunk of
-    all ``K`` sources in shared memory, so ``K`` is at most
-    ``COPY_MAX_PAIRS``."""
+    Returns ``pool``; nothing is launched for ``K = 0``.  Up to
+    ``COPY_MAX_PAIRS`` pairs it is one grid on the current stream that
+    allocates nothing; beyond, the sources are staged in a scratch buffer
+    of ``K`` pages a layer (``copy_route``)."""
     _build.check_tensor("page_copy", "pairs", pairs, torch.int32, (None, 2),
                         pool.device)
     k = pairs.shape[0]
-    if k > COPY_MAX_PAIRS:
-        raise ValueError(f"page_copy: {k} pairs are more than the "
-                         f"{COPY_MAX_PAIRS} whose chunks of one 16-byte "
-                         f"vector fit a CTA's shared memory")
     layers, np_, vecs = _geometry("page_copy", pool)
     if k == 0:
         return pool
-    chunk = min(vecs, COPY_CHUNK_VECS, COPY_SMEM_BYTES // (16 * k))
-    _build.launch("page_copy", _fn("page_copy_launch"),
-                  (pool.data_ptr(), pairs.data_ptr(), k, layers, np_, vecs,
-                   chunk, torch.cuda.current_stream(pool.device).cuda_stream),
-                  pool.device)
+    stream = _build.current_stream(pool.device)
+    if copy_route(k) == "grid":
+        chunk = min(vecs, COPY_CHUNK_VECS, COPY_SMEM_BYTES // (16 * k))
+        _build.launch("page_copy", _fn("page_copy_launch"),
+                      (pool.data_ptr(), pairs.data_ptr(), k, layers, np_,
+                       vecs, chunk, stream), pool.device)
+    else:
+        scratch = page_gather(pool, pairs[:, 0].contiguous())
+        last = torch.zeros((np_,), dtype=torch.int32, device=pool.device)
+        _build.launch("page_copy", _fn("page_copy_staged_launch"),
+                      (pool.data_ptr(), pairs.data_ptr(), k, layers, np_,
+                       vecs, scratch.data_ptr(), last.data_ptr(), stream),
+                      pool.device)
     page_copy.launches += 1
     return pool
 

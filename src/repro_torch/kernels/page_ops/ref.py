@@ -24,10 +24,12 @@ def _pages(pool):
     return pool.view(-1, pool.shape[-4], math.prod(pool.shape[-3:]))
 
 
-def page_set_ref(pool, ids, value):
-    """PageS: set pages ``ids`` ``(K,)`` to the scalar ``value``."""
-    _pages(pool)[:, ids.long()] = value
-    return pool
+def page_set_ref(pools, ids, value):
+    """PageS: set pages ``ids`` ``(K,)`` to the scalar ``value``, in one
+    pool or in each of a tuple of pools."""
+    for pool in pools if isinstance(pools, (tuple, list)) else (pools,):
+        _pages(pool)[:, ids.long()] = value
+    return pools
 
 
 def page_copy_ref(pool, pairs):

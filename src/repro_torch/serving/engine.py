@@ -14,9 +14,9 @@ mapping (DESIGN.md §2, Layer B):
     (own modelled link by default, or a FASE runtime's session passed in as
     ``htp_session``), its bytes accounted per category;
   * the page lists are carried out on the device before the step's decode:
-    PageS with the ``page_set`` kernel, PageCP with ``page_copy``, on the
-    K and V pools of every layer (the reference books them and never
-    applies them);
+    PageS with one ``page_set`` launch over the K and V pools of every
+    layer, PageCP with ``page_copy`` on each (the reference books them and
+    never applies them);
   * the device-side **stop mask** = HFutex: per-slot stop conditions
     (EOS / max-len) accumulate on device and the host polls the packed
     mask every ``poll_every`` steps instead of syncing each step.
@@ -171,10 +171,11 @@ class ServeEngine:
     def _device_step(self, cb: CommandBatch):
         override, eos, max_lens, bt, zeros, copies = self._upload(cb)
         st = self.state
-        for pool in (st["kpool"], st["vpool"]):
-            if zeros.numel():
-                page_ops.page_set(pool, zeros, 0.0, impl=self.impl)
-            if copies.numel():
+        if zeros.numel():        # K and V in one launch
+            page_ops.page_set((st["kpool"], st["vpool"]), zeros, 0.0,
+                              impl=self.impl)
+        if copies.numel():
+            for pool in (st["kpool"], st["vpool"]):
                 page_ops.page_copy(pool, copies, impl=self.impl)
         st["block_tables"] = bt
         # host override (prompt feed / fresh admissions) else the

@@ -12,6 +12,7 @@ from repro_torch.core.interface import TorchTarget
 from repro_torch.core.target import asm as tasm
 from repro_torch.core.target import isa as tisa
 
+import torch_directed_cases as DC
 from test_cpu_differential import SRC as DIRECTED_SRC
 from test_torch_cpu_differential import (CONFIGS, MEM, assert_same_as_jax,
                                          assert_same_as_pysim, load_image,
@@ -46,14 +47,7 @@ def test_torch_directed_program(nc):
 @pytest.mark.parametrize("kw", CONFIGS)
 def test_torch_priv_gate(kw):
     """An S-mode (priv=1) core must execute: the gate is ``priv != 3``."""
-    src = """
-_start:
-    addi t0, t0, 5
-    addi t0, t0, 7
-    mul t1, t0, t0
-    li a7, 93
-    ecall
-"""
+    src = DC.PRIV_SRC
     tt, jt, ps = make_trio(src, 1, kw, False)
     for t in (tt, jt, ps):
         t.csr_write(0, "priv", 1)
@@ -68,19 +62,7 @@ _start:
 def test_torch_self_modifying_code(kw):
     """A store into the instruction stream just ahead of execution must
     be fetched back, not replayed from a stale fetch block."""
-    patched = isa.enc_i(isa.OP_IMM, isa.reg_num("t1"), 0,
-                        isa.reg_num("t1"), 77)     # addi t1, t1, 77
-    src = f"""
-_start:
-    la s0, site
-    li t0, {patched}
-    sw t0, 0(s0)
-    nop
-site:
-    nop
-    li a7, 93
-    ecall
-"""
+    src = DC.SMC_SRC
     tt, jt, ps = make_trio(src, 1, kw, False)
     for t in (tt, jt, ps):
         t.run(max_cycles=64)
@@ -96,32 +78,7 @@ def test_torch_dtlb_store_over_cached_pte_rewalks_in_chunk(ways):
     and an SMC store whose PA came from a dtlb hit still invalidates the
     fetch block.  (PySim's host-side TLB may legitimately serve the stale
     mapping until an sfence, so the oracle here is the JAX fast path.)"""
-    new_pte = (21 << 10) | PTE_FLAGS        # remap vpn 20 -> ppn 21
-    patched = isa.enc_i(isa.OP_IMM, isa.reg_num("s6"), 0,
-                        isa.reg_num("s6"), 77)
-    src = f"""
-_start:
-    li s1, 0x14000
-    li s2, 0x4000
-    li t0, 0xAAAA
-    sd t0, 0(s1)
-    ld t1, 0(s1)
-    li t2, {new_pte}
-    sd t2, 160(s2)
-    ld t3, 0(s1)
-    li t4, 0xBBBB
-    sd t4, 0(s1)
-    ld t5, 0(s1)
-    la s3, site
-    lw s4, 0(s3)
-    li s5, {patched}
-    sw s5, 0(s3)
-    nop
-site:
-    nop
-    li a7, 93
-    ecall
-"""
+    src = DC.DTLB_ALIASED_SRC
     img = tasm.assemble(src)
     tt = TorchTarget(1, MEM, device="cpu", dtlb_ways=ways)
     jt = JaxTarget(1, MEM, dtlb_ways=ways)
@@ -142,19 +99,9 @@ site:
 def test_torch_dtlb_host_pte_change_with_sfence_rewalks(ways):
     """Host-driven PTE change + sfence between chunks: the next chunk
     sees the new mapping, because the caches are chunk-local."""
-    src = """
-_start:
-    li s1, 0x14000
-    li s9, 100000
-1:
-    ld t1, 0(s1)
-    addi s9, s9, -1
-    bnez s9, 1b
-    li a7, 93
-    ecall
-"""
+    src = DC.SFENCE_SRC
     img = tasm.assemble(src)
-    new_pte = (21 << 10) | PTE_FLAGS
+    new_pte = DC.DTLB_PTE
     tt = TorchTarget(1, MEM, device="cpu", dtlb_ways=ways)
     jt = JaxTarget(1, MEM, dtlb_ways=ways)
     ps = PySim(1, MEM)
@@ -175,13 +122,7 @@ _start:
 def test_torch_stall_fast_forward_and_budget_clamp():
     """A core stalled far in the future: the clock jumps to the wake-up
     in one substep, clamped to the chunk budget, and stall ticks accrue."""
-    src = """
-_start:
-    addi t0, t0, 1
-    addi t0, t0, 2
-    li a7, 93
-    ecall
-"""
+    src = DC.STALL_SRC
     tt, jt, ps = make_trio(src, 2, {}, False)
     for t in (tt, jt, ps):
         t.redirect(1, 0x10000, resume_tick=5000)

@@ -20,11 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import session
+from repro_torch.core.channel import UartChannel
 from repro_torch.core.interface import TorchTarget
 from repro_torch.core.target import asm, isa
 from repro_torch.core.target.convert import state_to_numpy
 from repro_torch.kernels.page_walk import ops, page_walk
 from repro_torch.kernels.run_chunk import run_chunk as RC
+
+import torch_directed_cases as DC
 
 pytestmark = pytest.mark.gpu
 
@@ -109,19 +113,26 @@ _GEN_NAMES = ("ALU_RR", "ALU_RI", "SHIFTS", "LOADS", "STORES", "AMOS",
               "BRANCHES", "GPRS", "EDGE_VALS", "_ProgGen")
 
 
-def fuzz_program(seed):
-    """The program the lockstep fuzzer runs for ``seed``: the JAX
-    package's generator (``tests/test_cpu_differential.py::_ProgGen``),
-    taken from that file's source so that this file needs no JAX."""
-    path = Path(__file__).resolve().parent / "test_cpu_differential.py"
+def _defs_from(name, names, ns):
+    """The top-level assignments, functions and classes ``names`` of
+    ``tests/<name>``, executed into ``ns``: taken from the file's source
+    so that this file needs no JAX."""
+    path = Path(__file__).resolve().parent / name
     tree = ast.parse(path.read_text())
     keep = [n for n in tree.body
             if (isinstance(n, ast.Assign) and
                 isinstance(n.targets[0], ast.Name) and
-                n.targets[0].id in _GEN_NAMES) or
-            (isinstance(n, ast.ClassDef) and n.name in _GEN_NAMES)]
-    ns = {"np": np}
+                n.targets[0].id in names) or
+            (isinstance(n, (ast.ClassDef, ast.FunctionDef)) and
+             n.name in names)]
     exec(compile(ast.Module(keep, type_ignores=[]), str(path), "exec"), ns)
+    return ns
+
+
+def fuzz_program(seed):
+    """The program the lockstep fuzzer runs for ``seed``: the JAX
+    package's generator (``tests/test_cpu_differential.py::_ProgGen``)."""
+    ns = _defs_from("test_cpu_differential.py", _GEN_NAMES, {"np": np})
     return ns["_ProgGen"](seed).build()
 
 
@@ -228,6 +239,55 @@ def test_chunk_kernel_equals_eager_loop_on_the_amo_table(cuda):
     _lockstep(amo_table_program(), 1, 61)
 
 
+def _same_state(a, b, point):
+    sa, sb = state_to_numpy(a.st), state_to_numpy(b.st)
+    for name in sa:
+        np.testing.assert_array_equal(sa[name], sb[name],
+                                      err_msg=f"{point}: {name}")
+    assert a.substeps == b.substeps, point
+
+
+@pytest.mark.parametrize("case,kw", DC.PARAMS, ids=DC.IDS)
+def test_chunk_kernel_meets_directed_regression(cuda, case, kw):
+    """The directed regressions of tests/test_torch_cpu_directed.py on
+    the chunk kernel against the CPU's eager loop, every state field at
+    each checkpoint."""
+    chunks = RC.run_chunk.launches
+    targets = [TorchTarget(case.nc, DC.MEM, device="cuda",
+                           chunk_kernel="kernel", **kw),
+               TorchTarget(case.nc, DC.MEM, device="cpu", **kw)]
+    DC.run_in_lockstep(case, targets, lambda ts, p: _same_state(*ts, p))
+    assert RC.run_chunk.launches > chunks
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_write_batch_staleness_then_a_chunk_on_the_card(cuda, seed):
+    """The write-batch staleness property of
+    tests/test_torch_interface.py on a CUDA target (a read staged after a
+    write in one transaction sees the staged value; the final state is
+    the sequential model's), then a chunk of the chunk kernel from the
+    state the batch committed (core 0 sent to the words the transaction
+    wrote), against the same on the CPU's eager loop."""
+    ns = _defs_from("test_session.py",
+                    ("_ST_REGS", "_ST_CSRS", "_ST_ADDRS", "_staleness_ops"),
+                    {})
+    ops = ns["_staleness_ops"](seed)
+    run_staleness = _defs_from(
+        "test_torch_interface.py", ("M64", "_run_staleness"),
+        {"HtpSession": session.HtpSession,
+         "HtpTransaction": session.HtpTransaction,
+         "UartChannel": UartChannel})["_run_staleness"]
+    chunks = RC.run_chunk.launches
+    targets = [TorchTarget(1, 1 << 20, device="cuda", chunk_kernel="kernel"),
+               TorchTarget(1, 1 << 20, device="cpu")]
+    for t in targets:
+        run_staleness(ops, t)
+        t.redirect(0, 0x8000)
+        t.run(max_cycles=64)
+    _same_state(*targets, f"seed {seed}")
+    assert RC.run_chunk.launches > chunks
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_equals_plain_version(cuda, dtype):
     from repro_torch.kernels.paged_attention import paged_attention as PA
@@ -244,6 +304,38 @@ def test_paged_attention_kernel_equals_plain_version(cuda, dtype):
         smoke.attention_err(torch, *args)
         n += 1
     assert PA.paged_attention.launches == before + n
+
+
+@pytest.mark.parametrize("splits", ["1", "2", "P"])
+def test_paged_attention_at_each_split_count(cuda, splits):
+    """Shapes whose plan on this card cuts each sequence into 1, 2 and P
+    ranges, with lengths of 0, 1, mid-page, a page boundary and the whole
+    table among the slots: the split kernel and its in-launch combine
+    against the plain version."""
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    smoke = _chip_smoke()
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    H, Hkv, D, page, P = 4, 1, 128, 16, 6
+    per = PA.WAVES * PA.CTAS_PER_SM * sm      # CTAs a full table spreads
+    B = {"1": per, "2": per // 2, "P": 5}[splits]
+    pl = PA.plan(B, H, Hkv, D, page, P, 2, sm)
+    assert pl.splits == {"1": 1, "2": 2, "P": P}[splits]
+    lens = [0, 1, 9, 16, P * page][:B] + \
+        [(37 * i) % (P * page + 1) for i in range(B - 5)]
+    before = PA.paged_attention.launches
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        smoke.attention_err(torch, *smoke.attention_inputs(
+            torch, cuda, B, H, Hkv, D, page, P, dtype, seed, lens))
+    assert PA.paged_attention.launches == before + 2
+
+
+def test_paged_attention_at_long_context(cuda):
+    """qwen3-8b's heads at 32 768 tokens a slot (one full, one of a single
+    token, one mid-page, one empty) in bf16."""
+    smoke = _chip_smoke()
+    smoke.attention_err(torch, *smoke.attention_inputs(
+        torch, cuda, *smoke.LONG_SHAPE, torch.bfloat16, 1,
+        smoke.LONG_CHECK_LENS))
 
 
 def test_page_ops_kernels_equal_plain_versions(cuda):

@@ -161,14 +161,56 @@ def test_page_gather_ref_with_layer_axes_matches_jax_per_layer():
 
 
 def test_page_copy_kernel_wrapper_limits_its_pairs():
-    """One CTA holds a chunk of every pair's source in shared memory, a
-    vector of each at the least: more pairs than that raise."""
-    pool = torch.from_numpy(_pool())
-    too_many = torch.zeros((page_ops.COPY_MAX_PAIRS + 1, 2),
-                           dtype=torch.int32)
-    with pytest.raises(ValueError, match="pairs are more than"):
-        page_ops.page_copy(pool, too_many)
+    """Up to ``COPY_MAX_PAIRS`` pairs (a chunk of one 16-byte vector of
+    each in a CTA's shared memory) the kernel route is one grid; beyond,
+    the wrapper stages the sources in device memory.  Neither side of the
+    limit refuses a pair count: on a CPU pool only the device is wrong."""
     assert page_ops.COPY_MAX_PAIRS * 16 <= page_ops.COPY_SMEM_BYTES
-    # at the limit only the device is wrong
+    assert page_ops.copy_route(1) == "grid"
+    assert page_ops.copy_route(page_ops.COPY_MAX_PAIRS) == "grid"
+    assert page_ops.copy_route(page_ops.COPY_MAX_PAIRS + 1) == "staged"
+    pool = torch.from_numpy(_pool())
+    for k in (page_ops.COPY_MAX_PAIRS, page_ops.COPY_MAX_PAIRS + 1):
+        with pytest.raises(ValueError, match="CUDA"):
+            page_ops.page_copy(pool, torch.zeros((k, 2), dtype=torch.int32))
+
+
+def test_page_copy_plain_version_takes_more_pairs_than_one_grid():
+    """The plain version has no pair limit: 12 801 pairs with repeated
+    destinations equal the reference's one scatter of a gather."""
+    pool = _pool()
+    rng = np.random.default_rng(7)
+    pairs = rng.integers(0, 8, (page_ops.COPY_MAX_PAIRS + 1, 2)) \
+        .astype(np.int32)
+    want = np.asarray(PR.page_copy_ref(jnp.asarray(pool), jnp.asarray(pairs)))
+    got = ops.page_copy(torch.from_numpy(pool.copy()),
+                        torch.from_numpy(pairs))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n_pools", [1, 2, 3])
+def test_page_set_takes_a_tuple_of_pools(n_pools):
+    """One call on a tuple of pools (the engine's K and V pools, one
+    launch on the kernel route) leaves each pool as one reference call
+    on it would."""
+    pools = [_pool(shape=(2, 8, 4, 2, 16)) + i for i in range(n_pools)]
+    ids = np.asarray([6, 1, 6], np.int32)
+    group = tuple(torch.from_numpy(p.copy()) for p in pools)
+    assert ops.page_set(group, torch.from_numpy(ids), -1.5) is group
+    for t, p in zip(group, pools):
+        for layer in range(2):
+            want = PR.page_set_ref(jnp.asarray(p[layer]), jnp.asarray(ids),
+                                   -1.5)
+            np.testing.assert_array_equal(t[layer].numpy(),
+                                          np.asarray(want))
+
+
+def test_page_set_kernel_wrapper_refuses_mixed_pools():
+    pool = torch.from_numpy(_pool())
+    ids = torch.tensor([1], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        page_ops.page_copy(pool, too_many[1:])
+        page_ops.page_set((pool, pool), ids, 0.0)
+    with pytest.raises(ValueError, match="pools"):
+        page_ops.page_set((), ids, 0.0)
+    with pytest.raises(ValueError, match="pools"):
+        page_ops.page_set((pool,) * (page_ops.SET_MAX_POOLS + 1), ids, 0.0)

@@ -7,6 +7,8 @@ Tolerances are those of ``tests/test_kernels.py``: 3e-3 in float32 and
 2e-2 in bfloat16, where both sides round the output once to bfloat16 but
 sum in another order.  The CUDA kernel is held against this plain
 version on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
+import math
+
 import ml_dtypes
 import numpy as np
 import jax.numpy as jnp
@@ -99,3 +101,159 @@ def test_impl_and_device_selection():
     assert PA.paged_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         PA.paged_attention(*args)
+
+
+def split_decode(q, kpool, vpool, block_table, seq_lens, splits):
+    """The CUDA kernel's decomposition in plain torch: the page axis cut
+    into ``splits`` contiguous ranges (as ``paged_attention.plan`` cuts
+    it), a partial softmax ``(m, l, acc)`` per range over the rows below
+    the length (none for a range wholly past it: ``m = -inf``, ``l = 0``),
+    then the rescaled sum of the partials.  It reads no table entry at or
+    past ``ceil(len / page)``; a length of 0 scores every slot 0."""
+    B, H, D = q.shape
+    NP, page, Hkv, _ = kpool.shape
+    P = block_table.shape[1]
+    G = H // Hkv
+    pps = -(-P // splits)
+    splits = -(-P // pps)
+    out = torch.empty((B, H, D))
+    for b in range(B):
+        n = int(seq_lens[b])
+        n_valid = P * page if n <= 0 else min(n, P * page)
+        qg = q[b].reshape(Hkv, G, D).float()
+        parts = []
+        for s in range(splits):
+            r0, r1 = s * pps * page, min((s + 1) * pps * page, n_valid)
+            if r0 >= r1:
+                parts.append((torch.full((Hkv, G), -math.inf),
+                              torch.zeros((Hkv, G)), None))
+                continue
+            rows = torch.arange(r0, r1)
+            ids = block_table[b, rows // page].long()
+            k = kpool[ids, rows % page].float()           # (r, Hkv, D)
+            v = vpool[ids, rows % page].float()
+            sc = torch.einsum("hgd,rhd->hgr", qg, k) / math.sqrt(D)
+            if n <= 0:
+                sc = torch.zeros_like(sc)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgr,rhd->hgd", p, v)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, acc = torch.zeros((Hkv, G)), torch.zeros((Hkv, G, D))
+        for m, l_, a in parts:
+            if a is None:
+                continue
+            w = torch.exp(m - mx)
+            lsum += w * l_
+            acc += w[..., None] * a
+        out[b] = (acc / lsum[..., None]).reshape(H, D)
+    return out.to(q.dtype)
+
+
+def _check_split(shape, dtype, lens, splits):
+    args = _inputs(*shape, dtype, lens)
+    q, kp, vp, bt, lens = (_torch(a) for a in args)
+    P, page = shape[5], shape[4]
+    padded = bt.clone()                  # ids no pool has past the length
+    for b, n in enumerate(lens.tolist()):
+        if n > 0:
+            padded[b, -(-n // page):] = 10 ** 6
+    got = split_decode(q, kp, vp, padded, lens, P if splits == "P" else
+                       splits).float().numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    tol = TOL[dtype]
+    np.testing.assert_allclose(
+        got, ops.paged_decode(q, kp, vp, bt, lens).float().numpy(),
+        rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        got, np.asarray(paged_attention_ref(*jargs), np.float32),
+        rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        got, np.asarray(paged_attention(*jargs, interpret=True), np.float32),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("splits", [1, 2, "P"])
+@pytest.mark.parametrize("shape,dtype", CASES)
+def test_split_decomposition_random_lengths(shape, dtype, splits):
+    _check_split(shape, dtype, None, splits)
+
+
+@pytest.mark.parametrize("splits", [1, 2, "P"])
+@pytest.mark.parametrize("where", ["zero", "one", "mid_page",
+                                   "page_boundary", "full"])
+def test_split_decomposition_edge_lengths(where, splits):
+    """With one range per page most ranges lie wholly past a short
+    length; at 0 every range holds a part of the uniform mean."""
+    B, H, Hkv, D, page, P = 3, 4, 2, 16, 16, 3
+    lens = {"one": [1], "mid_page": [7, 23, 40], "page_boundary": [16, 32, 17],
+            "full": [P * page], "zero": [0, 5, 0]}[where]
+    for dtype in ("float32", "bfloat16"):
+        _check_split((B, H, Hkv, D, page, P), dtype, lens, splits)
+
+
+#: (B, H, Hkv, D, page, P, element size) of the registry's decode shapes
+#: and the test sweeps, for the plan's invariants
+PLAN_SHAPES = [(4, 32, 8, 128, 64, 8, 2), (4, 32, 8, 128, 64, 512, 2),
+               (1, 2, 1, 16, 8, 1, 4), (2, 4, 2, 32, 16, 4, 4),
+               (2, 32, 2, 128, 64, 3, 4), (8, 64, 8, 128, 16, 64, 2),
+               (4, 24, 24, 64, 64, 16, 2), (4, 56, 8, 128, 64, 33, 2),
+               (4, 40, 8, 128, 64, 7, 2), (4, 4, 4, 256, 16, 16, 2),
+               (1, 128, 8, 128, 64, 2, 2), (2, 2, 1, 512, 4, 5, 4),
+               (64, 32, 8, 128, 64, 16, 2)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_plan_invariants(shape, sm_count):
+    """The plan cuts every page into exactly one range (no range past
+    the last page), covers every query head once, keeps a lane's query
+    registers at 64 f32 and the rings within their budget, and gives a
+    short range twice the warps."""
+    B, H, Hkv, D, page, P, esize = shape
+    pl = PA.plan(B, H, Hkv, D, page, P, esize, sm_count)
+    assert 1 <= pl.splits <= min(P, PA.MAX_SPLITS)
+    assert (pl.splits - 1) * pl.pages_per_split < P <= \
+        pl.splits * pl.pages_per_split
+    G = H // Hkv
+    assert pl.groups * pl.gc >= G > (pl.groups - 1) * pl.gc
+    assert pl.gc * 4 * -(-D // 128) <= 64
+    assert 1 <= pl.rows <= 16
+    assert pl.rows == 1 or PA.WARPS * PA.STAGES * 2 * pl.rows * D * esize \
+        <= PA.RING_BYTES
+    short = -(-pl.pages_per_split * page // pl.rows) <= PA.SHORT_CHUNKS
+    assert pl.warps == (PA.SHORT_WARPS if short else PA.WARPS)
+
+
+def test_split_plan_reads_no_lengths_and_spreads_a_full_table():
+    """The plan takes shapes only (the lengths live on the device and are
+    never read on the host); at the serving shape on a 132-SM H100 it
+    gives one page per range, and at 32 768 tokens (P 512) about two waves
+    of four CTAs per SM."""
+    import inspect
+    assert list(inspect.signature(PA.plan).parameters) == \
+        ["B", "H", "Hkv", "D", "page", "P", "esize", "sm_count"]
+    assert PA.plan(4, 32, 8, 128, 64, 8, 2, 132) == PA.Plan(
+        gc=4, groups=1, splits=8, pages_per_split=1, rows=8, warps=8)
+    pl = PA.plan(4, 32, 8, 128, 64, 512, 2, 132)
+    assert (pl.splits, pl.pages_per_split, pl.warps) == (32, 16, 4)
+    assert 7 * 132 <= 4 * 8 * pl.splits <= 8 * 132
+
+
+def test_workspace_is_kept_until_it_grows():
+    """The wrapper skips its checks while the workspace it planned on is
+    the device's (an identity test), so the workspace is one object until
+    a larger shape grows it, and a grown one keeps the larger sizes and
+    fresh zero counters."""
+    dev = torch.device("cpu")
+    PA._workspace.pop(dev.index, None)
+    try:
+        ws = PA.workspace(dev, 100, 8)
+        assert PA.workspace(dev, 50, 4) is ws
+        assert PA.workspace(dev, 100, 8) is ws
+        grown = PA.workspace(dev, 10, 16)
+        assert grown is not ws and PA.workspace(dev, 100, 16) is grown
+        assert grown[0].numel() == 100 and grown[1].numel() == 16
+        assert not grown[1].any()
+    finally:
+        PA._workspace.pop(dev.index, None)

@@ -1,0 +1,109 @@
+"""The chunk kernel's CUDA source, ``src/repro_torch/csrc/run_chunk.cu``,
+compiled for the host with ``g++`` under the warp emulation of
+``tests/cuda_shim`` and run where the card would run it: a CPU
+``TorchTarget`` on ``chunk_kernel="kernel"`` launches it through the
+wrapper's own argument list (``run_chunk.launch_args``).  It meets the
+directed regressions of ``tests/test_torch_cpu_directed.py`` (privilege
+gate, self-modifying code, a store over a cached leaf PTE, a host PTE
+change with sfence, stall fast-forward with the budget clamp), the
+directed atomics/MMU program and the AMO table, in lockstep with the
+eager loop (every state field and the substep count at every checkpoint)
+and ``PySim`` (the architectural state).  Integer state; tolerance 0.
+The same cases run on the card in ``tests/test_torch_gpu.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.target.pysim import PySim
+from repro_torch.core.interface import TorchTarget
+from repro_torch.core.target import cpu
+from repro_torch.core.target.convert import state_to_numpy
+from repro_torch.kernels.run_chunk import run_chunk as RC
+
+import torch_directed_cases as DC
+import torch_shim
+from test_torch_cpu_differential import assert_same_as_pysim
+from test_torch_gpu import PROGRAM, amo_table_program
+
+
+@pytest.fixture(scope="module")
+def launch(tmp_path_factory):
+    lib = torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
+    return torch_shim.entry(lib, "run_chunk_launch", RC._ARGS)
+
+
+@pytest.fixture
+def kernel_route(monkeypatch, launch):
+    """CPU targets on ``chunk_kernel="kernel"`` run the compiled source;
+    returns the stand-in wrapper, whose ``launches`` counts them."""
+    def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
+                  block_words=16, block_cache=True, dtlb_ways=8):
+        RC.check_state(st, n_cores, mem_bytes, block_words, dtlb_ways)
+        out = torch.zeros((2,), dtype=torch.int64)
+        assert launch(*RC.launch_args(
+            st, out, n_cores, mem_bytes, max_cycles, issue_width,
+            block_words, block_cache, dtlb_ways, None)) == 0
+        run_chunk.launches += 1
+        return int(out[0])
+
+    def chunk_route(st, chunk_kernel="kernel"):
+        assert chunk_kernel in cpu.CHUNK_IMPLS
+        return chunk_kernel
+
+    run_chunk.launches = 0
+    monkeypatch.setattr(RC, "run_chunk", run_chunk)
+    monkeypatch.setattr(cpu, "chunk_route", chunk_route)
+    return run_chunk
+
+
+def _same_state(kernel, eager, point):
+    a, b = state_to_numpy(kernel.st), state_to_numpy(eager.st)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name],
+                                      err_msg=f"{point}: {name}")
+    assert kernel.substeps == eager.substeps, point
+
+
+@pytest.mark.parametrize("case,kw", DC.PARAMS, ids=DC.IDS)
+def test_chunk_kernel_source_meets_directed_regression(kernel_route, case,
+                                                       kw):
+    targets = [TorchTarget(case.nc, DC.MEM, device="cpu",
+                           chunk_kernel=ck, **kw) for ck in ("kernel",
+                                                             "ref")]
+    if case.pysim:
+        targets.append(PySim(case.nc, DC.MEM))
+
+    def compare(ts, point):
+        _same_state(ts[0], ts[1], point)
+        if case.pysim:
+            assert_same_as_pysim(ts[0], ts[2], point)
+    DC.run_in_lockstep(case, targets, compare)
+    assert kernel_route.launches > 0
+
+
+@pytest.mark.parametrize("src,nc,chunk", [(PROGRAM, 4, 97),
+                                          (amo_table_program(), 1, 61)],
+                         ids=["atomics-mmu", "amo-table"])
+def test_chunk_kernel_source_equals_eager_loop(kernel_route, src, nc,
+                                               chunk):
+    """Chunk by chunk to the end: same-tick conflicts between four
+    lanes on one cell, and every AMO's old and new value."""
+    img = DC.asm.assemble(src)
+    targets = [TorchTarget(nc, DC.MEM, device="cpu", chunk_kernel=ck)
+               for ck in ("kernel", "ref")]
+    for t in targets:
+        DC.load(t, img, nc, mmu=True)
+    for step in range(400):
+        for t in targets:
+            t.run(max_cycles=chunk)
+        _same_state(*targets, f"chunk {step}")
+        for t in targets:
+            for c in t.pending_cores():
+                t.clear_pending(c)
+                t.park(c)
+        if all(t.get_priv(c) == 3 for t in targets for c in range(nc)):
+            break
+    else:
+        raise AssertionError("program did not finish")
+    assert targets[0].get_instret(0) > 200
+    assert kernel_route.launches > 2
