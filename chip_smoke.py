@@ -20,6 +20,17 @@ plain PyTorch version on the card, and drives the port's three paths:
   async queue pair) running GAPBS ``bc`` with 4 threads — against
   constants pinned from the pure-Python reference simulator; then
   CoreMark (``coremark 1``, 1 core, UART) against its pins;
+* the fleet (phase ``fleet``): run_synchronous of three jobs on a stacked
+  ``FleetTarget`` on the fleet chunk kernel (one launch, one CTA a board,
+  per global chunk) in lockstep with its eager flat form, every board's
+  state equal after every global chunk and every board of budget 0
+  untouched; the 2-board gang pin over the switch fabric on both fleet
+  forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``, the
+  makespans of ``results/fleet_scale.json`` and the PCIe migration row of
+  ``results/migration.json``; then the full width — ``FASE_FLEET_NET``'s
+  4-board gang (4 cores, 64 MiB a board) and ``FASE_FLEET_VMAP``'s
+  run_synchronous of four bc jobs, one launch a global chunk — against
+  constants pinned from the pure-Python simulator;
 * the serving path: ``ServeEngine`` over qwen3-8b at full width (36
   layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
   slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
@@ -85,6 +96,37 @@ CHUNK_CYCLES = 64
 #: links of the one-thread pointer chase that measures a dependent load
 CHASE_STEPS = 1 << 16
 
+#: the 2-board gang of tests/test_golden_ticks.py: bc on
+#: partition(rmat(4, 4), 2), one core and 4 MiB a board, PCIe queue pairs,
+#: the registry fabric, 40 000-tick supersteps, 4-page halos
+GANG_PIN = dict(makespan=526_792, supersteps=6, exchanges=10, instret=4_319,
+                fabric_bytes=164_460)
+#: the full-width gang: FASE_FLEET_NET's 4 boards of 4 cores and 64 MiB,
+#: bc with 4 threads a board on partition(rmat(10, 4), 4), the gang pin's
+#: supersteps and halos; constants from the reference package's
+#: pure-Python simulator (tests/test_torch_golden.py re-derives them)
+GANG_FULL = dict(makespan=3_141_255, supersteps=25, exchanges=69,
+                 instret=216_063, fabric_bytes=1_137_051)
+#: the full-width run_synchronous: FASE_FLEET_VMAP's 4 boards, one job a
+#: board, bc with 4 threads on rmat(10, 4, seed) for these seeds; each
+#: job's (ticks, instret, traffic) from the pure-Python simulator
+#: (tests/test_torch_golden.py re-derives them)
+SYNC_SEEDS = (42, 43, 44, 45)
+SYNC_FULL = ((1_606_494, 181_583, 125_900), (2_109_976, 180_905, 130_556),
+             (1_608_932, 183_062, 127_280), (1_589_450, 182_760, 126_992))
+#: results/fleet_scale.json's scale panel: 8 replicas of bc 1T on
+#: rmat(5, 8), one core and 8 MiB a board, round-robin placement; the
+#: makespan by (link, boards) (tests/test_torch_golden.py holds them to
+#: the file)
+FLEET_SCALE = {("uart", 1): 187_747_392, ("uart", 2): 93_873_696,
+               ("uart", 4): 46_936_848, ("pcie", 1): 5_784_384,
+               ("pcie", 2): 2_892_192, ("pcie", 4): 1_446_096}
+#: results/migration.json's PCIe row: bc 1T, 48 trials on rmat(5, 8), one
+#: core and 8 MiB a board, a full migration at 70 % of the baseline's
+#: instructions
+MIGRATION_PCIE = dict(baseline=4_171_071, migrated=4_294_529, pages=25,
+                      src_bytes=103_121, dst_bytes=103_114)
+
 #: published peaks of one H100 SXM: HBM bytes per second, dense bf16
 #: tensor-core FLOP per second
 HBM_BYTES_PER_S = 3.35e12
@@ -94,6 +136,8 @@ REPLACES = {
     "walk_fetch_block": "src/repro/kernels/page_walk/page_walk.py:126",
     # no pallas_call: the reference's XLA while_loop of the chunk
     "run_chunk": "src/repro/core/target/cpu.py:1089",
+    # no pallas_call: the reference's flat-fleet while_loop
+    "run_chunk_fleet": "src/repro/core/target/cpu.py:1180",
     "paged_attention":
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
@@ -105,6 +149,7 @@ REPLACES = {
 SOURCES = {
     "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
     "run_chunk": "src/repro_torch/csrc/run_chunk.cu",
+    "run_chunk_fleet": "src/repro_torch/csrc/run_chunk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
@@ -186,7 +231,7 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 #: losses after the restore against the uninterrupted run's
 RESTART_ATOL = 1e-6
 
-PHASES = ("kernel", "chunk", "full", "coremark", "serve", "train")
+PHASES = ("kernel", "chunk", "full", "coremark", "fleet", "serve", "train")
 
 
 def emit(obj):
@@ -1110,6 +1155,469 @@ def phase_coremark(torch):
 
 
 # ---------------------------------------------------------------------------
+# the fleet: boards behind the switch fabric, the stacked fleet target
+# ---------------------------------------------------------------------------
+def fleet_of(n, stacked, n_cores, mem_bytes, fabric=False, net_cfg=None,
+             target_kw=None, **runtime_kw):
+    """A FleetRuntime of ``n`` boards on the card: the stacked FleetTarget
+    (one launch of the fleet chunk kernel a global chunk) or a TorchTarget
+    a board (one launch of the chunk kernel a chunk)."""
+    from repro_torch.configs.fase_rocket import net_kwargs
+    from repro_torch.core.fleet import FleetRuntime
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.core.net import Switch
+    tk = dict(target_kw or {})
+    if fabric:
+        runtime_kw["fabric"] = Switch(**(net_kwargs(net_cfg) if net_cfg
+                                         else net_kwargs()))
+    if stacked:
+        return FleetRuntime(n_devices=n, fleet_vmap=True,
+                            target_cfg=dict(n_cores=n_cores,
+                                            mem_bytes=mem_bytes, **tk),
+                            **runtime_kw)
+    return FleetRuntime(
+        n_devices=n, make_target=lambda: TorchTarget(n_cores, mem_bytes,
+                                                     device="cuda", **tk),
+        **runtime_kw)
+
+
+def gang_summary(rep):
+    return dict(makespan=rep.makespan_ticks, supersteps=rep.supersteps,
+                exchanges=rep.exchanges,
+                instret=sum(sum(r.instret) for r in rep.reports),
+                fabric_bytes=rep.fabric["total_bytes"])
+
+
+def run_gang(torch, fleet, graph, threads):
+    """bc as a gang of one member a board on ``graph`` split in parts,
+    40 000-tick supersteps, 4-page halos; returns the report and the wall
+    seconds (ended after the card has finished)."""
+    from repro_torch.core.fleet import Job
+    from repro_torch.core.net import GangJob
+    from repro_torch.core.workloads import graphgen
+    parts = graphgen.partition(graph, len(fleet.devices))
+    rg = fleet.start_gang(GangJob(
+        [Job("bc", ["part.bin", str(threads), "1"], files={"part.bin": p})
+         for p in parts], superstep_ticks=40_000, halo_pages=4))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rep = fleet.run_gang(rg)
+    torch.cuda.synchronize()
+    return rep, time.time() - t0
+
+
+def fleet_state(ft):
+    return {name: getattr(ft.sts, name).clone()
+            for name in state_fields(ft.sts)}
+
+
+def sync_in_lockstep(torch):
+    """run_synchronous of three different jobs (hello over UART, hello
+    and bc 1T on rmat(3, 4) over PCIe), one a board of a stacked fleet of
+    one-core 4 MiB boards, first on the fleet chunk kernel — each global
+    chunk's budgets and stack kept, and every board of budget 0 held to
+    its bytes from before the launch — then on the eager flat form, every
+    field of every board and each board's substeps held against the
+    kernel route's after every global chunk."""
+    from repro_torch.core.fleet import Job
+    from repro_torch.core.workloads import graphgen
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    g = graphgen.rmat(3, 4, weights=True)
+    links = ["uart", "pcie", "pcie"]
+    chunks, out = [], {}
+    frozen_boards = 0
+    for route in ("kernel", "ref"):
+        fr = fleet_of(3, True, 1, 1 << 22, links=links,
+                      target_kw=dict(chunk_kernel=route))
+        ft = fr.fleet_target
+        step = ft.run_global
+
+        def run_global(budgets, route=route, ft=ft, step=step):
+            nonlocal frozen_boards
+            i = ft.dispatch_count
+            before = fleet_state(ft) if route == "kernel" else None
+            step(budgets)
+            subs = [v.substeps for v in ft._views]
+            if route == "kernel":
+                after = fleet_state(ft)
+                for d, b in enumerate(budgets):
+                    if b == 0:
+                        frozen_boards += 1
+                        compare_states(
+                            torch, {k: v[d] for k, v in after.items()},
+                            {k: v[d] for k, v in before.items()},
+                            f"global chunk {i}: board {d} of budget 0")
+                chunks.append((list(budgets), subs, after))
+                return
+            check(i < len(chunks), "the eager flat form ran more global "
+                  f"chunks than the kernel's {len(chunks)}")
+            want_b, want_s, want = chunks[i]
+            check(list(budgets) == want_b, f"global chunk {i}: budgets "
+                  f"{list(budgets)} != the kernel route's {want_b}")
+            check(subs == want_s, f"global chunk {i}: substeps {subs} != "
+                  f"the kernel route's {want_s}")
+            compare_states(torch, fleet_state(ft), want,
+                           f"global chunk {i}")
+        ft.run_global = run_global
+        jobs = [Job("hello"), Job("hello"),
+                Job("bc", ["g.bin", "1", "1"], files={"g.bin": g})]
+        RC.run_chunk_fleet.launches = 0
+        t0 = time.time()
+        res = fr.run_synchronous(jobs)
+        torch.cuda.synchronize()
+        out[route] = dict(
+            wall_s=time.time() - t0, global_chunks=ft.dispatch_count,
+            launches=RC.run_chunk_fleet.launches,
+            jobs=[(r.report.ticks, sum(r.report.instret),
+                   r.report.traffic_total, r.report.stdout) for r in res])
+    k, r = out["kernel"], out["ref"]
+    check(k["jobs"] == r["jobs"], "the routes' job reports differ")
+    check(k["jobs"][0][0] == HELLO_UART["ticks"] and
+          k["jobs"][0][3] == HELLO_UART["stdout"],
+          f"hello@UART on the stacked fleet: {k['jobs'][0][:2]}")
+    check(k["launches"] == k["global_chunks"] == len(chunks) ==
+          r["global_chunks"] > 0 and r["launches"] == 0,
+          f"launches {k['launches']}/{r['launches']} for "
+          f"{k['global_chunks']}/{r['global_chunks']} global chunks")
+    check(frozen_boards > 0, "no global chunk left a board at budget 0")
+    emit({"phase": "fleet_vs_plain", "boards": 3, "links": links,
+          "jobs": ["hello", "hello", "bc 1T rmat(3,4)"],
+          "global_chunks": len(chunks), "fields_equal_after_every_chunk":
+          True, "tolerance": 0, "budget0_boards_checked": frozen_boards,
+          "kernel_wall_s": round(k["wall_s"], 3),
+          "eager_wall_s": round(r["wall_s"], 3),
+          "job_ticks": [j[0] for j in k["jobs"]]})
+
+
+def fleet_pins(torch):
+    """The pins of the fleet layer on the card: the gang pin on both
+    fleet forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``,
+    results/fleet_scale.json's makespans and results/migration.json's
+    PCIe row on TorchTarget boards."""
+    from repro_torch.core.fleet import Job
+    from repro_torch.core.workloads import graphgen
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    from repro_torch.run import run_workload
+    out = {}
+    g = graphgen.rmat(4, 4, weights=False)
+    for form in ("stacked", "torch_target"):
+        RC.run_chunk.launches = RC.run_chunk_fleet.launches = 0
+        fleet = fleet_of(2, form == "stacked", 1, 1 << 22, fabric=True,
+                         link="pcie")
+        rep, wall = run_gang(torch, fleet, g, 1)
+        got = gang_summary(rep)
+        check(got == GANG_PIN, f"gang pin on {form}: {got} != {GANG_PIN}")
+        launches = dict(run_chunk=RC.run_chunk.launches,
+                        run_chunk_fleet=RC.run_chunk_fleet.launches)
+        want = "run_chunk_fleet" if form == "stacked" else "run_chunk"
+        check(launches[want] > 0 and sum(launches.values()) ==
+              launches[want], f"gang on {form}: launches {launches}")
+        out[f"gang_{form}"] = dict(**got, wall_s=round(wall, 3),
+                                   launches=launches)
+    for name, argv, kw, pins in (
+            ("hello", [], dict(n_cores=1, mem=1 << 22),
+             dict(ticks=HELLO_UART["ticks"])),
+            ("bc", ["g.bin", "2", "1"],
+             dict(link="pcie", n_cores=2, mem=1 << 22,
+                  files={"g.bin": graphgen.rmat(4, 4, weights=True)}),
+             BC_PCIE)):
+        RC.run_chunk.launches = RC.run_chunk_fleet.launches = 0
+        rt, rep, wall = run_workload(name, argv, mode="fase",
+                                     target="fleet-vmap", device="cuda",
+                                     **kw)
+        got = dict(ticks=rep.ticks, instret=sum(rep.instret),
+                   traffic=rep.traffic_total)
+        check(all(got[k] == v for k, v in pins.items()),
+              f"{name} on fleet-vmap: {got} != {pins}")
+        check(RC.run_chunk_fleet.launches == rt.target.ft.dispatch_count > 0
+              and RC.run_chunk.launches == 0,
+              f"{name} on fleet-vmap: {RC.run_chunk_fleet.launches} fleet "
+              f"launches, {RC.run_chunk.launches} chunk launches")
+        out[f"{name}_fleet_vmap"] = dict(**got, wall_s=round(wall, 3),
+                                         launches=RC.run_chunk_fleet
+                                         .launches)
+    check(out["hello_fleet_vmap"]["ticks"] == HELLO_UART["ticks"], "hello")
+    # results/fleet_scale.json's scale panel on TorchTarget boards
+    from repro_torch.configs.fase_rocket import FASE_FLEET, fleet_kwargs
+    g = graphgen.rmat(5, 8, weights=True)
+    t0 = time.time()
+    scale = {}
+    kw = fleet_kwargs(FASE_FLEET)
+    for k in ("links", "n_devices", "link", "placement"):
+        kw.pop(k, None)
+    for (link, n), want in FLEET_SCALE.items():
+        fr = fleet_of(n, False, 1, 1 << 23, link=link,
+                      placement="round_robin", **kw)
+        fr.submit(Job("bc", ["g.bin", "1", "1"], files={"g.bin": g}),
+                  replicas=8)
+        rep = fr.run()
+        check(rep.makespan_ticks == want, f"fleet_scale {link} N={n}: "
+              f"{rep.makespan_ticks} != {want}")
+        scale[f"{link}_{n}"] = rep.makespan_ticks
+    out["fleet_scale"] = dict(makespans=scale,
+                              seconds=round(time.time() - t0, 1))
+    # results/migration.json's PCIe row, migrating between two boards
+    t0 = time.time()
+
+    def job():
+        return Job("bc", ["g.bin", "1", "48"], files={"g.bin": g})
+    base = fleet_of(1, False, 1, 1 << 23, links=["pcie"])
+    b = base.run_job(base.devices[0], job())
+    fr = fleet_of(2, False, 1, 1 << 23, links=["pcie", "pcie"])
+    h = fr.start_job(job(), fr.devices[0])
+    pause_at_instret(fr, h, int(b.report.instret[0] * 0.7))
+    mig = fr.migrate(h, fr.devices[1])
+    res = fr.finish_job(h)
+    got = dict(baseline=b.report.ticks, migrated=res.report.ticks,
+               pages=mig.pages_shipped, src_bytes=mig.src_bytes,
+               dst_bytes=mig.dst_bytes)
+    check(got == MIGRATION_PCIE, f"migration {got} != {MIGRATION_PCIE}")
+    check(h.device is fr.devices[1], "the job did not move")
+    out["migration_pcie"] = dict(**got, seconds=round(time.time() - t0, 1))
+    emit({"phase": "fleet_pins", **out})
+
+
+def pause_at_instret(fr, handle, target_instret):
+    """benchmarks/migration.py's pause: advance the job in slices until
+    it has retired ``target_instret`` instructions, each slice bounded by
+    the instructions still missing."""
+    rt = handle.runtime
+    while True:
+        cur = rt.target.get_instret(0)
+        if cur >= target_instret:
+            return
+        paused = fr.step_job(handle, pause_ticks=rt.target.get_ticks() +
+                             (target_instret - cur))
+        check(paused is None, "the job finished before the pause point")
+
+
+def fleet_profiled(torch, drive):
+    """``drive()`` again under the profiler: the fleet kernel's device
+    microseconds, its traced launches, and every kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drive()
+        torch.cuda.synchronize()
+    on_dev = device_events(prof.key_averages())
+    kern = [e for e in on_dev if "run_chunk_fleet" in e.key]
+    check(len(kern) == 1, "profile: the fleet kernel was not traced")
+    return (kern[0].self_device_time_total, kern[0].count,
+            sum(e.self_device_time_total for e in on_dev))
+
+
+def fleet_full_width(torch):
+    """The full-width fleet on the stacked FleetTarget: FASE_FLEET_NET's
+    gang, and FASE_FLEET_VMAP's run_synchronous of four bc jobs (one
+    launch a global chunk), then the same four jobs one after another on
+    a TorchTarget each.  Returns the fleet kernel's launches in the two
+    stacked runs."""
+    from repro_torch.configs.fase_rocket import (fleet_kwargs,
+                                                 target_kwargs)
+    from repro_torch.configs.registry import FASE_FLEET_NET, FASE_FLEET_VMAP
+    from repro_torch.core.fleet import Job
+    from repro_torch.core.workloads import graphgen
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    cfg = FASE_FLEET_NET
+    tk = target_kwargs(cfg)
+    kw = fleet_kwargs(cfg)
+    for k in ("links", "n_devices"):
+        kw.pop(k, None)
+    gang_graph = graphgen.rmat(10, 4, weights=False)
+
+    def gang():
+        fleet = fleet_of(4, True, cfg["n_cores"], cfg["mem_bytes"],
+                         fabric=True, net_cfg=cfg, target_kw=tk, **kw)
+        return fleet, *run_gang(torch, fleet, gang_graph, 4)
+    RC.run_chunk.launches = RC.run_chunk_fleet.launches = 0
+    fleet, rep, wall = gang()
+    launches = RC.run_chunk_fleet.launches
+    got = gang_summary(rep)
+    check(got == GANG_FULL, f"full-width gang {got} != {GANG_FULL}")
+    ft = fleet.fleet_target
+    check(launches == ft.dispatch_count > 0 and RC.run_chunk.launches == 0,
+          f"full-width gang: {launches} fleet launches for "
+          f"{ft.dispatch_count} global chunks, {RC.run_chunk.launches} "
+          f"chunk launches")
+    check(ft.sts.mem.is_cuda and tuple(ft.sts.mem.shape) ==
+          (4, cfg["mem_bytes"] // 8), "the stacked images are not on the "
+          "card at full width")
+    kern_us, traced, dev_us = fleet_profiled(torch, gang)
+    emit({"phase": "fleet_gang_full_width", "config": "FASE_FLEET_NET",
+          "boards": 4, "n_cores": cfg["n_cores"],
+          "mem_bytes": cfg["mem_bytes"], "workload":
+          "bc 4T a board on partition(rmat(10,4), 4)", **got,
+          "wall_s": round(wall, 3), "instr_per_s": got["instret"] / wall,
+          "global_chunks": ft.dispatch_count, "launches": launches,
+          "device_us_per_global_chunk": kern_us / traced,
+          "host_ms_between_chunks":
+          (wall * 1e6 - kern_us) / launches / 1e3,
+          "device_busy_share": dev_us / (wall * 1e6)})
+    gang_launches = launches
+
+    vk = fleet_kwargs(FASE_FLEET_VMAP)
+    tc = vk.pop("target_cfg")
+    vk.pop("fleet_vmap")
+    for k in ("links", "n_devices"):
+        vk.pop(k, None)
+    graphs = [graphgen.rmat(10, 4, seed=s, weights=True) for s in SYNC_SEEDS]
+
+    def jobs():
+        return [Job("bc", ["g.bin", "4", "1"], files={"g.bin": gr})
+                for gr in graphs]
+
+    def sync():
+        fr = fleet_of(4, True, tc["n_cores"], tc["mem_bytes"],
+                      target_kw={k: v for k, v in tc.items()
+                                 if k not in ("n_cores", "mem_bytes")},
+                      **vk)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fr.run_synchronous(jobs())
+        torch.cuda.synchronize()
+        return fr, res, time.time() - t0
+    RC.run_chunk.launches = RC.run_chunk_fleet.launches = 0
+    fr, res, wall = sync()
+    launches = RC.run_chunk_fleet.launches
+    got = tuple((r.report.ticks, sum(r.report.instret),
+                 r.report.traffic_total) for r in res)
+    check(got == SYNC_FULL, f"run_synchronous {got} != {SYNC_FULL}")
+    n = fr.fleet_target.dispatch_count
+    check(launches == n > 0 and RC.run_chunk.launches == 0,
+          f"run_synchronous: {launches} launches for {n} global chunks")
+    kern_us, traced, dev_us = fleet_profiled(torch, sync)
+    instret = sum(i for _, i, _ in got)
+    # the same four jobs one after another, a TorchTarget each
+    RC.run_chunk.launches = 0
+    seq = fleet_of(4, False, tc["n_cores"], tc["mem_bytes"],
+                   target_kw={k: v for k, v in tc.items()
+                              if k not in ("n_cores", "mem_bytes")}, **vk)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq_res = [seq.run_job(d, j) for d, j in zip(seq.devices, jobs())]
+    torch.cuda.synchronize()
+    seq_wall = time.time() - t0
+    check(tuple((r.report.ticks, sum(r.report.instret),
+                 r.report.traffic_total) for r in seq_res) == SYNC_FULL,
+          "the four jobs one after another differ")
+    emit({"phase": "fleet_sync_full_width", "config": "FASE_FLEET_VMAP",
+          "boards": 4, "n_cores": tc["n_cores"],
+          "mem_bytes": tc["mem_bytes"],
+          "workload": "bc 4T on rmat(10,4,seed) a board",
+          "seeds": list(SYNC_SEEDS), "job_ticks": [t for t, _, _ in got],
+          "instret": instret, "wall_s": round(wall, 3),
+          "instr_per_s": instret / wall, "global_chunks": n,
+          "launches": launches,
+          "launches_per_global_chunk": launches / n,
+          "device_us_per_global_chunk": kern_us / traced,
+          "host_ms_between_chunks": (wall * 1e6 - kern_us) / launches / 1e3,
+          "device_busy_share": dev_us / (wall * 1e6),
+          "sequential_torch_targets": dict(
+              wall_s=round(seq_wall, 3), instr_per_s=instret / seq_wall,
+              chunk_launches=RC.run_chunk.launches)})
+    return gang_launches + launches
+
+
+def time_run_chunk_fleet(torch, latency):
+    """The fleet kernel and its plain version (the eager flat form) on one
+    global chunk of ``CHUNK_CYCLES`` ticks a board at the full-width shape
+    (FASE_FLEET_VMAP: 4 boards of 4 cores and 64 MiB, each running the
+    guest loop of ``loop_target``), from the same stack; then the kernel
+    back to back on equal global chunks.  Also the wrapper's refusals."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.fase_rocket import target_kwargs
+    from repro_torch.configs.registry import FASE_FLEET_VMAP as cfg
+    from repro_torch.core.fleet.vmap import FleetTarget
+    from repro_torch.core.target import cpu
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    D = cfg["n_devices"]
+    ft = FleetTarget(D, cfg["n_cores"], cfg["mem_bytes"],
+                     **target_kwargs(cfg))
+    loop = loop_target(torch, cfg["n_cores"], 1 << 20)
+    small = state_fields(loop.st)
+    for d in range(D):
+        board = ft.view(d).st
+        for name, v in small.items():
+            if name == "mem":
+                board.mem[:v.shape[0]].copy_(v)
+            else:
+                getattr(board, name).copy_(v)
+    budgets = [CHUNK_CYCLES] * D
+
+    def chunk(route):
+        return cpu.run_chunk_fleet(ft.sts, ft.n_cores, ft.mem_bytes,
+                                   budgets, ft.issue_width, ft.block_words,
+                                   ft.block_cache, ft.fetch_kernel,
+                                   ft.dtlb_ways, route)
+    chunk("kernel")                                  # past the start-up
+    snap = fleet_state(ft)
+    trips0 = RC.run_chunk_fleet.trips
+    sub_k = chunk("kernel")
+    trips = RC.run_chunk_fleet.trips - trips0
+    got = fleet_state(ft)
+    for name, v in snap.items():
+        getattr(ft.sts, name).copy_(v)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sub_r = chunk("ref")
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    check(sub_k == sub_r, f"timed global chunk: substeps {sub_k} != "
+          f"{sub_r}")
+    compare_states(torch, got, fleet_state(ft), "timed global chunk")
+    ms = time_ms(torch, lambda: chunk("kernel"), 50, warmup=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            chunk("kernel")
+        torch.cuda.synchronize()
+    kern = [e for e in device_events(prof.key_averages())
+            if "run_chunk_fleet" in e.key]
+    check(len(kern) == 1 and kern[0].count >= 10,
+          "profile: the fleet kernel was not traced")
+    dev_ms = kern[0].self_device_time_total / kern[0].count / 1e3
+    # bytes: every board's state fields read once and written once
+    nbytes = 2 * sum(v.numel() * v.element_size() for k, v in
+                     state_fields(ft.sts).items() if k != "mem")
+    refused = 0
+    wide = cpu.make_fleet_state(2, RC.LANES_MAX + 1, 1 << 20, device="cuda")
+    bad = cpu.make_fleet_state(2, 2, 1 << 20, device="cuda")
+    bad.ticks = bad.ticks[:1]
+    for call in (lambda: RC.run_chunk_fleet(
+                     cpu.make_fleet_state(2, 2, 1 << 20, device="cpu"), 2,
+                     1 << 20, [64, 64]),
+                 lambda: RC.run_chunk_fleet(wide, RC.LANES_MAX + 1, 1 << 20,
+                                            [64, 64]),
+                 lambda: RC.run_chunk_fleet(bad, 2, 1 << 20, [64, 64]),
+                 lambda: RC.run_chunk_fleet(ft.sts, ft.n_cores,
+                                            ft.mem_bytes, [64])):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+            continue
+        fail("the run_chunk_fleet wrapper accepted an input it must refuse")
+    return dict(shape=dict(D=D, W=cfg["mem_bytes"] // 8, L=cfg["n_cores"],
+                           chunk_cycles=CHUNK_CYCLES, substeps=sub_k),
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, round_trips=trips,
+                # every board runs the same loop and the CTAs run side by
+                # side: the launch's chain is one board's, a D-th of the sum
+                latency_bound_ms=trips / D * latency["page_ns"] * 1e-6,
+                max_abs_err=0.0,
+                wrapper_refused=refused)
+
+
+def phase_fleet(torch, latency):
+    t0 = time.time()
+    sync_in_lockstep(torch)
+    fleet_pins(torch)
+    launches = fleet_full_width(torch)
+    timing = time_run_chunk_fleet(torch, latency)
+    emit({"phase": "run_chunk_fleet_timing", **timing})
+    emit({"phase": "fleet", "seconds": round(time.time() - t0, 1)})
+    return launches, timing
+
+
+# ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 def serve_requests(vocab, seed=0):
@@ -1962,7 +2470,7 @@ def main():
     kernels = []
     if "kernel" in args.only:
         errs = phase_kernel(torch, dev)
-    if "kernel" in args.only or "full" in args.only:
+    if {"kernel", "full", "fleet"} & set(args.only):
         from repro_torch.configs.registry import FASE_ROCKET_PCIE
         latency = phase_latency(torch, dev, FASE_ROCKET_PCIE["mem_bytes"] // 8)
     walk_launches = None
@@ -1999,6 +2507,21 @@ def main():
                     "run_chunk"})
     if "coremark" in args.only:
         phase_coremark(torch)
+    if "fleet" in args.only:
+        launches, c = phase_fleet(torch, latency)
+        kernels.append({
+            "name": "run_chunk_fleet", "route": "cuda",
+            "source": SOURCES["run_chunk_fleet"],
+            "replaces": REPLACES["run_chunk_fleet"], "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms": c["device_ms"], "round_trips": c["round_trips"],
+            "latency_bound_ms": c["latency_bound_ms"],
+            "load_latency_ns": latency, "shape": c["shape"],
+            "note": "no pallas_call: the reference's flat-fleet loop, one "
+                    "CTA a board; launches are the full-width gang's and "
+                    "run_synchronous's, one a global chunk"})
     if "serve" in args.only:
         launches, timing = phase_serve(torch, errs,
                                        args.out if args.profile else None)

@@ -4,6 +4,11 @@ Lets a test (or a later checkpoint layer) seed this target and the JAX
 reference from the same arrays and compare whole states: the fields are
 the reference ``CpuState``'s, u64 arrays reinterpreted as ``int64``,
 ``priv`` ``uint32`` and ``pending``/``trace_armed`` ``bool``.
+
+A fleet's stacked state (``cpu.make_fleet_state``: a leading board axis
+on every field, ``mem`` ``(D, W)``) goes both ways too, so the reference
+``FleetTarget.sts`` and the port's ``FleetTarget.sts`` can be seeded from
+the same arrays.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ _BOOL = ("pending", "trace_armed")
 
 def state_from_numpy(fields: dict, device) -> CpuState:
     """Build a state on ``device`` from ``{field name: numpy array}``
-    (every name in ``STATE_FIELDS``; u64 fields as ``uint64``)."""
+    (every name in ``STATE_FIELDS``; u64 fields as ``uint64``).  A ``mem``
+    of shape ``(D, W)`` makes a fleet's stack: the images end to end in
+    one buffer with the spare word behind the last."""
     dev = torch.device(device)
     out = {}
     for name in STATE_FIELDS:
@@ -31,10 +38,10 @@ def state_from_numpy(fields: dict, device) -> CpuState:
                            order="C").view(np.int64)
         out[name] = torch.from_numpy(arr)     # a fresh, writable copy
     mem = out.pop("mem")
-    store = torch.zeros((mem.shape[0] + 1,), dtype=torch.int64, device=dev)
-    store[:-1].copy_(mem)
+    store = torch.zeros((mem.numel() + 1,), dtype=torch.int64, device=dev)
+    store[:-1].copy_(mem.reshape(-1))
     out = {k: v.to(dev) for k, v in out.items()}
-    return CpuState(mem=store[:-1], mem_store=store, **out)
+    return CpuState(mem=store[:-1].view(mem.shape), mem_store=store, **out)
 
 
 def state_to_numpy(st: CpuState) -> dict:

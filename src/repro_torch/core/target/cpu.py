@@ -226,6 +226,18 @@ def _empty_dtlb(lanes, ways, dev) -> DTlb:
 
 
 @dataclass
+class _Fleet:
+    """The flat-fleet form's lane layout: ``D`` boards of ``nc`` lanes,
+    lane ``l`` is core ``l % nc`` of board ``l // nc``."""
+    D: int
+    nc: int
+    board: torch.Tensor       # (L,) board of each lane
+    base: torch.Tensor        # (L,) word offset of its board's image
+    local: torch.Tensor       # (L,) core index within its board
+    same: torch.Tensor        # (L, L) bool: lanes of one board
+
+
+@dataclass
 class _Chunk:
     """Per-chunk constants and the carried loop scalars (all on device)."""
     mask: int
@@ -240,6 +252,33 @@ class _Chunk:
     writes_rd: torch.Tensor   # (14,) bool: opcode classes that write rd
     amo_col: torch.Tensor     # (32,) funct5 -> column of the AMO candidates
     way_ids: torch.Tensor     # (1, ways)
+    #: the flat-fleet form (:func:`run_chunk_fleet`); None for one target
+    fleet: _Fleet | None = None
+
+
+def _chunk_consts(lanes, mask, block_words, block_cache, dtlb_ways,
+                  fetch_kernel, fleet=None) -> _Chunk:
+    """The per-chunk constants over the lane vector ``lanes``; with
+    ``fleet`` the lane order and the store invalidation only relate lanes
+    of one board."""
+    dev = lanes.device
+    earlier = lanes[:, None] < lanes[None, :]
+    other = lanes[:, None] != lanes[None, :]
+    if fleet is not None:
+        earlier = earlier & fleet.same
+        other = other & fleet.same
+    return _Chunk(
+        mask=mask, block_words=block_words, block_cache=block_cache,
+        dtlb_ways=dtlb_ways, fetch_kernel=fetch_kernel, lanes=lanes,
+        earlier=earlier, other=other,
+        opcodes=torch.tensor(_OPCODES, dtype=I64, device=dev),
+        writes_rd=torch.tensor([o in _WRITES_RD for o in _OPCODES],
+                               device=dev),
+        amo_col=torch.tensor([_AMO_F5.index(f) if f in _AMO_F5 else 8
+                              for f in range(32)], dtype=I64, device=dev),
+        way_ids=torch.arange(max(dtlb_ways, 1), dtype=I64,
+                             device=dev)[None, :],
+        fleet=fleet)
 
 
 def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
@@ -269,6 +308,16 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     Updates ``st``/``fb``/``dtlb`` in place; returns ``(exec_from',
     dticks)`` as 0-d tensors.  The only host synchronisation is one
     ``any()`` read deciding whether a data-side walk is needed.
+
+    With ``k.fleet`` this is the flat-fleet form (the reference's
+    ``mem_words > 0`` branches): ``st`` holds ``D * nc`` lanes keyed
+    (board, core), ``st.mem`` is every board's image end to end (each
+    lane reads and writes its own board's words through ``base``),
+    ``st.ticks``, ``exec_from``, ``gate`` and ``budget_left`` are ``(D,)``
+    vectors, and every cross-lane relation (core order, conflicts, store
+    invalidation, cache kills) holds between lanes of one board only, so
+    each board advances as it would alone; ``exec_from'`` and ``dticks``
+    come back as ``(D,)`` vectors.
     """
     mem = st.mem
     mask = k.mask
@@ -276,11 +325,22 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
         st.stall_until
     ticks = st.ticks
     lanes = k.lanes
+    f = k.fleet
     active = st.priv != 3
     cont = exec_from > 0
-    # not parked (priv != 3) — NOT priv == 0: S-mode cores execute too
-    runnable = active & ~st.pending & uge(ticks, stall)
-    cand = (cont | gate) & runnable & (lanes >= exec_from)
+    if f is None:
+        base = None
+        ticks_lane = ticks
+        # not parked (priv != 3) — NOT priv == 0: S-mode cores execute too
+        runnable = active & ~st.pending & uge(ticks, stall)
+        cand = (cont | gate) & runnable & (lanes >= exec_from)
+    else:
+        # per-board scalars became (D,) vectors, gathered per lane
+        base = f.base
+        ticks_lane = ticks[f.board]
+        runnable = active & ~st.pending & uge(ticks_lane, stall)
+        cand = (cont | gate)[f.board] & runnable & \
+            (f.local >= exec_from[f.board])
 
     # ---- fetch: block cache hit / walk+fill on miss --------------------
     if k.block_cache:
@@ -293,7 +353,7 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     # launched every substep with the miss mask instead of branching on
     # any(miss) (a host sync): masked-out lanes come back as "no walk"
     wpa, wfault, wwords, winsts32, wnb = pw_ops.walk_fetch_block(
-        mem, satp, pc, mask, k.block_words, None, miss,
+        mem, satp, pc, mask, k.block_words, base, miss,
         impl=k.fetch_kernel)
     winsts = winsts32.to(I64) & _M32
     ipa = torch.where(hit, fb.pbase + off, wpa)
@@ -378,7 +438,8 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
         hit_pa = ((tppn << 12) | (dva & 0xFFF)) & mask
         if bool(dwalk.any()):                    # the substep's one sync
             wdpa, wdfault, dwords, wperms, wleaf0, wptw = \
-                pw_ref.sv39_walk_leaf(mem, satp, dva, want_w, no_exec, mask)
+                pw_ref.sv39_walk_leaf(mem, satp, dva, want_w, no_exec, mask,
+                                      base)
             dpa = torch.where(dhit, hit_pa,
                               torch.where(bare, dva & mask, wdpa))
             dfault = dwalk & wdfault
@@ -392,13 +453,14 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     else:
         dwalk = cand & is_memop
         dpa, dfault, dwords = pw_ref.sv39_walk_ref(mem, satp, dva, want_w,
-                                                   no_exec, mask)
+                                                   no_exec, mask, base)
         dwords = torch.where(dwalk[:, None], dwords, NO_WORD)
     szb = torch.where(is_amo, torch.where(f3 == 2, 4, 8), 1 << (f3 & 3))
     misal = is_memop & ((dva & (szb - 1)) != 0)
 
     stw = dpa >> 3                               # dpa is masked: >= 0
-    dword = mem[stw]
+    stw_g = stw if base is None else base + stw  # the word in the buffer
+    dword = mem[stw_g]
     dshift = (dpa & 7) << 3
     raw = dword >> dshift                        # sign copies masked below
     # all ones for 8 bytes: (1 << 64) wraps to 0, minus 1
@@ -468,7 +530,12 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     st_hit = commit[None, :] & same_word
     res_hit = stw[:, None] == res_word[None, :]
     conf = (wr & (read_hit | st_hit | res_hit)).any(0)     # per j
-    safe = cand & (conf.cumsum(0) == 0)
+    if f is None:
+        safe = cand & (conf.cumsum(0) == 0)
+    else:
+        # the prefix is per board: a conflict on one board never defers
+        # another board's lanes
+        safe = cand & (conf.view(f.D, f.nc).cumsum(1).view(-1) == 0)
     deferred = cand & ~safe
 
     tr = safe & traps
@@ -480,7 +547,7 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     wmask = sizemask << dshift
     new_word = (dword & ~wmask) | ((sval << dshift) & wmask)
     # masked-out lanes write the spare word behind the image
-    widx = torch.where(commit, stw, mem.shape[0])
+    widx = torch.where(commit, stw_g, mem.shape[0])
     st.mem_store.index_put_((widx,), new_word)
 
     # ---- reservations ---------------------------------------------------
@@ -526,6 +593,8 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
         stb = stw << 3
         over = (commit[:, None] & ((stb[:, None] + 8) > fb.pbase[None, :])
                 & (stb[:, None] < (fb.pbase + fb.nbytes)[None, :]))
+        if f is not None:
+            over = over & f.same
         fb.nbytes = torch.where(over.any(0), 0, fb.nbytes)
 
     if k.dtlb_ways:
@@ -542,6 +611,8 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
         # store-overlap: a committed store onto any entry's backing leaf
         # PTE word (including one filled this very tick) kills the entry
         phit = stw[:, None, None] == dtlb.ptw[None, :, :]
+        if f is not None:
+            phit = phit & f.same[:, :, None]
         pinv = (commit[:, None, None] & phit).any(0)
         dtlb.vpn = torch.where(pinv, NO_WORD, dtlb.vpn)
 
@@ -549,23 +620,39 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     # The tick completes when no candidate lane was deferred; a fresh
     # tick whose every live lane is stalled fast-forwards the clock to
     # the next wake-up instead.
-    any_def = deferred.any()
-    started = cand.any() | cont
-    tick_done = started & ~any_def
-    skip = gate & ~cont & ~runnable.any() & active.any()
-    wait = stall - ticks
+    wait = stall - ticks_lane
     gaps = torch.where(active, wait, -1)         # -1: the largest u64
-    gap = u64.umin(u64.umin_reduce(gaps), budget_left)
-    dticks = torch.where(tick_done, 1, torch.where(skip, gap, 0))
-    new_from = torch.where(any_def, deferred.to(I64).argmax(), 0)
+    if f is None:
+        any_def = deferred.any()
+        started = cand.any() | cont
+        tick_done = started & ~any_def
+        skip = gate & ~cont & ~runnable.any() & active.any()
+        gap = u64.umin(u64.umin_reduce(gaps), budget_left)
+        dticks = torch.where(tick_done, 1, torch.where(skip, gap, 0))
+        new_from = torch.where(any_def, deferred.to(I64).argmax(), 0)
+        dticks_lane = dticks
+    else:
+        # every reduction becomes a segmented per-board one: each board
+        # keeps its own clock, skip arm and deferred-lane resume point
+        def dany(v):
+            return v.view(f.D, f.nc).any(1)
+        any_def = dany(deferred)
+        started = dany(cand) | cont
+        tick_done = started & ~any_def
+        skip = gate & ~cont & ~dany(runnable) & dany(active)
+        gap = u64.umin(u64.umin_rows(gaps.view(f.D, f.nc)), budget_left)
+        dticks = torch.where(tick_done, 1, torch.where(skip, gap, 0))
+        new_from = torch.where(
+            any_def, deferred.view(f.D, f.nc).to(I64).argmax(1), 0)
+        dticks_lane = dticks[f.board]
     retired = ret.to(I64)
 
     # ---- model counters -------------------------------------------------
     # On a completed exec tick every active-but-stalled core accrues 1;
     # on a skip tick every active core accrues the fast-forward gap; a
     # deferred substep (dticks = 0) accrues nothing.
-    stalled = active & ugt(stall, ticks)
-    dstall = torch.where(stalled, u64.umin(wait, dticks), 0)
+    stalled = active & ugt(stall, ticks_lane)
+    dstall = torch.where(stalled, u64.umin(wait, dticks_lane), 0)
 
     st.pc = torch.where(ret, next_pc, pc)
     st.pending = st.pending | tr
@@ -651,20 +738,9 @@ def _run_chunk_eager(st: CpuState, n_cores: int, mem_bytes: int,
     plain version of the chunk kernel."""
     nc = n_cores
     dev = st.device
-    lanes = torch.arange(nc, dtype=I64, device=dev)
-    k = _Chunk(
-        mask=mem_bytes - 1, block_words=block_words,
-        block_cache=block_cache, dtlb_ways=dtlb_ways,
-        fetch_kernel=fetch_kernel, lanes=lanes,
-        earlier=lanes[:, None] < lanes[None, :],
-        other=lanes[:, None] != lanes[None, :],
-        opcodes=torch.tensor(_OPCODES, dtype=I64, device=dev),
-        writes_rd=torch.tensor([o in _WRITES_RD for o in _OPCODES],
-                               device=dev),
-        amo_col=torch.tensor([_AMO_F5.index(f) if f in _AMO_F5 else 8
-                              for f in range(32)], dtype=I64, device=dev),
-        way_ids=torch.arange(max(dtlb_ways, 1), dtype=I64,
-                             device=dev)[None, :])
+    k = _chunk_consts(torch.arange(nc, dtype=I64, device=dev),
+                      mem_bytes - 1, block_words, block_cache, dtlb_ways,
+                      fetch_kernel)
     limit = int(max_cycles)
     cycles = torch.zeros((), dtype=I64, device=dev)
     exec_from = torch.zeros((), dtype=I64, device=dev)
@@ -682,6 +758,133 @@ def _run_chunk_eager(st: CpuState, n_cores: int, mem_bytes: int,
                                          limit - cycles, k)
             cycles = cycles + d
         substeps += issue_width
+
+
+# ---------------------------------------------------------------------------
+# The fleet: D boards' states stacked, one global chunk per call.
+# ---------------------------------------------------------------------------
+def make_fleet_state(n_devices: int, n_cores: int, mem_bytes: int,
+                     device="cuda") -> CpuState:
+    """D boards' power-on states stacked: every field carries a leading
+    board axis ``(D, ...)`` (``ticks`` is ``(D,)``), contiguous, and the
+    images lie end to end in one buffer, ``mem`` its ``(D, W)`` view with
+    one spare word behind the last board (``mem_store``)."""
+    one = make_state(n_cores, mem_bytes, device=device)
+    words = mem_bytes // 8
+    store = torch.zeros((n_devices * words + 1,), dtype=I64,
+                        device=one.device)
+    out = {name: getattr(one, name).unsqueeze(0).repeat(
+        (n_devices,) + (1,) * getattr(one, name).dim())
+        for name in STATE_FIELDS if name != "mem"}
+    return CpuState(mem=store[:-1].view(n_devices, words), mem_store=store,
+                    **out)
+
+
+def board_state(sts: CpuState, d: int) -> CpuState:
+    """Board ``d`` of a stacked state as a state of views: every in-place
+    host op of this module (``redirect_op``, ``apply_write_batch``, the
+    page ops, ``fetch_read_batch``) acts on the stack through it.  The
+    views stay valid as long as the stack's tensors are updated in place
+    (never rebound).  A board is never stepped alone — the fleet steps
+    the stack — so it has no ``mem_store``."""
+    out = {name: getattr(sts, name)[d] for name in STATE_FIELDS}
+    return CpuState(mem_store=None, **out)
+
+
+def _flat_state(sts: CpuState) -> CpuState:
+    """The stack with its board axis folded into the lane axis: ``(D *
+    nc, ...)`` views of the per-core fields, ``ticks`` ``(D,)``, ``mem``
+    every image end to end."""
+    out = {}
+    for name in STATE_FIELDS:
+        x = getattr(sts, name)
+        out[name] = x if name == "ticks" else \
+            x.view((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+    return CpuState(mem_store=sts.mem_store, **out)
+
+
+def run_chunk_fleet(sts: CpuState, n_cores: int, mem_bytes: int, budgets,
+                    issue_width: int = 8, block_words: int = 16,
+                    block_cache: bool = True, fetch_kernel: str = "kernel",
+                    dtlb_ways: int = 8, chunk_kernel: str = "kernel"
+                    ) -> list:
+    """One global chunk of a fleet: advance board ``d`` of the stacked
+    state ``sts`` (:func:`make_fleet_state`) in place by up to
+    ``budgets[d]`` ticks, each board exactly as :func:`run_chunk_fast`
+    would advance it alone.  A board whose budget is 0 is left untouched,
+    bit for bit.  Returns the substeps issued for each board.
+
+    The state's device picks the loop, as in :func:`run_chunk_fast`: a
+    CUDA stack runs the fleet chunk kernel (``csrc/run_chunk.cu``, one
+    launch, one CTA per board), a CPU stack the eager flat form;
+    ``chunk_kernel="ref"`` asks for the eager flat form on any device."""
+    assert block_words & (block_words - 1) == 0, "block_words must be pow2"
+    assert dtlb_ways & (dtlb_ways - 1) == 0, "dtlb_ways must be pow2 or 0"
+    budgets = [int(b) for b in budgets]
+    if len(budgets) != sts.pc.shape[0]:
+        raise ValueError(f"run_chunk_fleet: {len(budgets)} budgets for "
+                         f"{sts.pc.shape[0]} boards")
+    if chunk_route(sts, chunk_kernel) == "kernel":
+        return rc_kernel.run_chunk_fleet(sts, n_cores, mem_bytes, budgets,
+                                         issue_width, block_words,
+                                         block_cache, dtlb_ways)
+    return _run_chunk_fleet_eager(sts, n_cores, mem_bytes, budgets,
+                                  issue_width, block_words, block_cache,
+                                  fetch_kernel, dtlb_ways)
+
+
+def _run_chunk_fleet_eager(sts: CpuState, n_cores: int, mem_bytes: int,
+                           budgets: list, issue_width: int,
+                           block_words: int, block_cache: bool,
+                           fetch_kernel: str, dtlb_ways: int) -> list:
+    """The eager flat form, the port of the reference's
+    ``run_chunk_fleet``: one machine of ``D * nc`` lanes, per-board
+    clocks, budgets, gates and resume points as ``(D,)`` vectors, the
+    loop running while any board's predicate holds.  The plain version of
+    the fleet chunk kernel.
+
+    A board whose own predicate is false stays unchanged while the others
+    run (no lane of it is a candidate, it takes no skip, its clock and
+    counters stand still), so its substeps count only the groups that
+    started while its predicate held — what one CTA a board issues."""
+    D, nc = sts.pc.shape[0], n_cores
+    dev = sts.device
+    L = D * nc
+    fst = _flat_state(sts)
+    lanes = torch.arange(L, dtype=I64, device=dev)
+    board = lanes // nc
+    fleet = _Fleet(D=D, nc=nc, board=board, base=board * (mem_bytes // 8),
+                   local=lanes - board * nc,
+                   same=board[:, None] == board[None, :])
+    k = _chunk_consts(lanes, mem_bytes - 1, block_words, block_cache,
+                      dtlb_ways, fetch_kernel, fleet)
+    limit = torch.tensor(budgets, dtype=I64, device=dev)
+    cycles = torch.zeros((D,), dtype=I64, device=dev)
+    exec_from = torch.zeros((D,), dtype=I64, device=dev)
+    fb = _empty_blocks(L, block_words, dev)
+    dtlb = _empty_dtlb(L, max(dtlb_ways, 1), dev)
+    substeps = [0] * D
+
+    def dany(v):
+        return v.view(D, nc).any(1)
+    while True:
+        go = (((cycles < limit) & ~dany(fst.pending) &
+               dany(fst.priv != 3)) | (exec_from > 0)).tolist()
+        if not any(go):
+            break
+        substeps = [n + issue_width * g for n, g in zip(substeps, go)]
+        for _ in range(issue_width):
+            gate = ~dany(fst.pending) & (cycles < limit)
+            exec_from, d = _exec_substep(fst, fb, dtlb, exec_from, gate,
+                                         limit - cycles, k)
+            cycles = cycles + d
+    # the substep rebinds the small per-core vectors: copy them back into
+    # the stack, whose tensors the boards' views alias
+    for name in STATE_FIELDS:
+        dst, src = getattr(sts, name), getattr(fst, name)
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src.view(dst.shape))
+    return substeps
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,11 @@ def umin_reduce(a):
     return (a ^ INT64_MIN).min() ^ INT64_MIN
 
 
+def umin_rows(a):
+    """Unsigned minimum of each row of a 2-d tensor (one value a row)."""
+    return (a ^ INT64_MIN).amin(1) ^ INT64_MIN
+
+
 def sx(v, bits):
     """Sign-extend the low ``bits`` of ``v`` (upper bits must be clear)."""
     m = 1 << (bits - 1)

@@ -30,6 +30,21 @@
 // before them.  Loads of the image go through the coherent path (see
 // page_walk.cuh).
 //
+// The fleet.  run_chunk_fleet_launch runs one global chunk of D boards
+// (src/repro/core/target/cpu.py:1180-1255, run_chunk_fleet; its plain
+// version is repro_torch/core/target/cpu.py::_run_chunk_fleet_eager): a
+// grid of D CTAs, CTA d running board d through the same device body
+// (chunk_body) with its pointers offset to the board's slice of the stacked
+// state and its limit read from budgets[d].  Boards are shared-nothing in
+// the reference's flat loop (every cross-lane relation there is masked to
+// one board), and a board whose loop predicate is false stays unchanged
+// while the others run -- no candidate lane, no skip, no clock or counter
+// movement -- so a CTA that stops at its own predicate, tested every
+// issue_width substeps as the flat loop tests it, leaves its board as the
+// flat loop does.  A CTA whose budget is 0 returns before it reads or writes
+// any state: the board is untouched, bit for bit.  So the limit of one warp
+// is 32 cores a board, for any number of boards.
+//
 // What bounds it: neither bytes nor operations but the chain of dependent
 // global-memory round trips in a substep -- an instruction fetch that
 // misses the block cache (up to three PTE loads, then the slots), a data
@@ -189,7 +204,9 @@ __device__ __forceinline__ u64 warp_umin(u64 v) {
   return v;
 }
 
-__global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
+// The chunk loop of one target (one board of a fleet), run by the warp of
+// the calling CTA.
+__device__ __forceinline__ void chunk_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int nc = p.nc;
@@ -585,6 +602,46 @@ __global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
   }
 }
 
+__global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
+  chunk_body(p);
+}
+
+// CTA d runs board d: `p` points at board 0's slice of every stacked field
+// and at the image of board 0 (`words` u64 words a board), `budgets` holds
+// the boards' limits, `p.out` is (D, 2).
+__global__ void __launch_bounds__(32, 1)
+    run_chunk_fleet_kernel(Params p, const long long* budgets,
+                           long long words) {
+  const int d = blockIdx.x;
+  const long long limit = budgets[d];
+  p.out += 2 * d;
+  if (limit == 0) {               // the board stays untouched, bit for bit
+    if (threadIdx.x == 0) p.out[0] = p.out[1] = 0;
+    return;
+  }
+  const long long c = (long long)d * p.nc;
+  p.limit = limit;
+  p.mem += d * words;
+  p.regs += c * 32;
+  p.pc += c;
+  p.priv += c;
+  p.pending += c;
+  p.stall_until += c;
+  p.satp += c;
+  p.mcause += c;
+  p.mepc += c;
+  p.mtval += c;
+  p.res += c;
+  p.ticks += d;
+  p.uticks += c;
+  p.instret += c;
+  p.stall_ticks += c;
+  p.fetch_hits += c;
+  p.fetch_walks += c;
+  p.tlb_walks += c;
+  chunk_body(p);
+}
+
 // One thread follows `steps` links of `next` from `start` (the measure of
 // one dependent load's latency on the path the chunk kernel's loads take).
 __global__ void chase_kernel(const long long* next, long long start,
@@ -594,29 +651,14 @@ __global__ void chase_kernel(const long long* next, long long start,
   *out = i;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory a launch needs for `lanes` cores.
-size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
-  return (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
-         (size_t)lanes * block_words * 4;
-}
-
-// Runs one chunk on `stream` (one CTA of one warp) and returns
-// cudaGetLastError() (0 on success); does not synchronise and allocates
-// nothing.  Pointers are the CpuState fields in STATE_FIELDS order.
-int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
-                     void* pending, void* stall_until, void* satp,
-                     void* mcause, void* mepc, void* mtval, void* res,
-                     void* ticks, void* uticks, void* instret,
-                     void* stall_ticks, void* fetch_hits, void* fetch_walks,
-                     void* tlb_walks, void* out, u64 mask,
-                     long long limit, int lanes, int issue_width,
-                     int block_words, int block_cache, int ways,
-                     void* stream) {
-  if (lanes <= 0 || lanes > LANES_MAX) return (int)cudaErrorInvalidValue;
+Params make_params(void* mem, void* regs, void* pc, void* priv,
+                   void* pending, void* stall_until, void* satp,
+                   void* mcause, void* mepc, void* mtval, void* res,
+                   void* ticks, void* uticks, void* instret,
+                   void* stall_ticks, void* fetch_hits, void* fetch_walks,
+                   void* tlb_walks, void* out, u64 mask, long long limit,
+                   int lanes, int issue_width, int block_words,
+                   int block_cache, int ways) {
   Params p;
   p.mem = (u64*)mem;
   p.regs = (u64*)regs;
@@ -644,6 +686,38 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
   p.block_words = block_words;
   p.block_cache = block_cache;
   p.ways = ways;
+  return p;
+}
+
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a launch needs for `lanes` cores.
+size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
+  return (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
+         (size_t)lanes * block_words * 4;
+}
+
+// Runs one chunk on `stream` (one CTA of one warp) and returns
+// cudaGetLastError() (0 on success); does not synchronise and allocates
+// nothing.  Pointers are the CpuState fields in STATE_FIELDS order.
+int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
+                     void* pending, void* stall_until, void* satp,
+                     void* mcause, void* mepc, void* mtval, void* res,
+                     void* ticks, void* uticks, void* instret,
+                     void* stall_ticks, void* fetch_hits, void* fetch_walks,
+                     void* tlb_walks, void* out, u64 mask,
+                     long long limit, int lanes, int issue_width,
+                     int block_words, int block_cache, int ways,
+                     void* stream) {
+  if (lanes <= 0 || lanes > LANES_MAX) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(
+      mem, regs, pc, priv, pending, stall_until, satp, mcause, mepc, mtval,
+      res, ticks, uticks, instret, stall_ticks, fetch_hits, fetch_walks,
+      tlb_walks, out, mask, limit, lanes, issue_width, block_words,
+      block_cache, ways);
   const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -655,6 +729,46 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
   run_chunk_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(p);
 #else  // g++ under the CPU emulation of tests/cuda_shim
   cuda_shim::launch(run_chunk_kernel, 1, 32, smem, p);
+#endif
+  return (int)cudaGetLastError();
+}
+
+// Runs one global chunk of `boards` boards on `stream` (one CTA of one warp
+// a board) and returns cudaGetLastError(); does not synchronise and
+// allocates nothing.  Pointers are the stacked CpuState fields in
+// STATE_FIELDS order ((D, lanes, ...) contiguous, ticks (D,)), the image
+// (D * words,), budgets (D,) and out (D, 2): substeps issued and dependent
+// round trips, per board.
+int run_chunk_fleet_launch(void* mem, void* regs, void* pc, void* priv,
+                           void* pending, void* stall_until, void* satp,
+                           void* mcause, void* mepc, void* mtval, void* res,
+                           void* ticks, void* uticks, void* instret,
+                           void* stall_ticks, void* fetch_hits,
+                           void* fetch_walks, void* tlb_walks,
+                           const void* budgets, void* out, u64 mask,
+                           long long words, int lanes, int boards,
+                           int issue_width, int block_words, int block_cache,
+                           int ways, void* stream) {
+  if (lanes <= 0 || lanes > LANES_MAX || boards <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p = make_params(
+      mem, regs, pc, priv, pending, stall_until, satp, mcause, mepc, mtval,
+      res, ticks, uticks, instret, stall_ticks, fetch_hits, fetch_walks,
+      tlb_walks, out, mask, 0, lanes, issue_width, block_words, block_cache,
+      ways);
+  const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        run_chunk_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+#ifdef __CUDACC__
+  run_chunk_fleet_kernel<<<boards, 32, smem, (cudaStream_t)stream>>>(
+      p, (const long long*)budgets, words);
+#else  // g++ under the CPU emulation of tests/cuda_shim
+  cuda_shim::launch(run_chunk_fleet_kernel, boards, 32, smem, p,
+                    (const long long*)budgets, words);
 #endif
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,11 @@ module).
 
 Contract: one lane of the warp per core, so at most :data:`LANES_MAX`
 cores; the wrapper raises ``ValueError`` beyond.
+
+:func:`run_chunk_fleet` launches the same loop for a fleet: one CTA per
+board of a stacked state (``cpu.make_fleet_state``), so the limit is
+:data:`LANES_MAX` cores a board, for any number of boards.  Its plain
+version is ``cpu._run_chunk_fleet_eager``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ FIELDS = (("regs", torch.int64, (32,)), ("pc", torch.int64, ()),
 _ARGS = [ctypes.c_void_p] * (2 + len(FIELDS)) + [
     ctypes.c_uint64, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
+#: ``run_chunk_fleet_launch``: the image, the fields, budgets and out, the
+#: mask, the words a board, lanes, boards and the four knobs, the stream
+FLEET_ARGS = [ctypes.c_void_p] * (3 + len(FIELDS)) + [
+    ctypes.c_uint64, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 
 
 def smem_bytes(n_cores, block_words, dtlb_ways):
@@ -49,21 +59,27 @@ def smem_bytes(n_cores, block_words, dtlb_ways):
     return n_cores * (32 + 4 * dtlb_ways) * 8 + n_cores * block_words * 4
 
 
-def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways):
+def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways,
+                boards=None):
     """Raise ``ValueError`` unless the kernel takes this state and these
     knobs: ``n_cores`` within :data:`LANES_MAX`, every field a contiguous
     tensor of its dtype and shape on the image's device, the image
-    ``mem_bytes // 8`` words."""
-    op = "run_chunk"
+    ``mem_bytes // 8`` words.  With ``boards`` the state is a fleet's
+    stack: every shape gains a leading axis of ``boards``."""
+    op = "run_chunk" if boards is None else "run_chunk_fleet"
     if not 0 < n_cores <= LANES_MAX:
         raise ValueError(f"{op}: the kernel runs one core per lane of one "
-                         f"warp, at most {LANES_MAX} cores; got {n_cores}")
+                         f"warp, at most {LANES_MAX} cores"
+                         f"{'' if boards is None else ' a board'}; got "
+                         f"{n_cores}")
+    lead = () if boards is None else (boards,)
     dev = st.mem.device
-    _build.check_tensor(op, "mem", st.mem, torch.int64, (mem_bytes // 8,),
-                        dev)
+    _build.check_tensor(op, "mem", st.mem, torch.int64,
+                        lead + (mem_bytes // 8,), dev)
     for name, dtype, tail in FIELDS:
         shape = () if tail is None else (n_cores, *tail)
-        _build.check_tensor(op, name, getattr(st, name), dtype, shape, dev)
+        _build.check_tensor(op, name, getattr(st, name), dtype,
+                            lead + shape, dev)
     if block_words <= 0 or block_words & (block_words - 1):
         raise ValueError(f"{op}: block_words must be a power of two, got "
                          f"{block_words}")
@@ -113,8 +129,55 @@ def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
     return substeps
 
 
+def fleet_launch_args(sts, budgets, out, n_cores, mem_bytes, issue_width,
+                      block_words, block_cache, dtlb_ways, stream):
+    """The arguments of ``run_chunk_fleet_launch`` for this stack, in
+    order (``budgets`` an int64 tensor of one limit a board)."""
+    return (sts.mem.data_ptr(),
+            *(getattr(sts, name).data_ptr() for name, _, _ in FIELDS),
+            budgets.data_ptr(), out.data_ptr(),
+            (mem_bytes - 1) & ((1 << 64) - 1), mem_bytes // 8, n_cores,
+            sts.pc.shape[0], issue_width, block_words,
+            int(bool(block_cache)), dtlb_ways, stream)
+
+
+def run_chunk_fleet(sts, n_cores, mem_bytes, budgets, issue_width=8,
+                    block_words=16, block_cache=True, dtlb_ways=8) -> list:
+    """One global chunk of the fleet ``sts`` (a CUDA stack of D boards) in
+    one launch: board ``d`` advances in place by up to ``budgets[d]``
+    ticks; a board of budget 0 is untouched.  Returns the substeps issued
+    for each board, read back once with the round trips."""
+    boards = sts.pc.shape[0]
+    check_state(sts, n_cores, mem_bytes, block_words, dtlb_ways, boards)
+    if not sts.mem.is_cuda:
+        raise ValueError("run_chunk_fleet: the kernel needs a CUDA stack; "
+                         "the eager flat form runs a CPU stack")
+    if issue_width <= 0:
+        raise ValueError(f"run_chunk_fleet: issue_width must be positive, "
+                         f"got {issue_width}")
+    if len(budgets) != boards or min(budgets) < 0:
+        raise ValueError(f"run_chunk_fleet: need {boards} budgets >= 0, "
+                         f"got {list(budgets)}")
+    dev = sts.mem.device
+    limits = torch.tensor(budgets, dtype=torch.int64).to(dev)
+    out = torch.empty((boards, 2), dtype=torch.int64, device=dev)
+    args = fleet_launch_args(sts, limits, out, n_cores, mem_bytes,
+                             issue_width, block_words, block_cache,
+                             dtlb_ways, _build.current_stream(dev))
+    _build.launch("run_chunk_fleet", _build.entry(
+        "run_chunk", "run_chunk_fleet_launch", FLEET_ARGS), args, dev)
+    run_chunk_fleet.launches += 1
+    got = out.tolist()
+    run_chunk_fleet.trips += sum(t for _, t in got)
+    return [s for s, _ in got]
+
+
 #: launches of the CUDA kernel since the counter was last set to 0
 run_chunk.launches = 0
 #: dependent round trips to global memory on the kernel's critical path
 #: (the longest chain of each substep, summed) since last set to 0
 run_chunk.trips = 0
+#: launches of the fleet kernel (one a global chunk) since last set to 0
+run_chunk_fleet.launches = 0
+#: the boards' dependent round trips, summed, since last set to 0
+run_chunk_fleet.trips = 0

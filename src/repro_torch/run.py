@@ -20,13 +20,22 @@ def run_workload(name, argv_tail, mode="fase", n_cores=4, baud=921600,
     it to completion.  ``target_opts`` are extra ``TorchTarget`` kwargs
     (``issue_width``/``block_words``/``block_cache``/``fetch_kernel``/
     ``dtlb_ways``/``chunk_kernel``), e.g. from
-    :func:`repro_torch.configs.fase_rocket.target_kwargs`.  Returns
+    :func:`repro_torch.configs.fase_rocket.target_kwargs`.
+    ``target="fleet-vmap"`` runs the workload on board 0 of a one-board
+    :class:`~repro_torch.core.fleet.vmap.FleetTarget` (the stacked fleet
+    path: on the card each chunk is a launch of the fleet chunk kernel),
+    which must stay tick-identical to ``target="torch"``.  Returns
     ``(runtime, report, wall_seconds)``; the wall clock stops after the
     device has finished."""
-    if target != "torch":
-        raise ValueError(f"repro_torch runs target='torch' only, "
-                         f"got {target!r}")
-    tgt = TorchTarget(n_cores, mem, device=device, **(target_opts or {}))
+    if target == "torch":
+        tgt = TorchTarget(n_cores, mem, device=device, **(target_opts or {}))
+    elif target == "fleet-vmap":
+        from .core.fleet.vmap import FleetTarget
+        tgt = FleetTarget(1, n_cores, mem, device=device,
+                          **(target_opts or {})).view(0)
+    else:
+        raise ValueError(f"repro_torch runs target='torch' or "
+                         f"'fleet-vmap', got {target!r}")
     rt = FaseRuntime(tgt, mode=mode, baud=baud, hfutex=hfutex, link=link,
                      session=session, queue_depth=queue_depth,
                      coalesce_ticks=coalesce_ticks,

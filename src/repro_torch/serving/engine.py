@@ -29,8 +29,16 @@ behind the manager's pages instead of into page 0, which another slot may
 own.  Token streams, step counts, page statistics and per-category
 traffic bytes are the reference's wherever the reference is well defined
 (every page id below ``pages_per_seq``); beyond that every request gets
-the tokens it gets when run alone.  A ``fleet`` (slots sharded across
-devices) is not ported yet.
+the tokens it gets when run alone.
+
+With ``fleet=`` (a :class:`~repro_torch.core.fleet.FleetRuntime` or
+:class:`~repro_torch.core.fleet.FleetRouter`) the decode slots are
+sharded across the fleet's boards: each step's command batch is split by
+owning board and routed over that board's modelled link on its
+``(device, "serve")`` stream, and ``slot_policy="least_loaded"``
+re-places slots every ``rebalance_every`` steps, billing each move as
+``"slot_migrate"`` traffic on both links.  The fleet only routes command
+batches: the decode step itself still runs on the one ``device``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ import torch
 
 from ..core.channel import make_channel
 from ..core.cq import AsyncHtpSession
+from ..core.fleet.placement import make_policy
+from ..core.session import HtpRequest, HtpTransaction
 from ..kernels.page_ops import ops as page_ops
 from ..models import core as M
 from ..models.config import ModelConfig
@@ -51,6 +61,15 @@ from .pages import PagedKVManager
 
 #: submission-stream key for Layer-B serving traffic on a shared session
 SERVE_STREAM = "serve"
+
+
+@dataclass
+class _SlotLoad:
+    """Device-shaped view (id + clock) the fleet placement policy can
+    rank during serving slot rebalancing."""
+
+    id: object
+    clock: int
 
 
 @dataclass
@@ -81,15 +100,12 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_seq: int = 512, poll_every: int = 4,
                  htp_session: AsyncHtpSession | None = None,
-                 link: str = "pcie", fleet=None, impl: str = "kernel",
-                 device="cuda"):
+                 link: str = "pcie", fleet=None,
+                 slot_policy: str = "sticky", rebalance_every: int = 8,
+                 impl: str = "kernel", device="cuda"):
         """``params`` live on ``device`` (default the GPU; raises without
         one).  ``impl`` picks the kernels (``"kernel"``) or their plain
         versions (``"ref"``) for decode attention and the page commands."""
-        if fleet is not None:
-            raise NotImplementedError(
-                "ROADMAP Queue A 7: fleet-sharded serving (slots across "
-                "devices, slot migration) is not ported yet")
         self.device = M.resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -97,8 +113,52 @@ class ServeEngine:
         self.max_seq = max_seq
         self.poll_every = poll_every
         self.impl = impl
-        self.htp = htp_session or AsyncHtpSession(None, make_channel(link))
-        self.step_spans: list = []    # per-step link span
+        # command batches dispatch on the "serve" stream; pass a FASE
+        # runtime's session to share (and contend on) its modelled link,
+        # or a fleet (FleetRuntime / FleetRouter) to shard decode slots
+        # across N devices — each device then carries only its own slots'
+        # command traffic on its own link, on stream (device, "serve")
+        self.router = None
+        self._dev_slots: list = []    # (device_id, [its slot indices])
+        # slot placement across the fleet: "sticky" keeps the static
+        # slot%N sharding for a slot's whole lifetime; "least_loaded"
+        # re-places slots mid-run (every ``rebalance_every`` steps, via
+        # the fleet placement policy over channel-model span projections)
+        # whenever a move strictly improves the projected per-step
+        # makespan — each move re-ships the slot's block-table row and
+        # resident KV pages over BOTH links (billed, category
+        # "slot_migrate"), so a move costs real modelled time up front.
+        assert slot_policy in ("sticky", "least_loaded")
+        self.slot_policy = slot_policy
+        self.rebalance_every = max(rebalance_every, 1)
+        self.slot_migrations = 0
+        self._slot_placement = None
+        self.step_spans: list = []    # per-step slowest-device span
+        if fleet is not None:
+            assert htp_session is None, \
+                "htp_session and fleet are mutually exclusive: a fleet " \
+                "routes every batch to its own devices' links"
+            self.router = fleet.router() if hasattr(fleet, "router") \
+                else fleet
+            dev_ids = list(self.router.devices)
+            # sticky slot->device sharding (affinity): a slot's KV pages
+            # and block tables live on one board for its whole lifetime
+            # (the starting assignment under "least_loaded" too)
+            self._dev_slots = [
+                (dev_ids[k], [s for s in range(slots)
+                              if s % len(dev_ids) == k])
+                for k in range(len(dev_ids))]
+            if slot_policy == "least_loaded":
+                self._slot_placement = make_policy("least_loaded")
+            self.htp = None
+        else:
+            self.htp = htp_session or AsyncHtpSession(
+                None, make_channel(link))
+        # moving one resident KV page between boards re-ships its K+V
+        # planes (f32, the reference's pool) — the modelled price of a
+        # slot migration
+        self._kv_page_bytes = (2 * cfg.n_layers * M.PAGE_SIZE *
+                               cfg.n_kv_heads * cfg.d_head * 4)
         self.link_tick = 0            # modelled completion of the last batch
         self.pages_per_seq = M.pages_per_seq(cfg, max_seq)
         self.kv = PagedKVManager(slots * self.pages_per_seq * 2)
@@ -142,6 +202,133 @@ class ServeEngine:
             self.state["seq_lens"][slot] = 0
             self._stop_mask[slot] = False
             self.traffic.add("admit", 8 * len(req.prompt))
+
+    # -- dispatch --------------------------------------------------------
+    def _slot_of_rid(self) -> dict:
+        return {req.rid: slot for slot, req in self.active.items()}
+
+    def _device_of_slot(self, slot: int):
+        for dev, slots in self._dev_slots:
+            if slot in slots:
+                return dev
+        return self._dev_slots[0][0]
+
+    def _dispatch(self, cb: CommandBatch, cmd_owners=None) -> int:
+        """Ship one step's command batch over the modelled link(s).
+
+        Single-session: the whole batch is one wire transaction on the
+        ``"serve"`` stream.  Fleet: the batch is sharded by owning device
+        — each device receives a sub-batch of its slots' overrides /
+        block-table rows and the page commands its slots' sequences
+        generated (``cmd_owners``; unattributed commands land on the
+        first device) on its own ``(device, "serve")`` stream, and the
+        step's link completion is the slowest device's."""
+        base = self.link_tick
+        if self.router is None:
+            done = self.htp.submit(cb.to_transaction(), base,
+                                   stream=SERVE_STREAM).done
+            self.step_spans.append(done - base)
+            return done
+        # page commands route to the board that owns the generating
+        # sequence's slot (its KV pages live there)
+        copy_owners, zero_owners = cmd_owners or ([], [])
+        rid_slot = self._slot_of_rid()
+        first = self._dev_slots[0][0]
+
+        def owner_dev(rid):
+            slot = rid_slot.get(rid)
+            return self._device_of_slot(slot) if slot is not None \
+                else first
+        done = base
+        for dev, slots in self._dev_slots:
+            sub = CommandBatch(
+                override=cb.override[slots], eos=cb.eos[slots],
+                max_lens=cb.max_lens[slots],
+                block_tables=cb.block_tables[slots],
+                page_copies=[p for rid, p in zip(copy_owners,
+                                                 cb.page_copies)
+                             if owner_dev(rid) == dev],
+                page_zeros=[p for rid, p in zip(zero_owners,
+                                                cb.page_zeros)
+                            if owner_dev(rid) == dev])
+            txn = sub.to_transaction()
+            if not txn.requests:
+                continue
+            res = self.router.submit(txn, base,
+                                     stream=(dev, SERVE_STREAM))
+            done = max(done, res.done)
+        self.step_spans.append(done - base)
+        return done
+
+    # -- slot migration ---------------------------------------------------
+    def _proj_span(self, dev, n_slots: int) -> int:
+        """Projected per-step link span of ``dev`` carrying ``n_slots``
+        decode slots, from its channel model (per-transaction latency +
+        serialisation of the slots' command bytes).  Projections — not
+        measured spans — drive rebalancing, so an emptied slow board
+        never looks attractive just because it currently carries
+        nothing."""
+        if n_slots == 0:
+            return 0
+        ch = self.router.devices[dev].session.channel
+        per_slot = 8 + 4 * self.pages_per_seq    # override + table row
+        return ch.latency_ticks + ch.ticks_for_bytes(per_slot * n_slots)
+
+    def _rebalance(self):
+        """Move one decode slot off the board binding the projected
+        per-step makespan onto the board that would carry it cheapest
+        (re-using the fleet ``least_loaded`` placement policy over
+        projected spans), charging the block-table row + resident-KV
+        re-shipment on both links.  Only a strict projected-makespan
+        improvement moves anything, so a balanced fleet is a fixed
+        point."""
+        counts = {d: len(s) for d, s in self._dev_slots}
+        devs = list(counts)
+        cur = {d: self._proj_span(d, counts[d]) for d in devs}
+        src = max(devs, key=lambda d: cur[d])
+        # destination = cheapest board AFTER receiving one more slot
+        dst = self._slot_placement.place(
+            None, [_SlotLoad(d, self._proj_span(d, counts[d] + 1))
+                   for d in devs]).id
+        if src == dst:
+            return
+        after = max(self._proj_span(d, counts[d] - (d == src) +
+                                    (d == dst)) for d in devs)
+        if after >= max(cur.values()):
+            return
+        src_slots = next(s for d, s in self._dev_slots if d == src)
+        dst_slots = next(s for d, s in self._dev_slots if d == dst)
+        if not src_slots:
+            return
+
+        # cheapest move first: an idle slot ships only its table row;
+        # an active one also re-ships its resident KV pages
+        def move_pages(slot):
+            req = self.active.get(slot)
+            if req is None:
+                return 0
+            return len(self.kv.seqs[req.rid].pages)
+        slot = min(src_slots, key=lambda s: (move_pages(s), s))
+        nbytes = 4 * self.pages_per_seq + \
+            move_pages(slot) * self._kv_page_bytes
+        # d2h off the source board, h2d onto the destination — the KV
+        # planes cross both links, FIFO on each board's serve stream
+        out = HtpTransaction().add(HtpRequest(
+            "PageR", cpu=slot, category="slot_migrate", nbytes=nbytes,
+            virtual=True))
+        r1 = self.router.submit(out, self.link_tick,
+                                stream=(src, SERVE_STREAM))
+        back = HtpTransaction().add(HtpRequest(
+            "PageW", cpu=slot, category="slot_migrate", nbytes=nbytes,
+            virtual=True))
+        r2 = self.router.submit(back, r1.done,
+                                stream=(dst, SERVE_STREAM))
+        self.link_tick = max(self.link_tick, r2.done)
+        self.traffic.add("slot_migrate", nbytes, d2h=True)
+        self.traffic.add("slot_migrate", nbytes)
+        src_slots.remove(slot)
+        dst_slots.append(slot)
+        self.slot_migrations += 1
 
     # -- the device step ---------------------------------------------------
     def _upload(self, cb: CommandBatch):
@@ -259,12 +446,13 @@ class ServeEngine:
         cb.page_zeros = [p for _, p in zeros]
         cb.account(self.traffic)
         self.step_slots = sorted(self.active)
-        # dispatch over the modelled device link: one wire batch per
-        # decode step, FIFO on the serving stream
-        base = self.link_tick
-        self.link_tick = self.htp.submit(cb.to_transaction(), base,
-                                         stream=SERVE_STREAM).done
-        self.step_spans.append(self.link_tick - base)
+        # dispatch over the modelled device link(s): one wire batch per
+        # decode step, FIFO on the serving stream(s)
+        self.link_tick = self._dispatch(
+            cb, ([rid for rid, _ in copies], [rid for rid, _ in zeros]))
+        if self._slot_placement is not None and \
+                (self.steps + 1) % self.rebalance_every == 0:
+            self._rebalance()
         self.batch = cb
         t1 = time.perf_counter()
         self._device_step(cb)

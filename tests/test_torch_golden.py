@@ -121,3 +121,77 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+def test_fleet_full_width_constants_come_from_pysim():
+    """``chip_smoke.py``'s full-width fleet runs are held to what the
+    reference package's fleet yields over pure-Python simulator boards:
+    FASE_FLEET_NET's 4-board gang (4 cores and 64 MiB a board, bc with 4
+    threads a board on partition(rmat(10, 4), 4)), and FASE_FLEET_VMAP's
+    run_synchronous jobs (bc 4T on rmat(10, 4, seed)), each job equal to
+    its solo run; the gang pin is tests/test_golden_ticks.py's."""
+    from repro.configs.fase_rocket import (FASE_FLEET_NET, fleet_kwargs,
+                                           net_kwargs)
+    from repro.configs.registry import FASE_FLEET_VMAP
+    from repro.core.fleet import FleetRuntime, Job
+    from repro.core.net import GangJob, Switch
+    from repro.core.target.pysim import PySim
+    from test_golden_ticks import (GANG_BC_EXCHANGES, GANG_BC_FABRIC_BYTES,
+                                   GANG_BC_INSTRET, GANG_BC_MAKESPAN,
+                                   GANG_BC_SUPERSTEPS)
+    cs = _chip_smoke()
+    assert cs.GANG_PIN == dict(
+        makespan=GANG_BC_MAKESPAN, supersteps=GANG_BC_SUPERSTEPS,
+        exchanges=GANG_BC_EXCHANGES, instret=GANG_BC_INSTRET,
+        fabric_bytes=GANG_BC_FABRIC_BYTES)
+    cfg = FASE_FLEET_NET
+    kw = fleet_kwargs(cfg)
+    kw.pop("links", None)
+    fleet = FleetRuntime(
+        make_target=lambda: PySim(cfg["n_cores"], cfg["mem_bytes"]),
+        fabric=Switch(**net_kwargs(cfg)), **kw)
+    parts = jgraphgen.partition(jgraphgen.rmat(10, 4, weights=False), 4)
+    rep = fleet.run_gang(fleet.start_gang(GangJob(
+        [Job("bc", ["part.bin", "4", "1"], files={"part.bin": p})
+         for p in parts], superstep_ticks=40_000, halo_pages=4)))
+    assert dict(makespan=rep.makespan_ticks, supersteps=rep.supersteps,
+                exchanges=rep.exchanges,
+                instret=sum(sum(r.instret) for r in rep.reports),
+                fabric_bytes=rep.fabric["total_bytes"]) == cs.GANG_FULL
+    vk = fleet_kwargs(FASE_FLEET_VMAP)
+    tc = vk.pop("target_cfg")
+    vk.pop("fleet_vmap")
+    vk.pop("links", None)
+    fleet = FleetRuntime(
+        make_target=lambda: PySim(tc["n_cores"], tc["mem_bytes"]), **vk)
+    got = []
+    for d, seed in enumerate(cs.SYNC_SEEDS):
+        g = jgraphgen.rmat(10, 4, seed=seed, weights=True)
+        r = fleet.run_job(fleet.devices[d],
+                          Job("bc", ["g.bin", "4", "1"], files={"g.bin": g}))
+        got.append((r.report.ticks, sum(r.report.instret),
+                    r.report.traffic_total))
+    assert tuple(got) == cs.SYNC_FULL
+    # seed 42 is the full-width FASE_ROCKET_PCIE run
+    assert dict(zip(("ticks", "instret", "traffic"), got[0])) == \
+        cs.FULL_WIDTH[10]
+
+
+def test_fleet_artifact_constants_match_the_results():
+    """``chip_smoke.py``'s fleet_scale and migration pins are the numbers
+    of the checked-in ``results/fleet_scale.json`` and
+    ``results/migration.json``."""
+    import json
+    cs = _chip_smoke()
+    with open(ROOT / "results" / "fleet_scale.json") as f:
+        rows = json.load(f)["scale"]
+    assert {(r["link"], r["n_devices"]): r["makespan_ticks"]
+            for r in rows} == cs.FLEET_SCALE
+    assert {r["jobs"] for r in rows} == {8}
+    with open(ROOT / "results" / "migration.json") as f:
+        row = next(r for r in json.load(f)["migration"]
+                   if r["link"] == "pcie")
+    assert cs.MIGRATION_PCIE == dict(
+        baseline=row["baseline_ticks"], migrated=row["migrated_ticks"],
+        pages=row["full"]["pages"], src_bytes=row["full"]["src_bytes"],
+        dst_bytes=row["full"]["dst_bytes"])

@@ -288,6 +288,140 @@ def test_write_batch_staleness_then_a_chunk_on_the_card(cuda, seed):
     assert RC.run_chunk.launches > chunks
 
 
+# ---------------------------------------------------------------------------
+# the fleet chunk kernel (one CTA a board) and snapshots on the card
+# ---------------------------------------------------------------------------
+def _fleet_lockstep(progs, nc, budgets, seed, max_chunks=400, **kw):
+    """One program a board of a CUDA stack on the fleet kernel and of a
+    CPU stack on the eager flat form, global chunks with budgets drawn
+    per board from ``budgets`` (0 among them): every field of every
+    board and each board's substeps equal after every global chunk, and
+    every board of budget 0 untouched on the card.  Returns the CUDA
+    fleet."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    D = len(progs)
+    fleets = [FleetTarget(D, nc, 1 << 21, device=dev, **kw)
+              for dev in ("cuda", "cpu")]
+    for f in fleets:
+        for d, (src, mmu) in enumerate(progs):
+            _load(f.view(d), asm.assemble(src), nc, mmu)
+    rng = np.random.RandomState(seed)
+    for step in range(max_chunks):
+        b = [int(x) for x in rng.choice(budgets, D)]
+        before = state_to_numpy(fleets[0].sts)
+        for f in fleets:
+            f.run_global(b)
+        a, c = (state_to_numpy(f.sts) for f in fleets)
+        for name in a:
+            np.testing.assert_array_equal(a[name], c[name],
+                                          err_msg=f"chunk {step}: {name}")
+            for d in range(D):
+                if b[d] == 0:
+                    np.testing.assert_array_equal(
+                        a[name][d], before[name][d],
+                        err_msg=f"chunk {step}: board {d} of budget 0")
+        for d in range(D):
+            assert fleets[0].view(d).substeps == fleets[1].view(d).substeps
+        for f in fleets:
+            for d in range(D):
+                v = f.view(d)
+                for c in v.pending_cores():
+                    v.clear_pending(c)
+                    v.park(c)
+        if bool((fleets[1].sts.priv == 3).all()):
+            return fleets[0]
+    raise AssertionError("programs did not finish")
+
+
+@pytest.mark.parametrize("kw", FUZZ_CONFIGS,
+                         ids=["cache-dtlb8", "nocache-dtlb8", "cache-dtlb0",
+                              "nocache-dtlb0"])
+@pytest.mark.parametrize("seed", range(3))
+def test_fleet_kernel_equals_eager_flat_form_on_fuzz_programs(cuda, seed,
+                                                              kw):
+    """The fuzzer's programs, one a board of 3 (1/2/4 cores, MMU on/off),
+    on ``run_chunk_fleet``: one launch a global chunk."""
+    nc = (1, 2, 4)[seed % 3]
+    progs = [(fuzz_program(seed * 10 + d), (seed + d) % 3 != 1)
+             for d in range(3)]
+    launches = RC.run_chunk_fleet.launches
+    ft = _fleet_lockstep(progs, nc, (0, 61, 97, 379), seed, **kw)
+    assert RC.run_chunk_fleet.launches - launches == ft.dispatch_count > 0
+
+
+def test_fleet_kernel_equals_eager_flat_form_on_the_amo_table(cuda):
+    _fleet_lockstep([(amo_table_program(), True)] * 3, 1, (0, 7, 61), 1)
+
+
+def test_fleet_kernel_boards_are_shared_nothing(cuda):
+    """Each board of a CUDA stack after a global chunk of the fleet kernel
+    equals the same board run alone on a CUDA ``TorchTarget`` (the chunk
+    kernel) with the same budget, substeps included."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    D, nc = 3, 2
+    progs = [(fuzz_program(20 + d), d != 1) for d in range(D)]
+    ft = FleetTarget(D, nc, 1 << 21, device="cuda")
+    alone = [TorchTarget(nc, 1 << 21, device="cuda") for _ in range(D)]
+    for d, (src, mmu) in enumerate(progs):
+        for t in (ft.view(d), alone[d]):
+            _load(t, asm.assemble(src), nc, mmu)
+    rng = np.random.RandomState(2)
+    for step in range(400):
+        b = [int(x) for x in rng.choice((0, 61, 97, 379), D)]
+        subs = [ft.view(d).substeps for d in range(D)]
+        ft.run_global(b)
+        for d, t in enumerate(alone):
+            n = t.substeps
+            if b[d]:
+                t.run(max_cycles=b[d])
+            assert ft.view(d).substeps - subs[d] == t.substeps - n
+            _same_state(t, ft.view(d), f"chunk {step} board {d}")
+        for t in [ft.view(d) for d in range(D)] + alone:
+            for c in t.pending_cores():
+                t.clear_pending(c)
+                t.park(c)
+        if bool((ft.sts.priv == 3).all()):
+            return
+    raise AssertionError("programs did not finish")
+
+
+def test_snapshot_round_trips_on_the_card(cuda):
+    """A checkpoint of a CUDA ``TorchTarget`` restores into a CPU one and
+    into a board of a CUDA ``FleetTarget`` (and back), every field and
+    page equal, the same wire bytes per category."""
+    from repro_torch.core import snapshot as snap
+    from repro_torch.core.fleet.vmap import FleetTarget
+    img = asm.assemble(PROGRAM)
+
+    def cap(t):
+        ch = UartChannel()
+        s = snap.capture(session.HtpSession(t, ch), at=0)[0]
+        return s, dict(ch.bytes_by_cat)
+
+    def key(s):
+        zero = bytes(4096)
+        return (s.ticks, [(c.regs, c.csrs) for c in s.cores],
+                {p: v for p, v in s.effective_pages().items() if v != zero})
+    gpu = TorchTarget(4, 1 << 21, device="cuda")
+    _load(gpu, img, 4)
+    gpu.run(max_cycles=300)
+    s, wire = cap(gpu)
+    ft = FleetTarget(3, 4, 1 << 21, device="cuda")
+    targets = [TorchTarget(4, 1 << 21, device="cpu"), ft.view(1)]
+    for t in targets:
+        snap.restore(session.HtpSession(t, UartChannel()), s, at=0)
+        got, got_wire = cap(t)
+        assert key(got) == key(s) and got_wire == wire
+    back = TorchTarget(4, 1 << 21, device="cuda")
+    snap.restore(session.HtpSession(back, UartChannel()),
+                 cap(ft.view(1))[0], at=0)
+    for t in targets + [back, gpu]:
+        t.run(max_cycles=400)
+    keys = [key(cap(t)[0]) for t in targets + [back, gpu]]
+    assert all(k == keys[-1] for k in keys)
+    assert ft.view(0).get_ticks() == 0 == ft.view(2).get_ticks()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_equals_plain_version(cuda, dtype):
     from repro_torch.kernels.paged_attention import paged_attention as PA

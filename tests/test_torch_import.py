@@ -29,6 +29,11 @@ PORT_MODULES = [
     "repro_torch.training.data",
     "repro_torch.launch.train",
     "repro_torch.launch.steps",
+    "repro_torch.core.snapshot",
+    "repro_torch.telemetry.load",
+    "repro_torch.core.fleet",
+    "repro_torch.core.fleet.vmap",
+    "repro_torch.core.net",
 ]
 
 
@@ -123,15 +128,20 @@ def test_unported_surfaces_raise():
 
 
 def test_unported_serving_surfaces_raise():
-    """Fleet-sharded serving and the non-dense decode sublayers are later
-    slices (ROADMAP Queue A 7 and 9)."""
+    """The non-dense decode sublayers are a later slice (ROADMAP Queue A
+    9); fleet-sharded serving (Queue A 7) is ported, and an engine over a
+    fleet shards its slots across the boards."""
     import torch
     from repro_torch.configs import CONFIGS
+    from repro_torch.core.fleet import FleetRouter
+    from repro_torch.core.fleet.device import Device
     from repro_torch.models import core as M
     from repro_torch.serving.engine import ServeEngine
     cfg = CONFIGS["qwen3-8b"].smoke()
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        ServeEngine(cfg, {}, fleet=object(), device="cpu")
+    router = FleetRouter([Device(i, None) for i in range(2)])
+    eng = ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"), slots=4,
+                      max_seq=64, fleet=router, device="cpu")
+    assert eng._dev_slots == [(0, [0, 2]), (1, [1, 3])]
     moe = CONFIGS["llama4-scout-17b-a16e"].smoke()
     state = M.make_decode_state(cfg, 1, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A 9"):

@@ -250,10 +250,20 @@ def test_page_commands_reach_both_pools():
 
 
 def test_unported_and_default_device_surfaces():
+    """The engine defaults to the card; a fleet (ROADMAP Queue A 7, ported)
+    is taken, and refused beside an explicit session, as the reference
+    refuses it."""
+    from repro_torch.core.fleet import FleetRouter
+    from repro_torch.core.fleet.device import Device
     cfg = CONFIGS["qwen3-8b"].smoke()
     params = M.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        ServeEngine(cfg, params, fleet=object(), device="cpu")
+    router = FleetRouter([Device(i, None) for i in range(3)])
+    eng = ServeEngine(cfg, params, slots=4, fleet=router, device="cpu")
+    assert eng.router is router and eng.htp is None
+    assert eng._dev_slots == [(0, [0, 3]), (1, [1]), (2, [2])]
+    with pytest.raises(AssertionError, match="mutually exclusive"):
+        ServeEngine(cfg, params, fleet=router, device="cpu",
+                    htp_session=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(cfg, params)
