@@ -20,6 +20,15 @@ plain PyTorch version on the card, and drives the port's three paths:
   async queue pair) running GAPBS ``bc`` with 4 threads — against
   constants pinned from the pure-Python reference simulator; then
   CoreMark (``coremark 1``, 1 core, UART) against its pins;
+* telemetry (phase ``telemetry``): hello@UART and bc@PCIe with both
+  out-of-band bridges armed on both interpreter routes, the ring included
+  in the fields compared after every chunk; bc@PCIe on the chunk kernel's
+  traced instantiation under each capture-window trigger kind against the
+  port's PySim record for record (and an 8-slot ring's drops); the
+  full-width run armed (pins unchanged, the hub's report equal to PySim's
+  but for the backend model counters) and a lossless full-width capture
+  replayed against PySim with 0 divergences; traced against untraced
+  kernel time a substep and armed against unarmed wall;
 * the fleet (phase ``fleet``): run_synchronous of three jobs on a stacked
   ``FleetTarget`` on the fleet chunk kernel (one launch, one CTA a board,
   per global chunk) in lockstep with its eager flat form, every board's
@@ -138,6 +147,8 @@ REPLACES = {
     "run_chunk": "src/repro/core/target/cpu.py:1089",
     # no pallas_call: the reference's flat-fleet while_loop
     "run_chunk_fleet": "src/repro/core/target/cpu.py:1180",
+    # no pallas_call: the commit-trace ring of the reference's substep
+    "run_chunk_trace": "src/repro/core/target/cpu.py:1021",
     "paged_attention":
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
@@ -150,6 +161,7 @@ SOURCES = {
     "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
     "run_chunk": "src/repro_torch/csrc/run_chunk.cu",
     "run_chunk_fleet": "src/repro_torch/csrc/run_chunk.cu",
+    "run_chunk_trace": "src/repro_torch/csrc/run_chunk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
@@ -231,7 +243,18 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 #: losses after the restore against the uninterrupted run's
 RESTART_ATOL = 1e-6
 
-PHASES = ("kernel", "chunk", "full", "coremark", "fleet", "serve", "train")
+#: both out-of-band bridges armed: the reference's tier-1 golden-run
+#: telemetry (tests/test_telemetry.py ARMED)
+TELEM_ARMED = dict(counters=True, commit_trace=True, interval_ticks=50_000,
+                   trace_slots=256)
+#: the ring of the traced chunk kernel's timed chunk: the registry's
+#: telem_trace_slots (configs/registry.py FASE_ROCKET)
+TRACE_SLOTS = 4096
+#: a lossless capture's ring (telemetry/replay.py's default)
+CAPTURE_SLOTS = 1 << 15
+
+PHASES = ("kernel", "chunk", "full", "coremark", "telemetry", "fleet",
+          "serve", "train")
 
 
 def emit(obj):
@@ -796,12 +819,16 @@ def compare_states(torch, got, want, what):
             fail(f"{what}: {name} differs at {bad}")
 
 
-def routes_in_lockstep(torch, name, argv, pins, **kw):
+def routes_in_lockstep(torch, name, argv, pins, on_report=None, **kw):
     """``name`` on both routes of the interpreter: the chunk kernel first,
     each chunk's state kept on the card; then the eager loop with the
     standalone walk kernel, each chunk's state and substep count held
-    against the kernel route's.  Each route must hit ``pins``.  Returns
-    the launches each route made."""
+    against the kernel route's.  Each route must hit ``pins``, and
+    ``on_report(route, report)`` is called with each route's report.
+    With ``telemetry=`` in ``kw`` the ring is armed, the kernel route
+    launches the traced instantiation and every state field compared
+    includes ``tracebuf``/``trace_n``/``trace_armed``.  Returns the
+    launches each route made."""
     from repro_torch.core.interface import TorchTarget
     from repro_torch.kernels.page_walk import page_walk
     from repro_torch.kernels.run_chunk.run_chunk import run_chunk
@@ -837,10 +864,12 @@ def routes_in_lockstep(torch, name, argv, pins, **kw):
                                    fetch_kernel="kernel"))):
         with target_class(cls):
             run_chunk.launches = 0                  # just before the path
+            run_chunk.trace_launches = 0
             page_walk.walk_fetch_block.launches = 0
             rt, rep, wall = run_workload(name, argv, device="cuda",
                                          target_opts=opts, **kw)
             launches = dict(run_chunk=run_chunk.launches,
+                            run_chunk_trace=run_chunk.trace_launches,
                             walk_fetch_block=page_walk.walk_fetch_block
                             .launches)               # just after it
         tgt = rt.target
@@ -854,17 +883,22 @@ def routes_in_lockstep(torch, name, argv, pins, **kw):
         for k, v in pins.items():
             check(got[k] == v, f"{name} on the {route} route: {k} "
                   f"{got[k]!r} != {v!r}")
+        if on_report is not None:
+            on_report(route, rep)
+        traced = "telemetry" in kw
+        used, unused = (("run_chunk_trace", "run_chunk") if traced else
+                        ("run_chunk", "run_chunk_trace"))
         if route == "kernel":
             check(launches["walk_fetch_block"] == 0,
                   "the kernel route launched the standalone walk kernel")
-            check(launches["run_chunk"] == len(chunks) > 0,
-                  f"{launches['run_chunk']} chunk launches for "
-                  f"{len(chunks)} chunks")
+            check(launches[used] == len(chunks) > 0 and
+                  launches[unused] == 0,
+                  f"{launches} chunk launches for {len(chunks)} chunks")
         else:
             check(getattr(tgt, "chunks", 0) == len(chunks),
                   f"{name}: the eager route ran {getattr(tgt, 'chunks', 0)}"
                   f" chunks, the kernel route {len(chunks)}")
-            check(launches["run_chunk"] == 0,
+            check(launches["run_chunk"] == launches["run_chunk_trace"] == 0,
                   "the eager route launched the chunk kernel")
             check(launches["walk_fetch_block"] == tgt.substeps,
                   "the eager route did not walk once a substep")
@@ -1050,16 +1084,31 @@ def profile_window(torch, tgt, s_per_substep, out_dir, chunks=16):
     return out
 
 
-def phase_full(torch, scale, worst, latency, profile_dir):
-    from torch.profiler import ProfilerActivity, profile
+def full_width_drive(scale):
+    """The full-width run's driver: ``drive(telemetry, target)`` runs bc
+    4T on rmat(scale, 4) on FASE_ROCKET_PCIE."""
     from repro_torch.configs.fase_rocket import (runtime_kwargs,
                                                  target_kwargs)
     from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
-    from repro_torch.core.interface import TorchTarget
     from repro_torch.core.workloads import graphgen
+    from repro_torch.run import run_workload
+    g = graphgen.rmat(scale, 4, weights=True)
+
+    def drive(telemetry=None, target="torch"):
+        return run_workload(
+            "bc", ["g.bin", "4", "1"], mode="fase", n_cores=cfg["n_cores"],
+            mem=cfg["mem_bytes"], device="cuda", files={"g.bin": g},
+            target=target, telemetry=telemetry,
+            target_opts=target_kwargs(cfg) if target == "torch" else None,
+            **runtime_kwargs(cfg))
+    return drive, g
+
+
+def phase_full(torch, scale, worst, latency, profile_dir):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.interface import TorchTarget
     from repro_torch.kernels.page_walk import page_walk
     from repro_torch.kernels.run_chunk.run_chunk import run_chunk
-    from repro_torch.run import run_workload
 
     class Counting(TorchTarget):
         def run(self, max_cycles=1 << 62):
@@ -1067,13 +1116,7 @@ def phase_full(torch, scale, worst, latency, profile_dir):
             super().run(max_cycles)
 
     pins = FULL_WIDTH[scale]
-    g = graphgen.rmat(scale, 4, weights=True)
-
-    def drive():
-        return run_workload(
-            "bc", ["g.bin", "4", "1"], mode="fase", n_cores=cfg["n_cores"],
-            mem=cfg["mem_bytes"], device="cuda", files={"g.bin": g},
-            target_opts=target_kwargs(cfg), **runtime_kwargs(cfg))
+    drive, _ = full_width_drive(scale)
 
     torch.cuda.reset_peak_memory_stats()
     with target_class(Counting):
@@ -1152,6 +1195,381 @@ def phase_coremark(torch):
           "wall_s": round(wall, 3), "instr_per_s": got["instret"] / wall})
     check(got == COREMARK, f"CoreMark {got} != pinned {COREMARK}")
     check(launches > 0, "CoreMark never launched the run_chunk kernel")
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the commit-trace ring, the bridges, triggers and replay
+# ---------------------------------------------------------------------------
+def pysim_report(name, argv, **kw):
+    """``name`` on the port's PySim (the oracle) through run_workload."""
+    from repro_torch.run import run_workload
+    return run_workload(name, argv, mode="fase", target="pysim", **kw)
+
+
+def telemetry_goldens(torch):
+    """hello@UART and bc@PCIe 2T with both bridges armed on both routes,
+    every field (the ring included) equal after every chunk, the pins
+    held, every hello record drained, and each report equal to PySim's
+    but for the backend model counters."""
+    from repro_torch.core.workloads import graphgen
+    from repro_torch.telemetry import without_backend_counters
+    g = graphgen.rmat(4, 4, weights=True)
+    runs = (("hello", [], dict(ticks=HELLO_UART["ticks"],
+                               stdout=HELLO_UART["stdout"].decode()),
+             dict(n_cores=1, mem=1 << 22)),
+            ("bc", ["g.bin", "2", "1"], BC_PCIE,
+             dict(link="pcie", n_cores=2, mem=1 << 22, files={"g.bin": g})))
+    out = {}
+    for name, argv, pins, kw in runs:
+        reps = {}
+        launches, chunks = routes_in_lockstep(
+            torch, name, argv, pins,
+            on_report=lambda route, rep: reps.__setitem__(route, rep),
+            mode="fase", telemetry=dict(TELEM_ARMED), **kw)
+        _, want, _ = pysim_report(name, argv, telemetry=dict(TELEM_ARMED),
+                                  **kw)
+        for route, rep in reps.items():
+            tel = rep.telemetry
+            ct = tel["commit_trace"]
+            check(tel["stream"]["dropped_frames"] == 0 and
+                  sum(ct["records"]) > 0,
+                  f"{name} armed on the {route} route: {tel['stream']}")
+            if name == "hello":
+                check(sum(ct["records"]) == sum(rep.instret) and
+                      sum(ct["ring_dropped"]) == 0,
+                      f"hello armed on the {route} route: records "
+                      f"{ct['records']} != instret {rep.instret}")
+            check(without_backend_counters(tel) ==
+                  without_backend_counters(want.telemetry),
+                  f"{name} armed on the {route} route: the telemetry "
+                  f"report differs from PySim's")
+        out[name] = dict(chunks=chunks, launches=launches,
+                         records=reps["kernel"].telemetry[
+                             "commit_trace"]["records"],
+                         ring_dropped=reps["kernel"].telemetry[
+                             "commit_trace"]["ring_dropped"],
+                         frames=reps["kernel"].telemetry["stream"]["frames"])
+    return out
+
+
+def telemetry_triggers(torch):
+    """bc@PCIe 2T on the traced chunk kernel under each trigger kind: a
+    lossless capture equal to the port's PySim's record for record, and
+    an 8-slot ring whose records and drops equal PySim's."""
+    from repro_torch.core.workloads import graphgen
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    from repro_torch.run import run_workload
+    from repro_torch.telemetry import capture_commit_trace
+    g = graphgen.rmat(4, 4, weights=True)
+    argv = ["g.bin", "2", "1"]
+    kw = dict(n_cores=2, mem=1 << 22, files={"g.bin": g}, link="pcie")
+    full, _ = capture_commit_trace("bc", argv, target="pysim", **kw)
+    r0 = full[0]
+    n = len(r0)
+    specs = {"pc": ("pc", r0[n // 4][1], r0[n // 2][1]),
+             "inst": ("inst", r0[n // 3][2], r0[2 * n // 3][2]),
+             "tick": ("tick", r0[n // 4][0], r0[n // 2][0]),
+             "instret": ("instret", n // 2)}
+    out = {}
+    for kind, spec in specs.items():
+        want, _ = capture_commit_trace("bc", argv, target="pysim",
+                                       trigger=spec, **kw)
+        traced = run_chunk.trace_launches
+        got, rep = capture_commit_trace(
+            "bc", argv, target="torch", target_opts=dict(device="cuda"),
+            trigger=spec, **kw)
+        check(run_chunk.trace_launches > traced,
+              f"trigger {kind}: the traced kernel was not launched")
+        n_got = sum(len(r) for r in got)
+        check(got == want, f"trigger {kind}: the capture differs from "
+              f"PySim's ({n_got} records against "
+              f"{sum(len(r) for r in want)})")
+        check(0 < n_got < sum(rep.instret),
+              f"trigger {kind}: {n_got} records is not a window")
+        small = dict(counters=False, commit_trace=True, trace_slots=8,
+                     trigger=spec)
+        rt_t, rep_t, _ = run_workload("bc", argv, mode="fase",
+                                      device="cuda", telemetry=dict(small),
+                                      **kw)
+        rt_p, _, _ = pysim_report("bc", argv, telemetry=dict(small), **kw)
+        ct, cp = rt_t.telemetry.commit, rt_p.telemetry.commit
+        check(ct.ring_dropped == cp.ring_dropped and
+              ct.records == cp.records and rep_t.ticks == BC_PCIE["ticks"],
+              f"trigger {kind} on an 8-slot ring: dropped "
+              f"{ct.ring_dropped} != PySim's {cp.ring_dropped}")
+        out[kind] = dict(spec=list(spec), records=n_got,
+                         ring8_records=sum(len(r) for r in ct.records),
+                         ring8_dropped=ct.ring_dropped)
+    check(sum(sum(v["ring8_dropped"]) for v in out.values()) > 0,
+          "no 8-slot ring dropped a record")
+    return out
+
+
+def telemetry_full_width(torch, scale):
+    """The full-width run with both bridges armed (the registry's lane,
+    ``telemetry_kwargs``, plus the commit-trace bridge) as the phase's
+    main path: the pins unchanged, one traced launch a chunk, the hub's
+    report equal to PySim's but for the backend model counters.  Then
+    walls unarmed/armed in turns, and a lossless capture replayed
+    against PySim."""
+    from repro_torch.configs.fase_rocket import (target_kwargs,
+                                                 telemetry_kwargs)
+    from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.kernels.page_walk import page_walk
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.telemetry import (capture_commit_trace, replay_trace,
+                                       without_backend_counters)
+
+    class Draining(TorchTarget):
+        """Counts its chunks and times its drains (the ring's copy to the
+        host and the records built from it)."""
+        def run(self, max_cycles=1 << 62):
+            self.runs = getattr(self, "runs", 0) + 1
+            super().run(max_cycles)
+
+        def trace_drain(self, c=None, limit=None):
+            t0 = time.perf_counter()
+            try:
+                return super().trace_drain(c, limit)
+            finally:
+                self.drain_s = getattr(self, "drain_s", 0.0) + \
+                    time.perf_counter() - t0
+
+    pins = FULL_WIDTH[scale]
+    drive, g = full_width_drive(scale)
+    armed = dict(telemetry_kwargs(cfg), commit_trace=True)
+    with target_class(Draining):
+        run_chunk.launches = run_chunk.trace_launches = 0   # just before
+        page_walk.walk_fetch_block.launches = 0
+        rt, rep, wall = drive(dict(armed))
+        launches = dict(run_chunk=run_chunk.launches,       # just after
+                        run_chunk_trace=run_chunk.trace_launches,
+                        walk_fetch_block=page_walk.walk_fetch_block
+                        .launches)
+    tgt = rt.target
+    got = dict(ticks=rep.ticks, instret=sum(rep.instret),
+               traffic=rep.traffic_total)
+    check(got == pins, f"full width armed: {got} != pinned {pins}")
+    check(launches["run_chunk_trace"] == tgt.runs > 0 and
+          launches["run_chunk"] == launches["walk_fetch_block"] == 0,
+          f"full width armed: launches {launches} for {tgt.runs} chunks")
+    tel = rep.telemetry
+    t0 = time.time()
+    _, want, _ = drive(dict(armed), target="pysim")
+    pysim_s = time.time() - t0
+    check(without_backend_counters(tel) ==
+          without_backend_counters(want.telemetry),
+          "full width armed: the hub's report differs from PySim's")
+    ct = tel["commit_trace"]
+    # walls in turns: unarmed, armed, armed, unarmed
+    walls = {"unarmed": [], "armed": []}
+    for label in ("unarmed", "armed", "armed", "unarmed"):
+        with target_class(Draining):
+            r2, rep2, w = drive(dict(armed) if label == "armed" else None)
+        check(rep2.ticks == pins["ticks"], f"full width {label}: ticks")
+        walls[label].append(dict(wall_s=w, chunks=r2.target.runs,
+                                 drain_s=getattr(r2.target, "drain_s", 0.0)))
+    # the chunk kernel's device time a run, unarmed and armed, from one
+    # profiled run each: the host's share of a chunk is the wall less it
+    kern_us = {}
+    for label in ("unarmed", "armed"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, rep3, _ = drive(dict(armed) if label == "armed" else None)
+            torch.cuda.synchronize()
+        check(rep3.ticks == pins["ticks"], f"profiled {label}: ticks")
+        kern_us[label] = sum(e.self_device_time_total
+                             for e in device_events(prof.key_averages())
+                             if "run_chunk" in e.key)
+    # a lossless capture at full width, replayed against PySim
+    t0 = time.time()
+    recs, rep_c = capture_commit_trace(
+        "bc", ["g.bin", "4", "1"], target="torch",
+        target_opts=dict(target_kwargs(cfg), device="cuda"),
+        n_cores=cfg["n_cores"], mem=cfg["mem_bytes"], files={"g.bin": g},
+        link="pcie", slots=CAPTURE_SLOTS)
+    capture_s = time.time() - t0
+    n_recs = sum(len(r) for r in recs)
+    check(n_recs == sum(rep_c.instret),
+          f"full-width capture: {n_recs} records for {sum(rep_c.instret)} "
+          f"retirements")
+    t0 = time.time()
+    div = replay_trace(recs, "bc", ["g.bin", "4", "1"],
+                       n_cores=cfg["n_cores"], mem=cfg["mem_bytes"],
+                       files={"g.bin": g}, link="pcie", slots=CAPTURE_SLOTS)
+    replay_s = time.time() - t0
+    check(div == [], f"full-width replay: {len(div)} divergence(s): "
+          f"{[str(d) for d in div[:2]]}")
+
+    def mean(label, key):
+        return sum(w[key] for w in walls[label]) / len(walls[label])
+
+    def host_ms(label):
+        return (mean(label, "wall_s") * 1e6 - kern_us[label]) / \
+            mean(label, "chunks") / 1e3
+    return dict(
+        config="FASE_ROCKET_PCIE", workload=f"bc 4T rmat({scale},4)",
+        telemetry=armed, **got, chunks=tgt.runs, launches=launches,
+        wall_s=wall, records=sum(ct["records"]),
+        ring_dropped=sum(ct["ring_dropped"]),
+        frames=tel["stream"]["frames"],
+        per_bridge=tel["stream"]["per_bridge"],
+        samples=len(tel["counters"]["samples"]),
+        drain_s=getattr(tgt, "drain_s", 0.0), pysim_s=pysim_s,
+        walls=walls, wall_unarmed_s=mean("unarmed", "wall_s"),
+        wall_armed_s=mean("armed", "wall_s"),
+        wall_ms_per_chunk_unarmed=1e3 * mean("unarmed", "wall_s") /
+        mean("unarmed", "chunks"),
+        wall_ms_per_chunk_armed=1e3 * mean("armed", "wall_s") /
+        mean("armed", "chunks"),
+        run_chunk_device_us_unarmed=kern_us["unarmed"],
+        run_chunk_device_us_armed=kern_us["armed"],
+        host_ms_per_chunk_outside_kernel_unarmed=host_ms("unarmed"),
+        host_ms_per_chunk_outside_kernel_armed=host_ms("armed"),
+        capture_records=n_recs, capture_s=capture_s, replay_s=replay_s,
+        divergences=len(div))
+
+
+def time_run_chunk_trace(torch, latency):
+    """The traced instantiation against its plain version (the eager loop
+    with the ring) on one ``CHUNK_CYCLES``-tick chunk of the guest loop
+    at the full-width shape, from the same state, ring armed with
+    ``TRACE_SLOTS`` rows; then untraced and traced back to back in turns
+    (untraced, traced, traced, untraced), by CUDA events and by the
+    profiler's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.fase_rocket import target_kwargs
+    from repro_torch.configs.registry import FASE_ROCKET_PCIE as cfg
+    from repro_torch.core.target import cpu
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    t = loop_target(torch, cfg["n_cores"], cfg["mem_bytes"],
+                    **target_kwargs(cfg))
+    t.run(max_cycles=CHUNK_CYCLES)                   # past the start-up
+    t.trace_arm(TRACE_SLOTS)
+    snap = {k: v.clone() for k, v in state_fields(t.st).items()}
+
+    def chunk(route, trace):
+        return cpu.run_chunk_fast(
+            t.st, t.nc, t.mem_bytes, CHUNK_CYCLES, t.issue_width,
+            t.block_words, t.block_cache, t.fetch_kernel, trace, None,
+            dtlb_ways=t.dtlb_ways, chunk_kernel=route)
+
+    trips0 = run_chunk.trips
+    sub_k = chunk("kernel", True)
+    trips = run_chunk.trips - trips0
+    got = {k: v.clone() for k, v in state_fields(t.st).items()}
+    captured = int((got["trace_n"] - snap["trace_n"]).sum())
+    for k, v in snap.items():
+        getattr(t.st, k).copy_(v)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sub_r = chunk("ref", True)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    check(sub_k == sub_r, f"traced chunk: substeps {sub_k} != {sub_r}")
+    compare_states(torch, got, state_fields(t.st), "traced chunk")
+    check(captured == int(got["instret"].sum() - snap["instret"].sum()) > 0,
+          f"traced chunk: {captured} records for the chunk's retirements")
+    ms = {}
+    for label in ("untraced", "traced", "traced2", "untraced2"):
+        ms[label] = time_ms(torch, lambda: chunk("kernel",
+                                                 "untraced" not in label),
+                            50, warmup=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            chunk("kernel", False)
+            chunk("kernel", True)
+        torch.cuda.synchronize()
+    dev = {}
+    for e in device_events(prof.key_averages()):
+        if "run_chunk_kernel" in e.key:
+            key = "traced" if "<true>" in e.key else "untraced"
+            dev[key] = e.self_device_time_total / e.count / 1e3
+    check(set(dev) == {"traced", "untraced"},
+          f"profile: the two instantiations were not both traced: {dev}")
+    ring_bytes = t.st.tracebuf.numel() * 8
+    nbytes = 2 * (state_bytes(t.st) - ring_bytes) + 32 * captured
+    return dict(
+        shape=dict(W=int(t.st.mem.shape[0]), L=t.nc,
+                   chunk_cycles=CHUNK_CYCLES, substeps=sub_k,
+                   slots=TRACE_SLOTS, records=captured),
+        ms=(ms["traced"] + ms["traced2"]) / 2,
+        untraced_ms=(ms["untraced"] + ms["untraced2"]) / 2, turns_ms=ms,
+        device_ms=dev["traced"], untraced_device_ms=dev["untraced"],
+        us_per_substep=dev["traced"] * 1e3 / sub_k,
+        untraced_us_per_substep=dev["untraced"] * 1e3 / sub_k,
+        traced_over_untraced=dev["traced"] / dev["untraced"],
+        plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        round_trips=trips,
+        latency_bound_ms=trips * latency["page_ns"] * 1e-6,
+        max_abs_err=0.0)
+
+
+def telemetry_clis(torch):
+    """``python -m repro_torch.telemetry`` and ``python -m
+    repro_torch.analysis`` at their defaults, which put the targets on
+    the card: the hello timeline (every event equal to the eager loop's
+    on the CPU: the routes keep every counter equal) and the quick
+    analysis gate with 0 findings."""
+    import contextlib
+    import io
+    from repro_torch.analysis.cli import main as analysis_main
+    from repro_torch.kernels.run_chunk.run_chunk import run_chunk
+    from repro_torch.telemetry.__main__ import _timeline_solo
+    from repro_torch.telemetry.__main__ import main as telemetry_main
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "timeline_hello.json")
+        traced = run_chunk.trace_launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_t = telemetry_main(["timeline", "hello", "--out", out])
+            rc_v = telemetry_main(["validate", out])
+        check(rc_t == rc_v == 0 and run_chunk.trace_launches > traced,
+              f"telemetry timeline hello on the card: rc {rc_t}/{rc_v}: "
+              f"{buf.getvalue()[-400:]}")
+    card = _timeline_solo("hello", "pcie", True, "cuda")["traceEvents"]
+    host = _timeline_solo("hello", "pcie", True, "cpu")["traceEvents"]
+    check(card == host, "the hello timeline on the card differs from the "
+          "eager loop's on the CPU")
+    t0 = time.time()
+    launched = run_chunk.launches + run_chunk.trace_launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["gate", "--quick"])
+    text = buf.getvalue()
+    check(rc == 0 and "race: 0 finding(s)" in text and
+          "lint: 0 finding(s)" in text and
+          run_chunk.launches + run_chunk.trace_launches > launched,
+          f"analysis gate --quick on the card: rc {rc}: {text[-600:]}")
+    return dict(timeline_events=len(card), gate_rc=rc,
+                gate_s=round(time.time() - t0, 1),
+                gate=[ln for ln in text.splitlines() if ": " in ln])
+
+
+def phase_telemetry(torch, scale, latency):
+    t0 = time.time()
+    goldens = telemetry_goldens(torch)
+    emit({"phase": "telemetry_goldens", "telemetry": TELEM_ARMED,
+          "fields_equal_after_every_chunk": True, "tolerance": 0,
+          **goldens, "seconds": round(time.time() - t0, 1)})
+    t1 = time.time()
+    triggers = telemetry_triggers(torch)
+    emit({"phase": "telemetry_triggers", "workload": "bc@pcie 2T",
+          "route": "kernel", "equal_to_pysim": True, **triggers,
+          "seconds": round(time.time() - t1, 1)})
+    t1 = time.time()
+    full = telemetry_full_width(torch, scale)
+    emit({"phase": "telemetry_full_width", "route": "kernel", **full,
+          "seconds": round(time.time() - t1, 1)})
+    timing = time_run_chunk_trace(torch, latency)
+    emit({"phase": "run_chunk_trace_timing", **timing})
+    t1 = time.time()
+    clis = telemetry_clis(torch)
+    emit({"phase": "telemetry_clis", "device": "cuda", **clis,
+          "seconds": round(time.time() - t1, 1)})
+    emit({"phase": "telemetry", "seconds": round(time.time() - t0, 1)})
+    return full["launches"]["run_chunk_trace"], timing
 
 
 # ---------------------------------------------------------------------------
@@ -2470,7 +2888,7 @@ def main():
     kernels = []
     if "kernel" in args.only:
         errs = phase_kernel(torch, dev)
-    if {"kernel", "full", "fleet"} & set(args.only):
+    if {"kernel", "full", "telemetry", "fleet"} & set(args.only):
         from repro_torch.configs.registry import FASE_ROCKET_PCIE
         latency = phase_latency(torch, dev, FASE_ROCKET_PCIE["mem_bytes"] // 8)
     walk_launches = None
@@ -2507,6 +2925,26 @@ def main():
                     "run_chunk"})
     if "coremark" in args.only:
         phase_coremark(torch)
+    if "telemetry" in args.only:
+        launches, c = phase_telemetry(torch, args.scale, latency)
+        kernels.append({
+            "name": "run_chunk_trace", "route": "cuda",
+            "source": SOURCES["run_chunk_trace"],
+            "replaces": REPLACES["run_chunk_trace"], "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms": c["device_ms"],
+            "untraced_device_ms": c["untraced_device_ms"],
+            "us_per_substep": c["us_per_substep"],
+            "untraced_us_per_substep": c["untraced_us_per_substep"],
+            "round_trips": c["round_trips"],
+            "latency_bound_ms": c["latency_bound_ms"],
+            "load_latency_ns": latency, "shape": c["shape"],
+            "note": "no pallas_call: the traced instantiation of run_chunk "
+                    "(run_chunk_kernel<true>), the commit-trace ring of the "
+                    "reference's substep; launches are the full-width armed "
+                    "run's, one a chunk"})
     if "fleet" in args.only:
         launches, c = phase_fleet(torch, latency)
         kernels.append({

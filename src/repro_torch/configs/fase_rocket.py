@@ -46,8 +46,8 @@ _TELEM_RENAMED = {"telem_interval_ticks": "interval_ticks",
 
 
 def telemetry_kwargs(cfg: dict = FASE_ROCKET) -> dict:
-    """Keyword surface of :class:`~repro.telemetry.TelemetryHub` from a
-    registry target config — pass as ``FaseRuntime(telemetry=...)`` (or
+    """Keyword surface of :class:`~repro_torch.telemetry.TelemetryHub` from
+    a registry target config — pass as ``FaseRuntime(telemetry=...)`` (or
     inside ``FleetRuntime``'s ``runtime_kwargs``) to arm the bridges
     with the config's provisioned lane."""
     return {new: cfg[old] for old, new in _TELEM_RENAMED.items()

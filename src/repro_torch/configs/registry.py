@@ -4,10 +4,10 @@ configurations of the paper's own system (FASE on Rocket).
 The language-model entries are shape constants only: no weights exist
 for them, and :func:`repro_torch.models.core.init_params` makes seeded
 random ones.  The serving path runs the dense entries; the MoE, hybrid
-and xLSTM sublayers are not ported yet.  The fleet, fabric and telemetry
-knobs of the ``FASE_*`` entries are carried so the entries stay
-key-for-key comparable with the reference; the modules they configure
-are not ported yet.
+and xLSTM sublayers are not ported yet.  The ``FASE_*`` entries carry
+the target, fleet, fabric and telemetry knobs key for key with the
+reference; the modules they configure (``core/fleet``, ``core/net``,
+``telemetry``) are ported.
 """
 from __future__ import annotations
 
@@ -86,7 +86,7 @@ xlstm_350m = _add(ModelConfig(
 # setting is bit-identical to the reference.  The port has the fast path
 # alone, so there is no target_fast_path knob.
 # The telem_* knobs provision the out-of-band telemetry lane
-# (repro.telemetry in the reference): counter-sample cadence, the fraction of link
+# (repro_torch.telemetry): counter-sample cadence, the fraction of link
 # bandwidth the side-band lane is granted, the commit-trace ring depth
 # per hart, and the backlog bound past which frames are dropped.
 # Telemetry is armed per-run (FaseRuntime's ``telemetry=`` kwarg via

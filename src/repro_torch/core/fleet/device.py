@@ -89,8 +89,10 @@ class Device:
         # island devices.  Propagated onto every queue pair so the
         # telemetry counter bridge can surface per-port fabric counters.
         self.nic = None
-        # fleet-wide analysis trace of the reference (repro.analysis); the
-        # port has no analysis package yet, so it stays None
+        # analysis trace (repro_torch.analysis.trace.HtpTrace) armed
+        # fleet-wide by attach_trace; every queue pair this device
+        # provisions feeds it under a (device_id, stream)-prefixed ordering
+        # domain
         self.trace = None
         # online load signal (repro_torch.telemetry.load): fed by the counter
         # bridge of each job's telemetry hub via the session backref
@@ -139,9 +141,13 @@ class Device:
             self._session = HtpSession(target, ch, hf,
                                        direct_mode=self.direct_mode)
         if self.trace is not None:
-            raise NotImplementedError(
-                "fleet-wide hazard tracing (the reference's analysis "
-                "package) is not ported to repro_torch yet")
+            # fleet-wide hazard tracing survives re-provisioning: the
+            # fresh queue pair (a migration destination, a re-imaged
+            # board) feeds the same trace under this device's prefix
+            from ...analysis.trace import TraceRecorder, session_is_serial
+            self._session.trace = TraceRecorder(
+                self.trace, session_is_serial(self._session),
+                device=self.id)
         self._session.nic = self.nic
         # backref for the telemetry counter bridge: samples taken on
         # this queue pair feed the owning device's load estimator

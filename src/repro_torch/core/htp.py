@@ -94,7 +94,8 @@ _add("Tick", "perf", 1, WORD, 1)
 _add("UTick", "perf", 2, WORD, 1)
 
 # ---------------------------------------------------------------------------
-# Out-of-band telemetry (AutoCounter/TracerV-style bridges, repro.telemetry).
+# Out-of-band telemetry (AutoCounter/TracerV-style bridges,
+# repro_torch.telemetry).
 # These requests ride the dedicated low-priority "telem" stream with its own
 # modelled bandwidth budget — they are *timed but non-perturbing*: the wire
 # model charges them on the telemetry lane, never on the Layer-A/Layer-B
@@ -102,9 +103,9 @@ _add("UTick", "perf", 2, WORD, 1)
 # ---------------------------------------------------------------------------
 #: per-hart counters one CtrSample frame carries, in frame order.  The
 #: first four are architectural (bit-identical across backends, the
-#: counter-identity tests pin PySim == JaxTarget); the last two are
-#: backend model counters (fetch-block cache on the jitted fast path,
-#: data-TLB walks on PySim) and read 0 on the other backend.
+#: counter-identity tests pin PySim == TorchTarget); the last two are
+#: backend model counters (the tensor target's fetch-block cache, each
+#: backend's own data-TLB walks) and may differ between backends.
 TELEM_COUNTERS = ("instret", "uticks", "stall_ticks",
                   "trace_n", "fetch_hits", "tlb_walks")
 #: commit records per TraceB frame (fixed frame: 4 words per record)
@@ -215,7 +216,7 @@ def page_hash(words) -> int:
 
 # Internal consistency of these tables (payload parity, documented
 # response sizes, direct-baseline coverage) is checked by the shared
-# protocol linter — ``repro.analysis.lint.lint_specs`` — which the test
-# suite and the CI ``analysis-gate`` run on every change, replacing the
+# protocol linter — ``repro_torch.analysis.lint.lint_specs`` — which the
+# test suite and the CI ``analysis-gate`` run on every change, replacing the
 # import-time assert block that used to live here (and its sibling copy
 # in ``serving/htp.py``).

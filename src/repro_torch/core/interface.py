@@ -25,8 +25,6 @@ import torch
 from .target import cpu as _cpu
 from .target.u64 import M64
 
-_TRACE_MSG = "the commit-trace ring is not ported to repro_torch yet"
-
 
 class Target(Protocol):
     """Host-visible surface of a FASE-instrumented target processor."""
@@ -93,6 +91,11 @@ class TorchTarget:
         CPU image) or ``"ref"`` (the plain version, asked for by name),
       * ``dtlb_ways`` — per-lane data-translation cache ways (power of
         2; 0 disables and re-walks every load/store).
+
+    The commit-trace ring (``trace_arm`` / ``trace_trigger`` /
+    ``trace_drain``) is recorded at the retire point by either route —
+    on the card by the traced instantiation of the chunk kernel — and
+    drained on the host from a mirror fetched in one transfer per chunk.
     """
 
     def __init__(self, n_cores: int, mem_bytes: int,
@@ -130,6 +133,13 @@ class TorchTarget:
         self.dtlb_ways = dtlb_ways
         self.chunk_kernel = chunk_kernel
         self.substeps = 0            # interpreter substeps issued so far
+        self.trace_slots = 0         # commit-trace ring, off by default
+        self._trace_base: list = []  # records drained so far, per hart
+        self._trigger: tuple | None = None   # capture-window predicate
+        #: host copy of the ring (:meth:`_trace_mirror`): the trace_n
+        #: tensor and the substep count it was taken at, trace_n as ints,
+        #: the ring as a ``(nc, slots, 4)`` uint64 array
+        self._trace_host = None
         self.st = _cpu.make_state(n_cores, mem_bytes, device=self.device)
 
     # -- inst stream ------------------------------------------------------
@@ -139,9 +149,11 @@ class TorchTarget:
 
     def run(self, max_cycles: int = 1 << 62):
         budget = min(max_cycles, self.chunk_cycles)
+        trace_on = self.trace_slots > 0
         self.substeps += _cpu.run_chunk_fast(
             self.st, self.nc, self.mem_bytes, budget, self.issue_width,
             self.block_words, self.block_cache, self.fetch_kernel,
+            trace_on, self._trigger if trace_on else None,
             dtlb_ways=self.dtlb_ways, chunk_kernel=self.chunk_kernel)
 
     def redirect(self, c, pc, resume_tick=0):
@@ -237,12 +249,80 @@ class TorchTarget:
     def get_instret(self, c):
         return int(self.st.instret[c]) & M64
 
-    # -- commit-trace ring: waits for the telemetry slice ---------------------
+    # -- telemetry: commit-trace ring (repro_torch.telemetry) ----------------
     def trace_arm(self, slots):
-        raise NotImplementedError(_TRACE_MSG)
+        """Arm per-core commit-trace capture: a fresh ``(nc, slots, 4)``
+        ring on the state's device, ``trace_n`` and ``trace_armed`` at
+        0, so the next ``run`` records every retirement (on the card
+        through the kernel's traced instantiation)."""
+        if slots <= 0:
+            raise ValueError(f"trace_arm: slots must be positive, got "
+                             f"{slots}")
+        self.trace_slots = slots
+        dev = self.st.device
+        self.st.tracebuf = torch.zeros((self.nc, slots, 4),
+                                       dtype=torch.int64, device=dev)
+        self.st.trace_n = torch.zeros((self.nc,), dtype=torch.int64,
+                                      device=dev)
+        self.st.trace_armed = torch.zeros((self.nc,), dtype=torch.bool,
+                                          device=dev)
+        self._trace_base = [0] * self.nc
+        self._trace_host = None
 
     def trace_trigger(self, spec):
-        raise NotImplementedError(_TRACE_MSG)
+        """Install (or clear, ``None``) the capture-window predicate — a
+        trigger spec tuple (:mod:`repro_torch.telemetry.triggers`) that
+        gates which retirements enter the ring, never the step.
+        Arm/disarm state rewinds to disarmed."""
+        self._trigger = None if spec is None else tuple(spec)
+        self.st.trace_armed = torch.zeros_like(self.st.trace_armed)
 
     def trace_drain(self, c=None, limit=None):
-        raise NotImplementedError(_TRACE_MSG)
+        """Drain commit-trace rings, mirroring
+        :meth:`repro_torch.core.target.pysim.PySim.trace_drain` bit for
+        bit: ``(records, ring_dropped)`` per hart (a list over the harts
+        for ``c=None``).  ``limit`` caps the records taken per hart: the
+        rest stay in the ring (a stalled bridge leaves records behind,
+        and later overwrites surface as ``ring_dropped``).  Drops are
+        derived from the monotone ``trace_n``.  Every drain between two
+        chunks is served from one host copy of ``trace_n`` and the ring,
+        fetched in one transfer at the first drain after a chunk."""
+        if self.trace_slots == 0:     # unarmed: nothing to drain
+            return ([], 0) if c is not None else [([], 0)] * self.nc
+        totals, ring = self._trace_mirror()
+        if c is None:
+            return [self._drain_host(ring[i], totals[i], i, limit)
+                    for i in range(self.nc)]
+        return self._drain_host(ring[c], totals[c], c, limit)
+
+    def _trace_mirror(self):
+        """``trace_n`` (ints) and the ring (a ``(nc, slots, 4)`` uint64
+        array) as of the last chunk, fetched at most once a chunk, in one
+        transfer of ``trace_n`` and the whole ring."""
+        st = self.st
+        h = self._trace_host
+        if h is not None and h["n"] is st.trace_n and \
+                h["substeps"] == self.substeps:
+            return h["totals"], h["ring"]
+        nc = self.nc
+        flat = torch.cat([st.trace_n, st.tracebuf.reshape(-1)]) \
+            .cpu().numpy().view(np.uint64)
+        totals = flat[:nc].tolist()
+        ring = flat[nc:].reshape(nc, self.trace_slots, 4)
+        self._trace_host = dict(n=st.trace_n, substeps=self.substeps,
+                                totals=totals, ring=ring)
+        return totals, ring
+
+    def _drain_host(self, ring, total, c, limit=None):
+        slots = self.trace_slots
+        base = self._trace_base[c]
+        n_new = total - base
+        dropped = max(0, n_new - slots)
+        avail_start = base + dropped      # oldest record still in the ring
+        take = total - avail_start
+        if limit is not None:
+            take = min(take, limit)
+        rows = np.arange(avail_start, avail_start + take) % slots
+        recs = list(zip(*ring[rows].T.tolist()))
+        self._trace_base[c] = avail_start + take
+        return recs, dropped

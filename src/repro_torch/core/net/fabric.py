@@ -19,7 +19,7 @@ tick-identical to one without (the switch-disabled identity contract in
 
 Per-port counters (``Port.counters``) feed the telemetry satellite:
 ``link_util`` (serialisation ticks / horizon) and ``credit_stalls``
-surface through the reference's ``repro.telemetry.bridges.CounterBridge``
+surface through :class:`repro_torch.telemetry.bridges.CounterBridge`
 samples and the per-port rows of ``benchmarks/stall_attribution.py``.
 """
 from __future__ import annotations

@@ -7,8 +7,8 @@ shootdowns — as timed, token-fenced HTP transactions whose wire time is
 charged on the fabric (flit serialisation + crossbar latency + credit
 stalls), never on the device's host link.
 
-The discipline mirrors the telemetry lane (the reference's
-``repro.telemetry.stream.TelemStream``): NIC transactions apply
+The discipline mirrors the telemetry lane
+(:class:`repro_torch.telemetry.stream.TelemStream`): NIC transactions apply
 their functional effects through ``session._apply`` and are recorded in
 the session's hazard trace under a dedicated always-concurrent ordering
 domain (``"nic"``, device-prefixed in a fleet), but they never touch the

@@ -128,12 +128,12 @@ class FaseRuntime:
         # iteration so background (e.g. Layer-B serving) traffic can be
         # injected onto this runtime's shared link
         self.traffic_hook = traffic_hook
-        # out-of-band telemetry (repro.telemetry): a TelemetryHub kwargs
-        # dict (or a ready hub) armed over this runtime's session; pumped
-        # after every target chunk, flushed + reported by finish()
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry is not ported to repro_torch yet")
+        # out-of-band telemetry (repro_torch.telemetry): a TelemetryHub
+        # kwargs dict (or a ready hub) armed over this runtime's session;
+        # pumped after every target chunk, flushed + reported by finish()
+        if telemetry is not None and not hasattr(telemetry, "pump"):
+            from ...telemetry import TelemetryHub   # local: no cycle
+            telemetry = TelemetryHub(self.session, **telemetry)
         self.telemetry = telemetry
         self.alloc = PageAllocator(target.mem_bytes)
         self.vm = VirtualMemory(self.session, self.alloc,

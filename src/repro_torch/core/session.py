@@ -269,8 +269,8 @@ class HtpSession:
         self.ctrl_serialize = ctrl_serialize
         self._ctrl_free: dict = {}       # hart -> controller-slice free tick
         self.stats = SessionStats()
-        # analysis trace hook (repro.analysis.trace.TraceRecorder).  None
-        # by default: the only cost of the disabled hook is one
+        # analysis trace hook (repro_torch.analysis.trace.TraceRecorder).
+        # None by default: the only cost of the disabled hook is one
         # ``is not None`` test per submit, so golden ticks and wall-clock
         # are untouched.  ``_trace_suspend`` lets the async layer delegate
         # to this submit without double-recording.

@@ -159,14 +159,16 @@ def capture(session, at: int = 0, pages: list | None = None,
     ``barrier=False`` drops the tail-token fence against in-flight
     per-hart streams.  That is a protocol violation — the capture may
     race an in-flight fault batch — kept only as a seeded-hazard hook
-    for the analyzer's corpus (``repro.analysis``), which must flag it.
+    for the analyzer's corpus (``repro_torch.analysis``), which must
+    flag it.
 
     ``advisory=True`` declares a *live pre-copy* capture: the job keeps
     running while the capture's wire transfer drains, so its reads are
     allowed to race traffic submitted afterwards — every value read
     here is superseded by a later fenced capture (pages via ``PageH``
     divergence, core state wholesale).  The hazard analyzer
-    (``repro.analysis``) exempts advisory *reads* and nothing else.
+    (``repro_torch.analysis``) exempts advisory *reads* and nothing
+    else.
     """
     t = session.t
     assert t is not None, "capture needs a session wrapping a target"

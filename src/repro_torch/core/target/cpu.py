@@ -84,7 +84,7 @@ class CpuState:
     fetch_hits: torch.Tensor    # (nc,) fetch-block cache hits
     fetch_walks: torch.Tensor   # (nc,) fetch-block fills/walks
     tlb_walks: torch.Tensor     # (nc,) data-TLB walks (dtlb_ways > 0)
-    # -- commit-trace ring: carried, capture not ported yet ---------------
+    # -- commit-trace ring (recorded with trace_on) -----------------------
     tracebuf: torch.Tensor      # (nc, slots, 4) i64
     trace_n: torch.Tensor       # (nc,) i64
     trace_armed: torch.Tensor   # (nc,) bool
@@ -254,10 +254,15 @@ class _Chunk:
     way_ids: torch.Tensor     # (1, ways)
     #: the flat-fleet form (:func:`run_chunk_fleet`); None for one target
     fleet: _Fleet | None = None
+    #: record retirements into the commit-trace ring (one target only)
+    trace_on: bool = False
+    #: the capture-window spec (``repro_torch.telemetry.triggers``)
+    trigger: tuple | None = None
 
 
 def _chunk_consts(lanes, mask, block_words, block_cache, dtlb_ways,
-                  fetch_kernel, fleet=None) -> _Chunk:
+                  fetch_kernel, fleet=None, trace_on=False,
+                  trigger=None) -> _Chunk:
     """The per-chunk constants over the lane vector ``lanes``; with
     ``fleet`` the lane order and the store invalidation only relate lanes
     of one board."""
@@ -278,7 +283,7 @@ def _chunk_consts(lanes, mask, block_words, block_cache, dtlb_ways,
                               for f in range(32)], dtype=I64, device=dev),
         way_ids=torch.arange(max(dtlb_ways, 1), dtype=I64,
                              device=dev)[None, :],
-        fleet=fleet)
+        fleet=fleet, trace_on=trace_on, trigger=trigger)
 
 
 def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
@@ -654,6 +659,9 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     stalled = active & ugt(stall, ticks_lane)
     dstall = torch.where(stalled, u64.umin(wait, dticks_lane), 0)
 
+    if k.trace_on:
+        _trace_record(st, k.trigger, ret, pc, inst)
+
     st.pc = torch.where(ret, next_pc, pc)
     st.pending = st.pending | tr
     st.mcause = torch.where(tr, cause, st.mcause)
@@ -668,6 +676,43 @@ def _exec_substep(st: CpuState, fb: FetchBlocks, dtlb: DTlb, exec_from,
     if k.dtlb_ways:
         st.tlb_walks = st.tlb_walks + (dwalk & safe)
     return new_from, dticks
+
+
+def _trace_record(st: CpuState, trigger, ret, pc, inst):
+    """The commit-trace ring at the retire point (the reference's
+    ``cpu.py:1021-1060``): each retiring lane whose capture gate is open
+    writes one ``(tick, pc, inst, priv)`` record — the pre-substep clock,
+    the retiring pc and instruction word — to row ``trace_n % slots`` of
+    its ring and counts it in ``trace_n``.  Non-retiring lanes write
+    nothing (the reference's out-of-range row becomes a mask).  The gate:
+    none; ``("tick", t0, t1)``: ``t0 <= tick < t1``; ``("instret", n)``:
+    the pre-retirement ``instret >= n``; ``("pc" | "inst", arm,
+    disarm)``: a sticky arm bit, set by a retirement of ``arm`` (that
+    record captured) and cleared after a retirement of ``disarm`` (that
+    record captured too).  Updates ``st`` in place; no host sync."""
+    slots = st.tracebuf.shape[1]
+    cap = ret
+    if trigger is not None:
+        kind = trigger[0]
+        if kind == "tick":
+            cap = ret & uge(st.ticks, trigger[1]) & ult(st.ticks, trigger[2])
+        elif kind == "instret":
+            cap = ret & uge(st.instret, trigger[1])
+        else:
+            val = pc if kind == "pc" else inst
+            armed = st.trace_armed | (ret & (val == u64.to_signed(trigger[1])))
+            cap = ret & armed
+            if trigger[2] is not None:
+                armed = armed & ~(ret & (val == u64.to_signed(trigger[2])))
+            st.trace_armed = armed
+    rec = torch.stack([st.ticks.expand(pc.shape[0]), pc, inst,
+                       st.priv.to(I64)], dim=1)
+    row = torch.remainder(st.trace_n, slots)     # trace_n < 2**63
+    buf = st.tracebuf
+    old = buf.gather(1, row[:, None, None].expand(-1, 1, 4))[:, 0]
+    buf.scatter_(1, row[:, None, None].expand(-1, 1, 4),
+                 torch.where(cap[:, None], rec, old)[:, None])
+    st.trace_n = st.trace_n + cap
 
 
 #: the two routes of :func:`run_chunk_fast`, asked for by name
@@ -709,7 +754,13 @@ def run_chunk_fast(st: CpuState, n_cores: int, mem_bytes: int,
     ``walk_fetch_block`` for a CUDA image, the plain version for a CPU
     image) or ``"ref"`` (the plain version on any device).
     ``dtlb_ways`` (a power of two; 0 disables) sizes the chunk-local
-    data-translation cache.
+    data-translation cache.  ``trace_on`` records every retirement into
+    the commit-trace ring (``tracebuf``/``trace_n``/``trace_armed``,
+    armed by ``make_state(trace_slots=...)`` or
+    ``TorchTarget.trace_arm``); ``trigger`` (a spec tuple of
+    :mod:`repro_torch.telemetry.triggers`, or None) gates which
+    retirements enter it, never the architectural step.  On the card
+    ``trace_on`` launches the kernel's traced instantiation.
 
     The loop predicate is tested once per ``issue_width`` substeps;
     substeps issued after a trap inside such a group are no-ops.
@@ -717,30 +768,34 @@ def run_chunk_fast(st: CpuState, n_cores: int, mem_bytes: int,
     assert block_words & (block_words - 1) == 0, "block_words must be pow2"
     assert dtlb_ways & (dtlb_ways - 1) == 0, "dtlb_ways must be pow2 or 0"
     route = chunk_route(st, chunk_kernel)
-    if trace_on or trigger is not None:
-        raise NotImplementedError(
-            "commit-trace capture is not ported to repro_torch yet")
+    if trace_on and st.tracebuf.shape[1] == 0:
+        raise ValueError("trace_on needs an armed ring (make_state "
+                         "trace_slots / TorchTarget.trace_arm)")
+    if not trace_on:
+        trigger = None
     if route == "kernel":
         return rc_kernel.run_chunk(st, n_cores, mem_bytes, max_cycles,
                                    issue_width, block_words, block_cache,
-                                   dtlb_ways)
+                                   dtlb_ways, trace_on, trigger)
     return _run_chunk_eager(st, n_cores, mem_bytes, max_cycles, issue_width,
                             block_words, block_cache, fetch_kernel,
-                            dtlb_ways)
+                            dtlb_ways, trace_on, trigger)
 
 
 def _run_chunk_eager(st: CpuState, n_cores: int, mem_bytes: int,
                      max_cycles: int, issue_width: int, block_words: int,
                      block_cache: bool, fetch_kernel: str,
-                     dtlb_ways: int) -> int:
+                     dtlb_ways: int, trace_on: bool = False,
+                     trigger: tuple | None = None) -> int:
     """The eager loop: one lane-vectorised :func:`_exec_substep` after
     another, the predicate read back every ``issue_width`` substeps.  The
-    plain version of the chunk kernel."""
+    plain version of the chunk kernel (with ``trace_on``, of its traced
+    instantiation)."""
     nc = n_cores
     dev = st.device
     k = _chunk_consts(torch.arange(nc, dtype=I64, device=dev),
                       mem_bytes - 1, block_words, block_cache, dtlb_ways,
-                      fetch_kernel)
+                      fetch_kernel, trace_on=trace_on, trigger=trigger)
     limit = int(max_cycles)
     cycles = torch.zeros((), dtype=I64, device=dev)
     exec_from = torch.zeros((), dtype=I64, device=dev)

@@ -45,6 +45,19 @@
 // any state: the board is untouched, bit for bit.  So the limit of one warp
 // is 32 cores a board, for any number of boards.
 //
+// The commit-trace ring (src/repro/core/target/cpu.py:1021-1060, the
+// `if trace_on:` block of _exec_substep).  chunk_body is a template on
+// TRACE and run_chunk_kernel is instantiated twice: the untraced one is the
+// kernel above, the traced one also keeps each lane's trace_n and arm bit
+// in registers and, at the retire point, has every retiring lane whose
+// capture gate is open store one (tick, pc, inst, priv) record -- the clock
+// the substep started from, the retiring pc and word -- to row
+// trace_n % slots of its own ring.  Lanes write disjoint rows, so no
+// cross-lane step is needed, and the store is off the dependent chain.  The
+// gate's kind is a launch-uniform value tested only under TRACE (the
+// reference makes it a static argument).  The fleet entry is untraced: the
+// reference's ring is single-device.
+//
 // What bounds it: neither bytes nor operations but the chain of dependent
 // global-memory round trips in a substep -- an instruction fetch that
 // misses the block cache (up to three PTE loads, then the slots), a data
@@ -98,6 +111,14 @@ struct Params {
   u64* tlb_walks;
   long long* out;         // (2,) out: substeps issued, dependent round
                           // trips to global memory on the critical path
+  u64* tracebuf;          // (nc, slots, 4) the commit-trace ring (TRACE)
+  u64* trace_n;           // (nc,) records ever captured
+  unsigned char* trace_armed;  // (nc,) sticky arm bit of pc/inst triggers
+  long long slots;        // ring rows a core
+  int trig_kind;          // TRIG_* below
+  int trig_disarm;        // pc/inst: the window has a disarm value
+  u64 trig_a;             // tick t0 / instret n / arm value
+  u64 trig_b;             // tick t1 / disarm value
   u64 mask;               // mem_bytes - 1
   long long limit;        // max_cycles
   int nc;
@@ -105,6 +126,15 @@ struct Params {
   int block_words;        // power of two
   int block_cache;
   int ways;               // data-TLB ways per lane (power of two or 0)
+};
+
+// the capture-window kinds of repro_torch.telemetry.triggers
+constexpr int TRIG_NONE = 0, TRIG_TICK = 1, TRIG_INSTRET = 2, TRIG_PC = 3,
+              TRIG_INST = 4;
+
+// one commit record: the retiring lane writes it with two 16-byte stores
+struct alignas(32) TraceRec {
+  u64 tick, pc, inst, priv;
 };
 
 __device__ __forceinline__ u64 sx(u64 v, int bits) {
@@ -205,7 +235,8 @@ __device__ __forceinline__ u64 warp_umin(u64 v) {
 }
 
 // The chunk loop of one target (one board of a fleet), run by the warp of
-// the calling CTA.
+// the calling CTA; with TRACE it records the commit-trace ring.
+template <bool TRACE>
 __device__ __forceinline__ void chunk_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
@@ -237,6 +268,8 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   int priv = 3;
   bool pending = false;
   u64 fb_vbase = 0, fb_pbase = 0, fb_nbytes = 0;   // this lane's block
+  u64 t_n = 0;                                     // TRACE: trace_n
+  bool t_armed = false;                            // TRACE: trace_armed
   if (on) {
     for (int k = 0; k < 32; ++k) R[k] = p.regs[lane * 32 + k];
     for (int w = 0; w < ways; ++w) {
@@ -258,6 +291,10 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
     c_hits = p.fetch_hits[lane];
     c_walks = p.fetch_walks[lane];
     c_tlb = p.tlb_walks[lane];
+    if (TRACE) {
+      t_n = p.trace_n[lane];
+      t_armed = p.trace_armed[lane] != 0;
+    }
   }
   u64 ticks = *p.ticks;
   const bool active = on && priv != 3;       // priv is not written here
@@ -552,6 +589,28 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       exec_from = defs ? __ffs(defs) - 1 : 0;
       const bool stalled = active && stall > ticks;
       if (stalled) c_stall += umin(wait, dticks);
+      if (TRACE) {
+        // the retire point, before pc, the clock and instret move: the
+        // gate of cpu.py::_trace_record, then one record a captured lane
+        bool cap = ret;
+        if (p.trig_kind == TRIG_TICK) {
+          cap = ret && ticks >= p.trig_a && ticks < p.trig_b;
+        } else if (p.trig_kind == TRIG_INSTRET) {
+          cap = ret && instret >= p.trig_a;
+        } else if (p.trig_kind != TRIG_NONE) {
+          const u64 val = p.trig_kind == TRIG_PC ? pc : in;
+          bool armed = t_armed || (ret && val == p.trig_a);
+          cap = ret && armed;
+          if (p.trig_disarm) armed = armed && !(ret && val == p.trig_b);
+          t_armed = armed;
+        }
+        if (cap) {
+          const u64 row = (u64)lane * (u64)p.slots + t_n % (u64)p.slots;
+          *reinterpret_cast<TraceRec*>(p.tracebuf + row * 4) =
+              TraceRec{ticks, pc, in, (u64)priv};
+          t_n += 1;
+        }
+      }
       if (ret) pc = next_pc;
       if (tr) {
         pending = true;
@@ -594,6 +653,10 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
     p.fetch_hits[lane] = c_hits;
     p.fetch_walks[lane] = c_walks;
     p.tlb_walks[lane] = c_tlb;
+    if (TRACE) {
+      p.trace_n[lane] = t_n;
+      p.trace_armed[lane] = t_armed ? 1 : 0;
+    }
   }
   if (lane == 0) {
     *p.ticks = ticks;
@@ -602,8 +665,9 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   }
 }
 
+template <bool TRACE>
 __global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
-  chunk_body(p);
+  chunk_body<TRACE>(p);
 }
 
 // CTA d runs board d: `p` points at board 0's slice of every stacked field
@@ -639,7 +703,7 @@ __global__ void __launch_bounds__(32, 1)
   p.fetch_hits += c;
   p.fetch_walks += c;
   p.tlb_walks += c;
-  chunk_body(p);
+  chunk_body<false>(p);
 }
 
 // One thread follows `steps` links of `next` from `start` (the measure of
@@ -686,7 +750,31 @@ Params make_params(void* mem, void* regs, void* pc, void* priv,
   p.block_words = block_words;
   p.block_cache = block_cache;
   p.ways = ways;
+  p.tracebuf = nullptr;
+  p.trace_n = nullptr;
+  p.trace_armed = nullptr;
+  p.slots = 0;
+  p.trig_kind = TRIG_NONE;
+  p.trig_disarm = 0;
+  p.trig_a = p.trig_b = 0;
   return p;
+}
+
+template <bool TRACE>
+int launch_chunk(const Params& p, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        run_chunk_kernel<TRACE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+#ifdef __CUDACC__
+  run_chunk_kernel<TRACE><<<1, 32, smem, (cudaStream_t)stream>>>(p);
+#else  // g++ under the CPU emulation of tests/cuda_shim
+  (void)stream;
+  cuda_shim::launch(run_chunk_kernel<TRACE>, 1, 32, smem, p);
+#endif
+  return (int)cudaGetLastError();
 }
 
 
@@ -702,7 +790,11 @@ size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
 
 // Runs one chunk on `stream` (one CTA of one warp) and returns
 // cudaGetLastError() (0 on success); does not synchronise and allocates
-// nothing.  Pointers are the CpuState fields in STATE_FIELDS order.
+// nothing.  Pointers are the CpuState fields in STATE_FIELDS order, then
+// the commit-trace ring, trace_n and trace_armed.  trace_on picks the
+// traced instantiation, which records the ring (`slots` rows a core) under
+// the gate trig_kind (TRIG_*) with its values trig_a / trig_b; the
+// untraced one never touches the ring.
 int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
                      void* pending, void* stall_until, void* satp,
                      void* mcause, void* mepc, void* mtval, void* res,
@@ -711,26 +803,30 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
                      void* tlb_walks, void* out, u64 mask,
                      long long limit, int lanes, int issue_width,
                      int block_words, int block_cache, int ways,
+                     void* tracebuf, void* trace_n, void* trace_armed,
+                     long long slots, int trace_on, int trig_kind,
+                     int trig_disarm, u64 trig_a, u64 trig_b,
                      void* stream) {
   if (lanes <= 0 || lanes > LANES_MAX) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(
+  if (trace_on && (slots <= 0 || trig_kind < TRIG_NONE ||
+                   trig_kind > TRIG_INST))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(
       mem, regs, pc, priv, pending, stall_until, satp, mcause, mepc, mtval,
       res, ticks, uticks, instret, stall_ticks, fetch_hits, fetch_walks,
       tlb_walks, out, mask, limit, lanes, issue_width, block_words,
       block_cache, ways);
   const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        run_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-#ifdef __CUDACC__
-  run_chunk_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(p);
-#else  // g++ under the CPU emulation of tests/cuda_shim
-  cuda_shim::launch(run_chunk_kernel, 1, 32, smem, p);
-#endif
-  return (int)cudaGetLastError();
+  if (!trace_on) return launch_chunk<false>(p, smem, stream);
+  p.tracebuf = (u64*)tracebuf;
+  p.trace_n = (u64*)trace_n;
+  p.trace_armed = (unsigned char*)trace_armed;
+  p.slots = slots;
+  p.trig_kind = trig_kind;
+  p.trig_disarm = trig_disarm;
+  p.trig_a = trig_a;
+  p.trig_b = trig_b;
+  return launch_chunk<true>(p, smem, stream);
 }
 
 // Runs one global chunk of `boards` boards on `stream` (one CTA of one warp

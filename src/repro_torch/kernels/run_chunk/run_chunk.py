@@ -12,6 +12,13 @@ module).
 Contract: one lane of the warp per core, so at most :data:`LANES_MAX`
 cores; the wrapper raises ``ValueError`` beyond.
 
+With ``trace_on`` the wrapper launches the kernel's traced instantiation
+(``run_chunk_kernel<true>``), which also records the commit-trace ring
+(``tracebuf``/``trace_n``/``trace_armed``) at the retire point under the
+capture-window ``trigger``; its plain version is the eager loop with the
+ring (``cpu._trace_record``).  Its launches count in
+``run_chunk.trace_launches``, the untraced ones in ``run_chunk.launches``.
+
 :func:`run_chunk_fleet` launches the same loop for a fleet: one CTA per
 board of a stacked state (``cpu.make_fleet_state``), so the limit is
 :data:`LANES_MAX` cores a board, for any number of boards.  Its plain
@@ -43,9 +50,17 @@ FIELDS = (("regs", torch.int64, (32,)), ("pc", torch.int64, ()),
           ("fetch_hits", torch.int64, ()), ("fetch_walks", torch.int64, ()),
           ("tlb_walks", torch.int64, ()))
 
+#: ``run_chunk_launch``: the image, the fields, out, the mask, the limit,
+#: lanes and the four knobs, the ring's three tensors, slots, trace_on,
+#: the trigger's kind, disarm flag and two values, the stream
 _ARGS = [ctypes.c_void_p] * (2 + len(FIELDS)) + [
     ctypes.c_uint64, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p]
+    ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+    ctypes.c_uint64] * 2 + [ctypes.c_void_p]
+#: the trigger kinds of ``repro_torch.telemetry.triggers`` as the kernel
+#: numbers them (``TRIG_*`` in the source); 0 is no gate
+TRIGGER_KINDS = {"tick": 1, "instret": 2, "pc": 3, "inst": 4}
+_M64 = (1 << 64) - 1
 #: ``run_chunk_fleet_launch``: the image, the fields, budgets and out, the
 #: mask, the words a board, lanes, boards and the four knobs, the stream
 FLEET_ARGS = [ctypes.c_void_p] * (3 + len(FIELDS)) + [
@@ -93,23 +108,64 @@ def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways,
                          f"{need} bytes of shared memory, over {SMEM_MAX}")
 
 
+def trigger_args(trigger):
+    """``(kind, disarm flag, a, b)`` of a trigger spec for the kernel:
+    tick ``(t0, t1)``, instret ``(n, 0)``, pc/inst ``(arm, disarm)``."""
+    if trigger is None:
+        return 0, 0, 0, 0
+    kind = trigger[0]
+    if kind not in TRIGGER_KINDS:
+        raise ValueError(f"run_chunk: unknown trigger kind {kind!r}")
+    b = trigger[2] if len(trigger) > 2 else None
+    return (TRIGGER_KINDS[kind], int(b is not None), int(trigger[1]) & _M64,
+            0 if b is None else int(b) & _M64)
+
+
+def check_trace(st, n_cores):
+    """Raise ``ValueError`` unless the state carries an armed ring the
+    traced instantiation takes: ``tracebuf`` int64 ``(nc, slots, 4)``
+    with ``slots > 0``, ``trace_n`` int64 and ``trace_armed`` bool
+    ``(nc,)``, contiguous on the image's device."""
+    dev = st.mem.device
+    slots = st.tracebuf.shape[1] if st.tracebuf.dim() == 3 else 0
+    if slots <= 0:
+        raise ValueError("run_chunk: trace_on needs an armed ring "
+                         "(TorchTarget.trace_arm)")
+    _build.check_tensor("run_chunk", "tracebuf", st.tracebuf, torch.int64,
+                        (n_cores, slots, 4), dev)
+    _build.check_tensor("run_chunk", "trace_n", st.trace_n, torch.int64,
+                        (n_cores,), dev)
+    _build.check_tensor("run_chunk", "trace_armed", st.trace_armed,
+                        torch.bool, (n_cores,), dev)
+
+
 def launch_args(st, out, n_cores, mem_bytes, max_cycles, issue_width,
-                block_words, block_cache, dtlb_ways, stream):
+                block_words, block_cache, dtlb_ways, stream, trace_on=False,
+                trigger=None):
     """The arguments of ``run_chunk_launch`` for this state, in order."""
+    kind, disarm, a, b = trigger_args(trigger if trace_on else None)
     return (st.mem.data_ptr(),
             *(getattr(st, name).data_ptr() for name, _, _ in FIELDS),
-            out.data_ptr(), (mem_bytes - 1) & ((1 << 64) - 1),
+            out.data_ptr(), (mem_bytes - 1) & _M64,
             int(max_cycles), n_cores, issue_width, block_words,
-            int(bool(block_cache)), dtlb_ways, stream)
+            int(bool(block_cache)), dtlb_ways, st.tracebuf.data_ptr(),
+            st.trace_n.data_ptr(), st.trace_armed.data_ptr(),
+            st.tracebuf.shape[1] if st.tracebuf.dim() == 3 else 0,
+            int(bool(trace_on)), kind, disarm, a, b, stream)
 
 
 def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
-              block_words=16, block_cache=True, dtlb_ways=8) -> int:
+              block_words=16, block_cache=True, dtlb_ways=8,
+              trace_on=False, trigger=None) -> int:
     """Advance the CUDA state ``st`` in place by up to ``max_cycles``
     ticks in one launch; returns the substeps issued (a whole
     ``issue_width`` group per predicate test), read back once with the
-    launch's round-trip count."""
+    launch's round-trip count.  ``trace_on`` launches the traced
+    instantiation, which records the commit-trace ring under
+    ``trigger``."""
     check_state(st, n_cores, mem_bytes, block_words, dtlb_ways)
+    if trace_on:
+        check_trace(st, n_cores)
     if not st.mem.is_cuda:
         raise ValueError("run_chunk: the kernel needs a CUDA state; the "
                          "eager loop runs a CPU state")
@@ -120,10 +176,14 @@ def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
     out = torch.empty((2,), dtype=torch.int64, device=dev)
     args = launch_args(st, out, n_cores, mem_bytes, max_cycles,
                        issue_width, block_words, block_cache, dtlb_ways,
-                       torch.cuda.current_stream(dev).cuda_stream)
+                       torch.cuda.current_stream(dev).cuda_stream, trace_on,
+                       trigger)
     _build.launch("run_chunk", _build.entry(
         "run_chunk", "run_chunk_launch", _ARGS), args, dev)
-    run_chunk.launches += 1
+    if trace_on:
+        run_chunk.trace_launches += 1
+    else:
+        run_chunk.launches += 1
     substeps, trips = out.tolist()
     run_chunk.trips += trips
     return substeps
@@ -172,8 +232,11 @@ def run_chunk_fleet(sts, n_cores, mem_bytes, budgets, issue_width=8,
     return [s for s, _ in got]
 
 
-#: launches of the CUDA kernel since the counter was last set to 0
+#: launches of the CUDA kernel's untraced instantiation since the counter
+#: was last set to 0
 run_chunk.launches = 0
+#: launches of its traced instantiation (``trace_on``) since last set to 0
+run_chunk.trace_launches = 0
 #: dependent round trips to global memory on the kernel's critical path
 #: (the longest chain of each substep, summed) since last set to 0
 run_chunk.trips = 0

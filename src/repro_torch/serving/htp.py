@@ -34,8 +34,8 @@ import numpy as np
 
 from ..core.session import HtpRequest, HtpTransaction
 
-# Serving analogue ops: a subset of Table II (the reference's protocol
-# linter pins the set; the port's analysis layer is ROADMAP Queue A 8).
+# Serving analogue ops: a subset of Table II (the protocol linter pins the
+# set: repro_torch.analysis.lint.SERVING_OPS).
 _SERVING_OPS = ("Redirect", "SetMMU", "PageCP", "PageS")
 
 

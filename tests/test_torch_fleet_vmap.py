@@ -281,4 +281,4 @@ def test_hello_uart_on_the_stacked_fleet():
     assert rep.stdout == b"hello from FASE target\nanswer 42\n"
     assert rt.target.ft.dispatch_count > 0
     with pytest.raises(ValueError, match="fleet-vmap"):
-        run_workload("hello", [], target="pysim", device="cpu")
+        run_workload("hello", [], target="jax", device="cpu")

@@ -24,11 +24,14 @@ from repro_torch.core import session
 from repro_torch.core.channel import UartChannel
 from repro_torch.core.interface import TorchTarget
 from repro_torch.core.target import asm, isa
+from repro_torch.core.target.pysim import PySim
 from repro_torch.core.target.convert import state_to_numpy
 from repro_torch.kernels.page_walk import ops, page_walk
 from repro_torch.kernels.run_chunk import run_chunk as RC
+from repro_torch.telemetry import without_backend_counters
 
 import torch_directed_cases as DC
+import torch_trace_cases as TC
 
 pytestmark = pytest.mark.gpu
 
@@ -258,6 +261,88 @@ def test_chunk_kernel_meets_directed_regression(cuda, case, kw):
                TorchTarget(case.nc, DC.MEM, device="cpu", **kw)]
     DC.run_in_lockstep(case, targets, lambda ts, p: _same_state(*ts, p))
     assert RC.run_chunk.launches > chunks
+
+
+_TRACE_TRIGGERS = TC.triggers(asm.assemble(PROGRAM))
+
+
+@pytest.mark.parametrize("slots", [TC.SLOTS_WRAP, TC.SLOTS_WIDE],
+                         ids=["wrapping", "wide"])
+@pytest.mark.parametrize("trigger", [t for _, t in _TRACE_TRIGGERS],
+                         ids=[i for i, _ in _TRACE_TRIGGERS])
+def test_traced_chunk_kernel_records_the_eager_ring(cuda, trigger, slots):
+    """The traced instantiation of the chunk kernel on the atomics
+    program under each trigger kind: ring, ``trace_n`` and
+    ``trace_armed`` (and every other field) equal to the CPU's eager
+    loop after every chunk, the drains equal to PySim's records and ring
+    drops."""
+    nc = 4
+    traced = RC.run_chunk.trace_launches
+    targets = [TorchTarget(nc, DC.MEM, device="cuda"),
+               TorchTarget(nc, DC.MEM, device="cpu"), PySim(nc, DC.MEM)]
+    TC.arm(targets, slots, trigger)
+    records = TC.run_program(PROGRAM, nc, 97, targets,
+                             lambda ts, p: _same_state(ts[0], ts[1], p))
+    assert RC.run_chunk.trace_launches > traced
+    assert sum(len(r) for r in records) > 0
+
+
+def test_traced_chunk_kernel_meets_directed_regressions(cuda):
+    """The directed regressions with an 8-slot ring armed: the traced
+    kernel's state, ring included, equal to the eager loop's at each
+    checkpoint, and its drains equal."""
+    for case, kw in DC.PARAMS:
+        targets = [TorchTarget(case.nc, DC.MEM, device="cuda", **kw),
+                   TorchTarget(case.nc, DC.MEM, device="cpu", **kw)]
+        TC.arm(targets, TC.SLOTS_WRAP, None)
+
+        def compare(ts, point):
+            _same_state(*ts, f"{case.name}: {point}")
+            TC.same_drains(ts, point)
+        DC.run_in_lockstep(case, targets, compare)
+
+
+def test_starved_telemetry_lane_on_the_card(cuda):
+    """The reference's starved-lane case on the card's kernel route: the
+    bridges stall and defer, nothing is dropped, every record lands by
+    the final flush, and the report equals PySim's but for the backend
+    model counters."""
+    from repro_torch.run import run_workload
+    cfg = dict(counters=True, commit_trace=True, interval_ticks=2_000,
+               trace_slots=256, bandwidth_frac=0.00005, backlog_ticks=1_000)
+    traced = RC.run_chunk.trace_launches
+    _, rep, _ = run_workload("hello", [], mode="fase", n_cores=1,
+                             mem=1 << 22, link="pcie", telemetry=dict(cfg))
+    assert RC.run_chunk.trace_launches > traced
+    s = rep.telemetry["stream"]
+    assert s["stall_ticks"] > 0
+    assert s["dropped_frames"] == 0 and s["dropped_bytes"] == 0
+    ct = rep.telemetry["commit_trace"]
+    assert sum(ct["records"]) == sum(rep.instret)
+    assert sum(ct["ring_dropped"]) == 0
+    _, ref, _ = run_workload("hello", [], mode="fase", target="pysim",
+                             n_cores=1, mem=1 << 22, link="pcie",
+                             telemetry=dict(cfg))
+    assert without_backend_counters(rep.telemetry) == \
+        without_backend_counters(ref.telemetry)
+
+
+def test_telemetry_and_analysis_clis_on_the_card(cuda, tmp_path, capsys):
+    """Both CLIs run on the card by default: the hello timeline equals
+    the one the eager loop gives on the CPU (the two routes keep every
+    counter equal), and the quick analysis gate reports 0 findings."""
+    from repro_torch.analysis.cli import main as analysis_main
+    from repro_torch.telemetry.__main__ import _timeline_solo, main
+    traced = RC.run_chunk.trace_launches
+    out = tmp_path / "hello.json"
+    assert main(["timeline", "hello", "--out", str(out)]) == 0
+    assert RC.run_chunk.trace_launches > traced
+    assert main(["validate", str(out)]) == 0
+    assert _timeline_solo("hello", "pcie", True, "cuda")["traceEvents"] == \
+        _timeline_solo("hello", "pcie", True, "cpu")["traceEvents"]
+    capsys.readouterr()
+    assert analysis_main(["gate", "--quick"]) == 0
+    assert "race: 0 finding(s)" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("seed", range(6))

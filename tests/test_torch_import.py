@@ -34,6 +34,21 @@ PORT_MODULES = [
     "repro_torch.core.fleet",
     "repro_torch.core.fleet.vmap",
     "repro_torch.core.net",
+    "repro_torch.core.target.pysim",
+    "repro_torch.telemetry",
+    "repro_torch.telemetry.stream",
+    "repro_torch.telemetry.triggers",
+    "repro_torch.telemetry.bridges",
+    "repro_torch.telemetry.replay",
+    "repro_torch.telemetry.timeline",
+    "repro_torch.telemetry.__main__",
+    "repro_torch.analysis",
+    "repro_torch.analysis.footprints",
+    "repro_torch.analysis.trace",
+    "repro_torch.analysis.detector",
+    "repro_torch.analysis.lint",
+    "repro_torch.analysis.cli",
+    "repro_torch.analysis.__main__",
 ]
 
 
@@ -114,15 +129,23 @@ def test_training_entry_points_default_to_the_card():
 
 
 def test_unported_surfaces_raise():
+    """What the port refuses: the stacked fleet's commit-trace ring (the
+    reference refuses it too: the ring is single-device) and a Pallas
+    fetch kernel.  A TorchTarget's ring and the runtime's telemetry hub
+    are ported and work."""
+    from repro_torch.core.fleet.vmap import FleetTarget
     from repro_torch.core.interface import TorchTarget
     from repro_torch.core.runtime import FaseRuntime
+    from repro_torch.telemetry import TelemetryHub
     t = TorchTarget(1, 1 << 20, device="cpu")
-    for call in (lambda: t.trace_arm(16), lambda: t.trace_trigger(None),
-                 lambda: t.trace_drain()):
-        with pytest.raises(NotImplementedError):
-            call()
-    with pytest.raises(NotImplementedError):
-        FaseRuntime(t, telemetry={"interval_ticks": 1000})
+    t.trace_arm(16)
+    t.trace_trigger(("instret", 3))
+    assert t.trace_drain() == [([], 0)] and t.trace_drain(0) == ([], 0)
+    rt = FaseRuntime(t, telemetry={"interval_ticks": 1000})
+    assert isinstance(rt.telemetry, TelemetryHub)
+    view = FleetTarget(1, 1, 1 << 20, device="cpu").view(0)
+    with pytest.raises(NotImplementedError, match="single-device"):
+        view.trace_arm(16)
     with pytest.raises(ValueError):
         TorchTarget(1, 1 << 20, device="cpu", fetch_kernel="pallas")
 

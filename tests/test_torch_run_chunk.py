@@ -76,7 +76,8 @@ def test_kernel_route_calls_the_wrapper_once_per_chunk(monkeypatch):
     monkeypatch.setattr(cpu.rc_kernel, "run_chunk", record)
     st = _state()
     n = cpu.run_chunk_fast(st, 2, MEM, 99, 4, 8, False, "ref", dtlb_ways=2)
-    assert n == 16 and calls == [(st, 2, MEM, 99, 4, 8, False, 2)]
+    assert n == 16 and calls == [(st, 2, MEM, 99, 4, 8, False, 2, False,
+                                  None)]
     t = TorchTarget(2, MEM, device="cpu")
     t.st = st
     t.run(max_cycles=7)
@@ -85,14 +86,18 @@ def test_kernel_route_calls_the_wrapper_once_per_chunk(monkeypatch):
 
 @pytest.mark.parametrize("name", ["kernel", "ref"])
 def test_trace_capture_raises_on_both_routes(monkeypatch, name):
+    """Capture into a ring that was never armed (no slots) raises on
+    both routes before either loop runs; an armed ring records (the
+    cases of tests/test_torch_run_chunk_trace_shim.py and
+    tests/test_torch_telemetry*.py)."""
     monkeypatch.setattr(cpu, "chunk_route", lambda st, n: n)
     monkeypatch.setattr(cpu.rc_kernel, "run_chunk", None)
     st = _state()
-    with pytest.raises(NotImplementedError, match="commit-trace"):
+    with pytest.raises(ValueError, match="armed ring"):
         cpu.run_chunk_fast(st, 2, MEM, 10, trace_on=True, chunk_kernel=name)
-    with pytest.raises(NotImplementedError, match="commit-trace"):
-        cpu.run_chunk_fast(st, 2, MEM, 10, trigger=("pc", 0),
-                           chunk_kernel=name)
+    with pytest.raises(ValueError, match="armed ring"):
+        cpu.run_chunk_fast(st, 2, MEM, 10, trace_on=True,
+                           trigger=("pc", 0, None), chunk_kernel=name)
 
 
 def test_target_refuses_an_unknown_route():
@@ -162,7 +167,9 @@ def test_launch_arguments_follow_the_kernel_signature():
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     assert params == ["mem", *(f for f, _, _ in RC.FIELDS), "out", "mask",
                       "limit", "lanes", "issue_width", "block_words",
-                      "block_cache", "ways", "stream"]
+                      "block_cache", "ways", "tracebuf", "trace_n",
+                      "trace_armed", "slots", "trace_on", "trig_kind",
+                      "trig_disarm", "trig_a", "trig_b", "stream"]
     st = _state()
     out = torch.zeros((2,), dtype=torch.int64)
     args = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0)
@@ -170,7 +177,15 @@ def test_launch_arguments_follow_the_kernel_signature():
     assert args[0] == st.mem.data_ptr() == st.mem_store.data_ptr()
     assert args[1 + [f for f, _, _ in RC.FIELDS].index("priv")] == \
         st.priv.data_ptr()
-    assert args[-9:] == (out.data_ptr(), MEM - 1, 99, 2, 8, 16, 1, 8, 0)
+    assert args[-18:-9] == (out.data_ptr(), MEM - 1, 99, 2, 8, 16, 1, 8,
+                            st.tracebuf.data_ptr())
+    assert args[-6:] == (0, 0, 0, 0, 0, 0)         # untraced: no gate
+    traced = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0, True,
+                            ("pc", 0x1000, (1 << 64) - 4))
+    assert traced[-6:] == (1, RC.TRIGGER_KINDS["pc"], 1, 0x1000,
+                           (1 << 64) - 4, 0)
+    assert RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0, True,
+                          ("instret", 7))[-6:] == (1, 2, 0, 7, 0, 0)
     # the C side sizes shared memory as the wrapper does
     assert "lanes * (32 + 4 * (size_t)ways) * 8" in src
     assert "lanes * block_words * 4" in src

@@ -9,7 +9,8 @@ change with sfence, stall fast-forward with the budget clamp), the
 directed atomics/MMU program and the AMO table, in lockstep with the
 eager loop (every state field and the substep count at every checkpoint)
 and ``PySim`` (the architectural state).  Integer state; tolerance 0.
-The same cases run on the card in ``tests/test_torch_gpu.py``."""
+The same cases run on the card in ``tests/test_torch_gpu.py``; the traced
+instantiation's cases are in ``tests/test_torch_run_chunk_trace_shim.py``."""
 import numpy as np
 import pytest
 import torch
@@ -37,20 +38,27 @@ def kernel_route(monkeypatch, launch):
     """CPU targets on ``chunk_kernel="kernel"`` run the compiled source;
     returns the stand-in wrapper, whose ``launches`` counts them."""
     def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
-                  block_words=16, block_cache=True, dtlb_ways=8):
+                  block_words=16, block_cache=True, dtlb_ways=8,
+                  trace_on=False, trigger=None):
         RC.check_state(st, n_cores, mem_bytes, block_words, dtlb_ways)
+        if trace_on:
+            RC.check_trace(st, n_cores)
         out = torch.zeros((2,), dtype=torch.int64)
         assert launch(*RC.launch_args(
             st, out, n_cores, mem_bytes, max_cycles, issue_width,
-            block_words, block_cache, dtlb_ways, None)) == 0
-        run_chunk.launches += 1
+            block_words, block_cache, dtlb_ways, None, trace_on,
+            trigger)) == 0
+        if trace_on:
+            run_chunk.trace_launches += 1
+        else:
+            run_chunk.launches += 1
         return int(out[0])
 
     def chunk_route(st, chunk_kernel="kernel"):
         assert chunk_kernel in cpu.CHUNK_IMPLS
         return chunk_kernel
 
-    run_chunk.launches = 0
+    run_chunk.launches = run_chunk.trace_launches = 0
     monkeypatch.setattr(RC, "run_chunk", run_chunk)
     monkeypatch.setattr(cpu, "chunk_route", chunk_route)
     return run_chunk
