@@ -43,7 +43,13 @@ plain PyTorch version on the card, and drives the port's three paths:
 * the serving path: ``ServeEngine`` over qwen3-8b at full width (36
   layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
   slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
-  kernels and then in lockstep against the plain versions;
+  kernels and then in lockstep against the plain versions; then the same
+  mix over jamba-v0.1-52b at full width cut to one hybrid period of 8
+  layers (1 windowed attention through ``paged_attention``'s windowed
+  instantiation, 7 Mamba, 4 MoE, 4 MLP sublayers; 13.7 G parameters),
+  timed and then in lockstep against the plain route, and over xlstm-350m
+  whole (24 layers; no hand-written kernel on its path), timed and then
+  its first decode steps against the same steps on the CPU;
 * the training path: ``repro_torch.training.train_loop.train`` over
   qwen3-8b at full width cut to ``TRAIN_LAYERS`` layers (the card's 80 GB
   cannot hold AdamW's state for all 36), one sequence of 4096 tokens a
@@ -151,6 +157,10 @@ REPLACES = {
     "run_chunk_trace": "src/repro/core/target/cpu.py:1021",
     "paged_attention":
     "src/repro/kernels/paged_attention/paged_attention.py:89",
+    # the same pallas_call; the ring of the reference's windowed decode
+    # (src/repro/models/core.py:632-683) is what the instantiation adds
+    "paged_attention_window":
+    "src/repro/kernels/paged_attention/paged_attention.py:89",
     "page_set": "src/repro/kernels/page_ops/page_ops.py:68",
     "page_copy": "src/repro/kernels/page_ops/page_ops.py:38",
     "page_gather": "src/repro/kernels/page_ops/page_ops.py:94",
@@ -163,6 +173,7 @@ SOURCES = {
     "run_chunk_fleet": "src/repro_torch/csrc/run_chunk.cu",
     "run_chunk_trace": "src/repro_torch/csrc/run_chunk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "paged_attention_window": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
     "page_gather": "src/repro_torch/csrc/page_ops.cu",
@@ -209,6 +220,68 @@ GATHER_TABLE = (5, 64, 0, 17, 5, 33, 2, 9)
 #: so that first-call costs (cuBLAS heuristics, allocator growth, pinned
 #: host blocks) fall outside it
 SERVE_WARM_STEPS = 8
+#: the profiled decode steps of the jamba and xlstm serve runs (after
+#: SERVE_WARM_STEPS unprofiled ones): launches, device time, busy share
+FAMILY_PROFILE_STEPS = 16
+
+#: the hybrid serve run: jamba-v0.1-52b at full width (d 4096, 32/8 heads,
+#: 16 experts of d_ff 14336, top-2, window 8192), depth cut from 32 layers
+#: to one hybrid period of 8 (13.7 G parameters, 27.5 GB of bf16; the
+#: whole model's 53.3 G, 107 GB, do not fit the card's 80 GB); SERVE_MIX
+#: at 4 slots and max_seq 512, so its ring is 8 pages, all of them inside
+#: the window
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+#: the lockstep of the jamba run compares one decode step at a time (the
+#: plain route starts each step from the kernel route's whole decode
+#: state): a 1-ulp difference of the attention output moves the hidden
+#: state by bf16 rounding noise, which the 16-expert routers see, and
+#: where a token's top-k is a near tie it goes to another expert — after
+#: which its hidden state, and through the capacity of one token an
+#: expert the others', differ wholly for the rest of the step (the later
+#: MoE calls route apart at any margin), and a Mamba state would carry
+#: that forever.  A step whose first MoE call that routes some token apart
+#: does so with each such token's router probabilities on the two routes
+#: within ROUTER_TIE of each other is excused from the logit checks; any
+#: other fails.  Excused steps may be at most ROUTER_FLIP_SHARE of the
+#: run's.  Both limits are read off the honest runs at JAMBA_SEEDS and the
+#: runs with ROUTER_FAULTS planted, each of which the rule must fail
+#: (PERF.md §6).  Honest, the routers' probabilities differed by up to
+#: 0.019 where the routes routed alike, first flips came at gaps up to
+#: 0.0076, and 7-8 % of steps flipped; with the attention output 2^-8
+#: high, 39 % of steps flipped (first-flip gaps up to 0.022) and 25 steps'
+#: logits were beyond 0.25; 2^-5 high gave a first flip at 0.057
+ROUTER_TIE, ROUTER_FLIP_SHARE = 0.025, 0.15
+JAMBA_SEEDS = (0, 1)
+#: faults planted in the kernel route's windowed attention (see
+#: ``PlantedFault``): (name, relative error of every output element,
+#: window dropped).  2^-8 is the least that moves a bf16 output: 2^-9 is
+#: under half an ulp and rounds back to the kernel's own output
+ROUTER_FAULTS = (("out 2^-8 high", 2.0 ** -8, False),
+                 ("out 2^-6 high", 2.0 ** -6, False),
+                 ("out 2^-5 high", 2.0 ** -5, False),
+                 ("window dropped", 0.0, True))
+#: the recurrent serve run: xlstm-350m whole (24 layers, d 1024); its
+#: first XLSTM_CPU_STEPS decode steps on the card against the same steps
+#: on the CPU (the parameters copied over), under the lockstep rule:
+#: on an f32 copy of the parameters step after step (card and CPU then
+#: both compute in IEEE f32, TF32 off), and on the served bf16 parameters
+#: one step at a time (the CPU starts each step from the card's state:
+#: every bf16 product rounds apart between cuBLAS and the CPU's BLAS, and
+#: the recurrent states would carry that into every later step)
+XLSTM_ARCH, XLSTM_CPU_STEPS = "xlstm-350m", 8
+#: the windowed paged_attention at jamba's heads: its serve shape (a ring
+#: of 8 pages inside the window: every slot attended, written or not), and
+#: a wrapped ring — max_seq 16 384 gives the reference's ring of
+#: min(16 384, 8192 + 64) = 8 256 slots, P = 129 — with lengths past the
+#: wrap (a masked span of 64 slots that is not page-aligned), mid-page and
+#: below the window.  Timed at the wrapped shape with every row past the
+#: wrap
+WINDOW = 8192
+WINDOW_SERVE_SHAPE = (4, 32, 8, 128, 64, 8)
+WINDOW_SERVE_LENS = (1, 37, 300, 512)
+WINDOW_RING_SHAPE = (4, 32, 8, 128, 64, 129)
+WINDOW_RING_LENS = (9000, 8257 + 64 * 3 + 17, 16384, 5000)
+WINDOW_RING_TIMED_LENS = (9000, 12000, 14000, 16384)
 
 #: the train run: qwen3-8b at full width, depth cut from 36 to 12 layers
 #: (12 bytes a parameter — bf16 weights and gradients, f32 AdamW moments —
@@ -524,14 +597,14 @@ def check_run_chunk_wrapper(torch, dev):
     emit({"phase": "wrapper_checks", "kernel": "run_chunk", "refused": 4})
 
 
-def attention_err(torch, q, kp, vp, bt, lens):
+def attention_err(torch, q, kp, vp, bt, lens, window=0):
     """Largest |kernel - plain version| of paged_attention on one input
-    set; fails beyond the dtype's ``ATTN_TOL`` or on a non-finite
-    output."""
+    set (with ``window``, the windowed instantiation); fails beyond the
+    dtype's ``ATTN_TOL`` or on a non-finite output."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.flash_attention.ref import ATTN_TOL
-    got = ops.paged_decode(q, kp, vp, bt, lens)
-    want = ops.paged_decode(q, kp, vp, bt, lens, impl="ref")
+    got = ops.paged_decode(q, kp, vp, bt, lens, window=window)
+    want = ops.paged_decode(q, kp, vp, bt, lens, impl="ref", window=window)
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape,
           "paged_attention: kernel output dtype/shape differs")
@@ -540,7 +613,8 @@ def attention_err(torch, q, kp, vp, bt, lens):
     atol, rtol = ATTN_TOL[str(q.dtype).split(".")[1]]
     over = float((diff - rtol * want.float().abs()).max())
     check(over <= atol, f"paged_attention {tuple(q.shape)} {q.dtype} "
-          f"kp {tuple(kp.shape)} lens {lens.tolist()}: kernel differs from "
+          f"kp {tuple(kp.shape)} lens {lens.tolist()} window {window}: "
+          "kernel differs from "
           f"the plain version by {over} beyond rtol {rtol} > atol {atol} "
           f"(max abs diff {float(diff.max())})")
     return float(diff.max())
@@ -614,7 +688,45 @@ def check_attention(torch, dev):
         fail("the paged_attention wrapper accepted an input it must refuse")
     emit({"phase": "kernel_vs_plain", "kernel": "paged_attention",
           "cases": cases, "tolerance": ATTN_TOL, "max_abs_err": worst})
-    return {"paged_attention": worst}
+    return {"paged_attention": worst, **check_window_attention(torch, dev)}
+
+
+def check_window_attention(torch, dev):
+    """The windowed instantiation == its plain version on the card, at
+    jamba's heads: the serve shape (a ring inside the window), the wrapped
+    ring of ``WINDOW_RING_SHAPE`` (checked and timed lengths), and small
+    rings whose plan gives one page a range and whose window masks whole
+    ranges (no attended row in them), in f32 and bf16; and the window is
+    not a no-op (it differs from full attention over the same wrapped
+    ring)."""
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    worst, cases = 0.0, 0
+    before = PA.paged_attention.window_launches
+    for seed, (shape, lens, window, dtype) in enumerate((
+            (WINDOW_SERVE_SHAPE, WINDOW_SERVE_LENS, WINDOW, torch.bfloat16),
+            (WINDOW_RING_SHAPE, WINDOW_RING_LENS, WINDOW, torch.bfloat16),
+            (WINDOW_RING_SHAPE, WINDOW_RING_TIMED_LENS, WINDOW,
+             torch.bfloat16),
+            ((3, 8, 2, 32, 8, 4), (40, 45, 70), 10, torch.float32),
+            ((3, 8, 2, 32, 8, 4), (33, 64, 97), 20, torch.bfloat16),
+            ((2, 4, 1, 128, 16, 6), (5, 200), 50, torch.float32))):
+        args = attention_inputs(torch, dev, *shape, dtype, 40 + seed, lens)
+        worst = max(worst, attention_err(torch, *args, window=window))
+        cases += 1
+    q, kp, vp, bt, lens = attention_inputs(
+        torch, dev, *WINDOW_RING_SHAPE, torch.float32, 50, WINDOW_RING_LENS)
+    gap = float((ops.paged_decode(q, kp, vp, bt, lens, window=WINDOW) -
+                 ops.paged_decode(q, kp, vp, bt, lens.clamp(
+                     max=bt.shape[1] * kp.shape[1]))).abs().max())
+    check(gap > 1e-3, f"the window masked nothing on the wrapped ring ({gap})")
+    check(PA.paged_attention.window_launches >= before + cases + 1,
+          "the windowed checks did not launch the windowed instantiation")
+    emit({"phase": "kernel_vs_plain", "kernel": "paged_attention_window",
+          "cases": cases, "window": WINDOW, "tolerance": ATTN_TOL,
+          "max_abs_err": worst, "window_vs_full_gap": gap})
+    return {"paged_attention_window": worst}
 
 
 def check_page_ops(torch, dev):
@@ -2061,16 +2173,71 @@ def strip_eos(out, eos):
     return out
 
 
-def new_engine(torch, cfg, params, impl):
+def new_engine(torch, cfg, params, impl, device="cuda"):
     from repro_torch.serving.engine import Request, ServeEngine
     eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
-                      impl=impl)
+                      impl=impl, device=device)
     for rid, (prompt, max_new) in enumerate(serve_requests(cfg.vocab)):
         eng.submit(Request(rid=rid, prompt=prompt, max_new=max_new, eos=1))
     return eng
 
 
-def lockstep(torch, cfg, params):
+class RouterLog:
+    """Installed over ``models.core.moe`` (``with RouterLog(M) as log``):
+    each MoE call appends its router's f32 probabilities ``(T, E)`` and
+    each token's top-k set, sorted (the ``K`` experts whose outputs it
+    sums, whatever their order), computed from the call's input as
+    ``moe`` computes them, to ``log.calls``."""
+
+    def __init__(self, M):
+        self.M, self.real, self.calls = M, M.moe, []
+
+    def __enter__(self):
+        import torch
+        real = self.real
+
+        def moe(p, cfg, x2d):
+            probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+            top = torch.argsort(probs, dim=-1, descending=True,
+                                stable=True)[:, :cfg.top_k]
+            self.calls.append((probs, top.sort(dim=-1).values))
+            return real(p, cfg, x2d)
+        self.M.moe = moe
+        return self
+
+    def __exit__(self, *exc):
+        self.M.moe = self.real
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def router_flips(torch, kcalls, rcalls):
+    """The first MoE call of one decode step in which the two routes sent
+    some token to another expert set, as ``(call, [(token, gap), ...])``:
+    ``gap`` the largest difference of the token's router probabilities
+    between the routes; ``None`` when they routed every token alike.  The
+    calls after it are not looked at: their inputs carry the routing that
+    differed.  Also the largest probability difference over the calls
+    before it (the noise the routers saw)."""
+    check(len(kcalls) == len(rcalls), "the routes made different numbers "
+          "of MoE calls in one step")
+    noise = 0.0
+    for c, ((kprobs, ktop), (rprobs, rtop)) in enumerate(zip(kcalls,
+                                                             rcalls)):
+        diff = (kprobs - rprobs.to(kprobs.device)).abs().amax(dim=-1)
+        rows = (ktop != rtop.to(ktop.device)).any(dim=-1)
+        if bool(rows.any()):
+            return (c, [(t, float(diff[t])) for t in
+                        rows.nonzero().flatten().tolist()]), noise
+        noise = max(noise, float(diff.max()))
+    return None, noise
+
+
+def lockstep(torch, cfg, params, ref_params=None, ref_device="cuda",
+             max_steps=None, resync=False, routing=None, run=None,
+             strict=True):
     """The kernel route and the plain route, one decode step each in
     turn, on the same schedule.  After every step, on the slots that
     carried a request: the logits agree within SERVE_LOGIT_TOL, and where
@@ -2079,21 +2246,43 @@ def lockstep(torch, cfg, params):
     kernel route's token is a near tie: its logit on the plain route is
     within SERVE_LOGIT_TOL of the plain route's best.  The plain route
     then goes on from the kernel route's tokens, so every step of the run
-    is compared.  Returns the kernel engine, the comparison's numbers, the
-    attention inputs (block table, lengths) of the step with the most
-    valid KV rows while every slot was busy, and the longest PageS and
-    PageCP lists of a step's command batch."""
+    is compared.  ``ref_params``/``ref_device``: the plain route's
+    parameters and device (default: the kernel route's; the CPU for the
+    card-against-CPU check).  ``max_steps``: compare only the first
+    steps.  ``resync``: the plain route starts every step from the kernel
+    route's whole decode state, so that each step compares one step's
+    work.  ``routing`` (a :class:`RouterLog`): a step in which the routes
+    routed a token to different experts is excused from the logit checks
+    if, at the first MoE call that did, every such token's router
+    probabilities agreed between the routes within ``ROUTER_TIE`` (a near
+    tie of its top-k), and fails otherwise.  ``run`` names the run in its
+    line; ``strict=False`` returns the failures (``stats["failures"]``)
+    where it would fail.  Returns the kernel engine, the comparison's
+    numbers, the attention inputs (block table, lengths) of the step with
+    the most valid KV rows while every slot was busy, and the longest
+    PageS and PageCP lists of a step's command batch."""
     ek = new_engine(torch, cfg, params, "kernel")
-    er = new_engine(torch, cfg, params, "ref")
+    er = new_engine(torch, cfg, params if ref_params is None else ref_params,
+                    "ref", device=ref_device)
     most = {"page_set": 0, "page_copy": 0}
     stats = {"steps": 0, "max_logit_abs_err": 0.0, "max_abs_logit": 0.0,
              "used_tokens": 0, "near_ties": [], "page_set_steps": 0,
-             "tolerance": SERVE_LOGIT_TOL}
+             "tolerance": SERVE_LOGIT_TOL, "resync": resync,
+             "plain_device": str(ref_device)}
+    if routing is not None:
+        stats.update(router_flip_steps=0, router_flips=[],
+                     router_tie=ROUTER_TIE, router_prob_noise=0.0)
     bad, busiest, best = [], None, -1
     ek.begin()
     er.begin()
-    while True:
-        a, b = ek.step(), er.step()
+    while max_steps is None or ek.steps < max_steps:
+        if resync:
+            for name, t in ek.state.items():
+                er.state[name].copy_(t)
+        a = ek.step()
+        kcalls = routing.take() if routing is not None else None
+        b = er.step()
+        rcalls = routing.take() if routing is not None else None
         check(a == b, "kernel and plain routes disagree on the schedule")
         if not a:
             break
@@ -2103,11 +2292,36 @@ def lockstep(torch, cfg, params):
         stats["page_set_steps"] += bool(ek.batch.page_zeros)
         most["page_copy"] = max(most["page_copy"],
                                 len(ek.batch.page_copies))
-        rows = torch.tensor(ek.step_slots, device=ek.device)
-        lk = ek.logits[rows].float()
-        lr = er.logits[rows].float()
+        rows = torch.tensor(ek.step_slots)
+        lk = ek.logits.cpu()[rows].float()
+        lr = er.logits.cpu()[rows].float()
         check(bool(torch.isfinite(lk).all()),
               f"step {ek.steps}: non-finite logits on the kernel route")
+        er._cur.copy_(ek._cur)
+        if not torch.equal(er._stop_mask.cpu(), ek._stop_mask.cpu()):
+            bad.append(f"step {ek.steps}: the routes' stop masks differ")
+            break                        # the schedules part here
+        lens = ek.state["seq_lens"].clamp(max=SERVE_MAX_SEQ)
+        n = int(lens[rows.to(lens.device)].sum())
+        if len(ek.step_slots) == SERVE_SLOTS and n > best:
+            best = n
+            busiest = (ek.state["block_tables"].clone(), lens.clone())
+        if routing is not None:
+            first, noise = router_flips(torch, kcalls, rcalls)
+            stats["router_prob_noise"] = max(stats["router_prob_noise"],
+                                             noise)
+            if first is not None:
+                c, tokens = first
+                stats["router_flip_steps"] += 1
+                for t, gap in tokens:
+                    stats["router_flips"].append(
+                        {"step": ek.steps, "call": c, "token": t,
+                         "prob_gap": gap})
+                    if gap > ROUTER_TIE:
+                        bad.append(f"step {ek.steps} MoE call {c} token "
+                                   f"{t}: routed apart with router "
+                                   f"probabilities {gap} apart")
+                continue                 # this step's logits are excused
         err = float((lk - lr).abs().max())
         stats["max_logit_abs_err"] = max(stats["max_logit_abs_err"], err)
         stats["max_abs_logit"] = max(stats["max_abs_logit"],
@@ -2127,31 +2341,46 @@ def lockstep(torch, cfg, params):
                     bad.append(f"step {ek.steps} slot {slot}: the "
                                f"kernel's token is {gap} below the "
                                f"plain route's best")
-        er._cur.copy_(ek._cur)
-        check(torch.equal(er._stop_mask, ek._stop_mask),
-              f"step {ek.steps}: the routes' stop masks differ")
-        lens = ek.state["seq_lens"].clamp(max=SERVE_MAX_SEQ)
-        n = int(lens[rows].sum())
-        if len(ek.step_slots) == SERVE_SLOTS and n > best:
-            best = n
-            busiest = (ek.state["block_tables"].clone(), lens.clone())
     stats["steps"] = ek.steps
-    emit({"phase": "serve_vs_plain", **stats, "failures": bad[:8]})
-    check(not bad, f"kernel route against the plain route: {bad[:4]}")
-    check(ek.traffic.by_cat == er.traffic.by_cat and
-          ek.kv.stats == er.kv.stats, "kernel and plain routes: traffic or "
-          "page statistics differ")
+    if routing is not None:
+        stats["router_flips"] = sorted(stats["router_flips"],
+                                       key=lambda f: -f["prob_gap"])[:16]
+        stats["router_flip_share"] = stats["router_flip_steps"] / ek.steps
+        if stats["router_flip_steps"] > ROUTER_FLIP_SHARE * ek.steps:
+            bad.append(f"{stats['router_flip_steps']} of {ek.steps} steps "
+                       "routed some token apart")
+    if ek.traffic.by_cat != er.traffic.by_cat or ek.kv.stats != er.kv.stats:
+        bad.append("traffic or page statistics differ")
+    stats["failures"] = bad
+    emit({"phase": "serve_vs_plain", "arch": cfg.name, "run": run,
+          "dtype": str(ek.params["embed"].dtype).split(".")[1],
+          **stats, "failures": bad[:8], "n_failures": len(bad)})
+    check(not strict or not bad,
+          f"kernel route against the plain route: {bad[:4]}")
     return ek, stats, busiest, most
 
 
-def attention_bound_ms(B, H, Hkv, D, lens, kv_len, esize):
+def attention_bound_ms(q, kp, bt, lens, window=0):
     """Least time of one paged_attention call: q read and out written
-    once, and every K and V row up to each sequence's length read once
-    (all ``kv_len`` slots at length 0), at the HBM rate.  The
-    multiply-adds (4 * H * D per row) are far below the bf16 peak."""
-    rows = sum(min(int(n), kv_len) if n > 0 else kv_len for n in lens)
-    nbytes = (2 * B * H * D + 2 * rows * Hkv * D) * esize + 4 * B + 4 * B * (
-        (kv_len + 63) // 64)
+    once, the table and lengths read once, and each K and V pool row the
+    call attends read once: the distinct (page, offset) rows over every
+    sequence's attended slots (all ``P * page`` at length 0; with
+    ``window``, the ring slots it keeps), so a page that several tables
+    hold (a shared prefix, the windowed engine's zero page) counts once,
+    as after its first read it comes from L2.  The multiply-adds (4 * H *
+    D a row) are far below the bf16 peak."""
+    import torch
+    B, H, D = q.shape
+    page, Hkv = kp.shape[1], kp.shape[2]
+    pos = torch.arange(bt.shape[1] * page)
+    n = torch.as_tensor(lens).long().cpu()[:, None]
+    if window:
+        attended = (n - 1 - pos) % pos.numel() < window
+    else:
+        attended = (pos < n) | (n == 0)
+    rows = (bt.long().cpu()[:, pos // page] * page + pos % page)[attended]
+    nbytes = (2 * B * H * D * q.element_size() + 4 * B + 4 * bt.numel() +
+              2 * rows.unique().numel() * Hkv * D * kp.element_size())
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -2177,7 +2406,6 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
     g.manual_seed(3)
     q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
     err = attention_err(torch, q, kp, vp, bt, lens)
-    kv_len = bt.shape[1] * kp.shape[1]
     out["paged_attention"] = dict(
         ms=time_ms(torch, lambda: attn_ops.paged_decode(q, kp, vp, bt, lens),
                    2000),
@@ -2186,8 +2414,7 @@ def time_serving_kernels(torch, eng, busiest, most, errs):
         long_context=time_long_attention(torch, dev),
         plain_ms=time_ms(torch, lambda: attn_ops.paged_decode(
             q, kp, vp, bt, lens, impl="ref"), 200),
-        bound_ms=attention_bound_ms(B, H, cfg.n_kv_heads, D, lens.tolist(),
-                                    kv_len, 2),
+        bound_ms=attention_bound_ms(q, kp, bt, lens),
         library_ms=None, max_abs_err=max(errs["paged_attention"], err),
         shape=dict(q=list(q.shape), pool=list(kp.shape),
                    block_table=list(bt.shape), lens=lens.tolist(),
@@ -2273,8 +2500,8 @@ def time_long_attention(torch, dev):
                    *args), 20),
                plain_ms=time_ms(torch, lambda: attn_ops.paged_decode(
                    *args, impl="ref"), 5, warmup=1),
-               bound_ms=attention_bound_ms(B, H, Hkv, D, LONG_TIMED_LENS,
-                                           P * page, 2),
+               bound_ms=attention_bound_ms(args[0], args[1], args[3],
+                                           args[4]),
                max_abs_err=err,
                shape=dict(q=[B, H, D], pool=[B * P, page, Hkv, D],
                           block_table=[B, P], lens=list(LONG_TIMED_LENS),
@@ -2290,7 +2517,8 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
     time and the device's busy share per step (against the pace of the
     ``steps`` unprofiled steps before it, whose host time the engine
     splits into scheduling, enqueueing and polling), and paged_attention's
-    device time per launch."""
+    device time per launch.  The tables go to ``out_dir`` when one is
+    given."""
     from torch.profiler import ProfilerActivity, profile
     eng = new_engine(torch, cfg, params, "kernel")
     eng.begin()
@@ -2317,12 +2545,15 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
     launches = sum(e.count for e in ka if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
         "cuLaunchKernelEx")) / steps
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
-        f.write("\n")
-        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    out = {"phase": "serve_profile", "steps": steps,
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        tag = "" if cfg.name == SERVE_ARCH else f"_{cfg.name}"
+        with open(os.path.join(out_dir, f"serve_profile{tag}.txt"),
+                  "w") as f:
+            f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+            f.write("\n")
+            f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    out = {"phase": "serve_profile", "arch": cfg.name, "steps": steps,
            "ms_per_step_unprofiled": wall * 1e3,
            "host_ms_per_step_unprofiled": host_ms,
            "enqueue_us_per_launch": host_ms["enqueue"] * 1e3 / launches,
@@ -2331,7 +2562,8 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
            "device_busy_share": dev_us / (wall * 1e6),
            "paged_attention_device_us": (
                sum(e.self_device_time_total for e in attn) / n_attn
-               if n_attn else None)}
+               if n_attn else None),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
     return out
 
@@ -2344,46 +2576,17 @@ def phase_serve(torch, errs, profile_dir):
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
-                                       *params["blocks"][0].values(),
-                                       *params["blocks"][1].values()])
     from repro_torch.kernels.page_ops import page_ops
     from repro_torch.kernels.paged_attention import paged_attention
-    warm = new_engine(torch, cfg, params, "kernel")
-    for _ in range(SERVE_WARM_STEPS):
-        warm.step()
-    torch.cuda.synchronize()
-    del warm
-    # the timed run, on the kernels; counts set to 0 just before it
-    eng = new_engine(torch, cfg, params, "kernel")
-    counters = (paged_attention.paged_attention, page_ops.page_set,
-                page_ops.page_copy, page_ops.page_gather)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    t0 = time.time()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {c.__name__: c.launches for c in counters}
-    peak = torch.cuda.max_memory_allocated()
-    streams = {r.rid: strip_eos(r.out, r.eos) for r in done}
-    gen = sum(len(r.out) for r in done)
-    fed = sum(len(p) for p, _ in serve_requests(cfg.vocab))
-    emit({"phase": "serve", "arch": SERVE_ARCH, "params": n_params,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
-          "requests": len(SERVE_MIX), "finished": len(done),
-          "init_params_s": round(init_s, 3), "decode_steps": eng.steps,
-          "wall_s": round(wall, 3), "ms_per_step": wall / eng.steps * 1e3,
-          "generated_tokens": gen, "tokens_per_s": gen / wall,
-          "prompt_tokens": fed, "fed_tokens_per_s": (fed + gen) / wall,
-          "host_s": eng.host_s, "warm_steps": SERVE_WARM_STEPS,
-          "kv_stats": eng.kv.stats, "traffic": eng.traffic.by_cat,
-          "launches": launches, "peak_device_bytes": peak,
-          "streams": {str(k): v for k, v in sorted(streams.items())}})
-    check(len(done) == len(SERVE_MIX), "not every request finished")
+    counters = [(k, "launches") for k in (
+        paged_attention.paged_attention, page_ops.page_set,
+        page_ops.page_copy, page_ops.page_gather)]
+    line, eng = serve_run(torch, cfg, params, counters)
+    launches, streams = line["launches"], line["streams"]
+    emit({"phase": "serve", "init_params_s": round(init_s, 3),
+          "prompt_tokens": sum(len(p) for p, _ in
+                               serve_requests(cfg.vocab)),
+          "warm_steps": SERVE_WARM_STEPS, **line})
     check(launches["paged_attention"] == eng.steps * cfg.n_layers,
           f"paged_attention launches {launches['paged_attention']} != "
           f"steps x layers {eng.steps * cfg.n_layers}")
@@ -2392,14 +2595,11 @@ def phase_serve(torch, errs, profile_dir):
               f"the serve run never launched the {name} kernel")
     check(eng.kv.stats["prefix_hits"] >= 3 and eng.kv.stats["cow"] >= 1,
           f"the request mix gave no prefix hits or COW: {eng.kv.stats}")
-    for rid, out in streams.items():
-        check(0 < len(out) <= SERVE_MIX[rid][2] and any(out),
-              f"request {rid}: degenerate stream {out}")
-    check(bool(torch.isfinite(eng.logits).all()), "non-finite logits")
     # the kernel route against the plain route, step by step
     del eng
     ek, stats, busiest, most = lockstep(torch, cfg, params)
-    check({r.rid: strip_eos(r.out, r.eos) for r in ek.finished} == streams,
+    check({str(r.rid): strip_eos(r.out, r.eos) for r in ek.finished} ==
+          streams,
           "the lockstep kernel run differs from the timed run")
     # the same schedule: one page_set launch (K and V) per allocating step
     check(launches["page_set"] == stats["page_set_steps"],
@@ -2410,6 +2610,262 @@ def phase_serve(torch, errs, profile_dir):
         del ek
         serve_profile(torch, cfg, params, profile_dir)
     return launches, timing
+
+
+def time_window_attention(torch, eng, busiest, errs):
+    """The windowed paged_attention at the jamba run's shape (its layer's
+    pools, the busiest step's table and lengths) and at the wrapped ring
+    of ``WINDOW_RING_SHAPE``: through the wrapper, on the device alone,
+    its plain version, its byte bound."""
+    from repro_torch.kernels.paged_attention import ops as attn_ops
+    cfg, dev = eng.cfg, eng.device
+    bt, lens = busiest
+    kp, vp = eng.state["kpool"][0, 0], eng.state["vpool"][0, 0]
+    B, H, D = SERVE_SLOTS, cfg.n_heads, cfg.d_head
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    win = cfg.sliding_window
+    err = attention_err(torch, q, kp, vp, bt, lens, window=win)
+
+    def call(*a, impl="kernel"):
+        return lambda: attn_ops.paged_decode(*a, impl=impl, window=win)
+    ring = attention_inputs(torch, dev, *WINDOW_RING_SHAPE, torch.bfloat16,
+                            9, WINDOW_RING_TIMED_LENS)
+    ring_err = attention_err(torch, *ring, window=win)
+    rB, rH, rHkv, rD, rpage, rP = WINDOW_RING_SHAPE
+    out = dict(
+        ms=time_ms(torch, call(q, kp, vp, bt, lens), 2000),
+        device_ms=graph_ms(torch, call(q, kp, vp, bt, lens), 500),
+        plain_ms=time_ms(torch, call(q, kp, vp, bt, lens, impl="ref"), 200),
+        bound_ms=attention_bound_ms(q, kp, bt, lens, window=win),
+        library_ms=None,
+        max_abs_err=max(errs["paged_attention_window"], err, ring_err),
+        wrapped_ring=dict(
+            ms=time_ms(torch, call(*ring), 200),
+            device_ms=graph_ms(torch, call(*ring), 50),
+            plain_ms=time_ms(torch, call(*ring, impl="ref"), 10, warmup=2),
+            bound_ms=attention_bound_ms(ring[0], ring[1], ring[3], ring[4],
+                                        window=win),
+            max_abs_err=ring_err,
+            shape=dict(q=[rB, rH, rD], pool=[rB * rP, rpage, rHkv, rD],
+                       block_table=[rB, rP], lens=list(WINDOW_RING_TIMED_LENS),
+                       window=win, dtype="bfloat16")),
+        shape=dict(q=list(q.shape), pool=list(kp.shape),
+                   block_table=list(bt.shape), lens=lens.tolist(),
+                   window=win, dtype="bfloat16"))
+    del ring
+    return out
+
+
+def serve_run(torch, cfg, params, counters):
+    """A warm engine's ``SERVE_WARM_STEPS`` steps, then the timed run of
+    ``SERVE_MIX`` on the kernel route with every counter set to 0 just
+    before it: the run's line (ms a step, tok/s, launches, peak bytes,
+    streams) and the engine."""
+    from repro_torch.training.optim import tree_leaves
+    warm = new_engine(torch, cfg, params, "kernel")
+    for _ in range(SERVE_WARM_STEPS):
+        warm.step()
+    torch.cuda.synchronize()
+    del warm
+    eng = new_engine(torch, cfg, params, "kernel")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    t0 = time.time()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {attr if attr != "launches" else obj.__name__:
+                getattr(obj, attr) for obj, attr in counters}
+    gen = sum(len(r.out) for r in done)
+    fed = sum(len(p) for p, _ in serve_requests(cfg.vocab))
+    line = {"arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+            "requests": len(SERVE_MIX), "finished": len(done),
+            "decode_steps": eng.steps, "wall_s": round(wall, 3),
+            "ms_per_step": wall / eng.steps * 1e3, "generated_tokens": gen,
+            "tokens_per_s": gen / wall, "fed_tokens_per_s": (fed + gen) / wall,
+            "host_s": eng.host_s, "kv_stats": eng.kv.stats,
+            "traffic": eng.traffic.by_cat, "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "streams": {str(r.rid): strip_eos(r.out, r.eos)
+                        for r in sorted(done, key=lambda r: r.rid)}}
+    check(len(done) == len(SERVE_MIX), f"{cfg.name}: not every request "
+          "finished")
+    for rid, out in line["streams"].items():
+        check(0 < len(out) <= SERVE_MIX[int(rid)][2] and any(out),
+              f"{cfg.name} request {rid}: degenerate stream {out}")
+    check(bool(torch.isfinite(eng.logits).all()),
+          f"{cfg.name}: non-finite logits")
+    return line, eng
+
+
+def serve_jamba(torch, errs, profile_dir):
+    """jamba-v0.1-52b at full width, one hybrid period (``JAMBA_LAYERS``):
+    the timed run on the kernels (the windowed ``paged_attention`` once a
+    step, ``page_set`` on allocating steps), a profiled window, then the
+    kernel route against the plain route one step at a time
+    (``lockstep(resync=True)`` with the router's near ties accounted), and
+    the windowed kernel's timing at the run's shapes."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.kernels.page_ops import page_ops
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models import core as M
+    cfg = CONFIGS[JAMBA_ARCH].scaled(n_layers=JAMBA_LAYERS)
+    check(M.period_layout(cfg).count("attn") == 1 and
+          M.n_scan_steps(cfg) == 1, "jamba's cut is not one hybrid period")
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    counters = [(paged_attention.paged_attention, "launches"),
+                (paged_attention.paged_attention, "window_launches"),
+                (page_ops.page_set, "launches"),
+                (page_ops.page_copy, "launches"),
+                (page_ops.page_gather, "launches")]
+    line, eng = serve_run(torch, cfg, params, counters)
+    launches = line["launches"]
+    prof = serve_profile(torch, cfg, params, profile_dir, warm=SERVE_WARM_STEPS,
+                         steps=FAMILY_PROFILE_STEPS)
+    emit({"phase": "serve_jamba", "init_params_s": round(init_s, 3),
+          "window": cfg.sliding_window,
+          "pages_per_seq": eng.pages_per_seq,
+          "weight_bytes": 2 * line["params"],
+          "weight_bound_ms": 2 * line["params"] / HBM_BYTES_PER_S * 1e3,
+          "launches_per_step": prof["kernel_launches_per_step"],
+          "device_ms_per_step": prof["device_us_per_step"] / 1e3,
+          "device_busy_share": prof["device_busy_share"], **line})
+    check(launches["window_launches"] == eng.steps,
+          f"windowed paged_attention launches {launches['window_launches']}"
+          f" != steps {eng.steps} (one attention sublayer)")
+    check(launches["paged_attention"] == 0,
+          "the jamba run launched the unwindowed paged_attention")
+    check(launches["page_set"] > 0, "the jamba run never launched page_set")
+    for name in ("kpool", "vpool"):
+        check(not eng.state[name][:, :, eng.zero_page].any(),
+              "the zero page was written")
+    del eng
+    with RouterLog(M) as log:
+        ek, stats, busiest, _ = lockstep(torch, cfg, params, resync=True,
+                                         routing=log, run="seed 0")
+    timing = time_window_attention(torch, ek, busiest, errs)
+    del ek
+    router_rule(torch, cfg, params, stats)
+    del params
+    torch.cuda.empty_cache()
+    return launches["window_launches"], timing
+
+
+class PlantedFault:
+    """Installed over ``models.core.paged_decode`` (``with
+    PlantedFault(M, scale, drop_window)``): the kernel route's attention
+    output ``1 + scale`` times the kernel's, or (``drop_window``) the
+    kernel's without the window, which attends only the written slots;
+    the plain route's untouched.  A control for the lockstep rule."""
+
+    def __init__(self, M, scale, drop_window):
+        self.M, self.real = M, M.paged_decode
+        self.scale, self.drop_window = scale, drop_window
+
+    def __enter__(self):
+        real, scale, drop = self.real, self.scale, self.drop_window
+
+        def paged_decode(q, kp, vp, bt, lens, impl="kernel", window=0):
+            if impl != "kernel":
+                return real(q, kp, vp, bt, lens, impl=impl, window=window)
+            o = real(q, kp, vp, bt, lens, window=0 if drop else window)
+            return (o.float() * (1 + scale)).to(o.dtype)
+        self.M.paged_decode = paged_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.M.paged_decode = self.real
+
+
+def router_rule(torch, cfg, params, stats):
+    """The readings behind the jamba lockstep's rule: ``stats`` (the run
+    at seed 0) and the honest runs at the other ``JAMBA_SEEDS``, then the
+    runs with each of ``ROUTER_FAULTS`` planted at seed 0, which the rule
+    must fail."""
+    from repro_torch.models import core as M
+
+    def reading(st):
+        return {"router_prob_noise": st["router_prob_noise"],
+                "max_flip_gap": max([f["prob_gap"] for f in
+                                     st["router_flips"]], default=0.0),
+                "router_flip_share": st["router_flip_share"],
+                "max_logit_abs_err": st["max_logit_abs_err"],
+                "failures": len(st["failures"]),
+                "first_failure": (st["failures"] or [None])[0]}
+    honest, planted = {"seed 0": reading(stats)}, {}
+    for name, scale, drop in ROUTER_FAULTS:
+        with PlantedFault(M, scale, drop), RouterLog(M) as log:
+            _, st, _, _ = lockstep(torch, cfg, params, resync=True,
+                                   routing=log, run=f"planted: {name}",
+                                   strict=False)
+        planted[name] = reading(st)
+    for seed in JAMBA_SEEDS[1:]:
+        seeded = M.init_params(cfg, seed=seed, device="cuda")
+        with RouterLog(M) as log:
+            _, st, _, _ = lockstep(torch, cfg, seeded, resync=True,
+                                   routing=log, run=f"seed {seed}")
+        honest[f"seed {seed}"] = reading(st)
+        del seeded, st
+        torch.cuda.empty_cache()
+    emit({"phase": "router_rule", "arch": cfg.name,
+          "router_tie": ROUTER_TIE, "router_flip_share": ROUTER_FLIP_SHARE,
+          "honest": honest, "planted": planted})
+    excused = [name for name, r in planted.items() if not r["failures"]]
+    check(not excused, f"the jamba lockstep rule excused planted faults "
+          f"{excused}")
+
+
+def serve_xlstm(torch, profile_dir):
+    """xlstm-350m whole: the timed run (no hand-written kernel on its
+    path: every counter stays 0), a profiled window, then its first
+    ``XLSTM_CPU_STEPS`` decode steps on the card against the same steps on
+    the CPU with the parameters copied over, under the lockstep rule: on
+    an f32 copy, and in bf16 one step at a time (see
+    ``XLSTM_CPU_STEPS``)."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.kernels.page_ops import page_ops
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models import core as M
+    from repro_torch.training.optim import tree_map
+    cfg = CONFIGS[XLSTM_ARCH]
+    params = M.init_params(cfg, seed=0, device="cuda")
+    counters = [(paged_attention.paged_attention, "launches"),
+                (paged_attention.paged_attention, "window_launches"),
+                (page_ops.page_set, "launches"),
+                (page_ops.page_copy, "launches")]
+    line, eng = serve_run(torch, cfg, params, counters)
+    prof = serve_profile(torch, cfg, params, profile_dir, warm=SERVE_WARM_STEPS,
+                         steps=FAMILY_PROFILE_STEPS)
+    emit({"phase": "serve_xlstm",
+          "launches_per_step": prof["kernel_launches_per_step"],
+          "device_ms_per_step": prof["device_us_per_step"] / 1e3,
+          "device_busy_share": prof["device_busy_share"], **line})
+    check(not any(line["launches"].values()),
+          f"the xlstm run launched a kernel: {line['launches']}")
+    check("kpool" not in eng.state, "an xlstm decode state has KV pools")
+    del eng
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the f32 products of the card are not IEEE")
+    f32 = tree_map(lambda t: t.float(), params)
+    lockstep(torch, cfg, f32, ref_params=tree_map(lambda t: t.cpu(), f32),
+             ref_device="cpu", max_steps=XLSTM_CPU_STEPS, run="f32")
+    del f32
+    lockstep(torch, cfg, params, ref_params=tree_map(lambda t: t.cpu(),
+                                                     params),
+             ref_device="cpu", max_steps=XLSTM_CPU_STEPS, resync=True,
+             run="bf16")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2976,6 +3432,24 @@ def main():
                 kernels[-1].update(note="no path of the system calls "
                                         "page_gather; checked and timed "
                                         "alone")
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_window, t = serve_jamba(torch, errs,
+                                  args.out if args.profile else None)
+        kernels.append({
+            "name": "paged_attention_window", "route": "cuda",
+            "source": SOURCES["paged_attention_window"],
+            "replaces": REPLACES["paged_attention_window"],
+            "launches": n_window, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "wrapped_ring": t["wrapped_ring"], "shape": t["shape"],
+            "note": "the windowed instantiation of paged_attention "
+                    "(paged_attention_kernel<..., true>): jamba's ring "
+                    "under its 8192-token window; launches are the jamba "
+                    "serve run's, one a decode step"})
+        serve_xlstm(torch, args.out if args.profile else None)
     if "train" in args.only:
         launches, t = phase_train(torch, dev, errs,
                                   args.out if args.profile else None)

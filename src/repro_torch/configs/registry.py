@@ -3,8 +3,9 @@ configurations of the paper's own system (FASE on Rocket).
 
 The language-model entries are shape constants only: no weights exist
 for them, and :func:`repro_torch.models.core.init_params` makes seeded
-random ones.  The serving path runs the dense entries; the MoE, hybrid
-and xLSTM sublayers are not ported yet.  The ``FASE_*`` entries carry
+random ones.  Every layout runs through the serving and training paths:
+dense, MoE, the attention/Mamba hybrid with its sliding window, and
+xLSTM.  The ``FASE_*`` entries carry
 the target, fleet, fabric and telemetry knobs key for key with the
 reference; the modules they configure (``core/fleet``, ``core/net``,
 ``telemetry``) are ported.

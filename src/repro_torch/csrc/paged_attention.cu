@@ -47,6 +47,19 @@
 // live partials once per head, sums them (each thread's loads in flight
 // together), writes `out`, and sets the counter back to 0 for the next
 // call.  One launch a call, no memset.
+//
+// The windowed instantiation (WINDOW = true, entry
+// paged_attention_window_launch) serves a sliding window over a ring: the
+// table's P * page slots hold the last tokens of the sequence, the newest
+// one in slot (len - 1) mod (P * page), and slot t is attended iff
+// (len - 1 - t) mod (P * page) < window — the reference's decode rule,
+// which does not ask whether a slot was ever written (ref.py).  Every range
+// is live, every row is read, and a row out of the window scores -inf; the
+// masked span is the P * page - window slots after the newest one, which
+// wrap and need not be page-aligned, so a batch, a warp or a whole range
+// may hold no attended row: its running max stays -inf and adds nothing.
+// WINDOW = false is the source as it was; all it sees of the window is
+// one more field at the end of Params, which it never reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +89,7 @@ struct Params {
   int rows;              // rows of a ring chunk
   int warps;             // warps of a CTA, 4 or MAX_WARPS
   float qscale;          // log2(e) / sqrt(D)
+  int window;            // the windowed instantiation's window (> 0)
 };
 
 __device__ __forceinline__ float bits_f32(unsigned u) {
@@ -158,8 +172,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // C4: 4-element slices per lane (lane l owns dims 4 * (l + 32 c) .. + 3,
-// c < C4), so D <= 128 * C4.  GC: query heads held in registers.
-template <typename T, int C4, int GC>
+// c < C4), so D <= 128 * C4.  GC: query heads held in registers.  WINDOW:
+// the ring under a sliding window (see the top of the file).
+template <typename T, int C4, int GC, bool WINDOW>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
     paged_attention_kernel(const Params p) {
   // a batch is BATCH rows x GC heads = 32 scores: after the five xor
@@ -213,8 +228,14 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
     }
 
   const int len = p.seq_lens[b];
-  const bool uniform = len <= 0;
-  const int n_valid = uniform ? p.P * page : min(len, p.P * page);
+  const bool uniform = !WINDOW && len <= 0;
+  const int n_valid = WINDOW || uniform ? p.P * page : min(len, p.P * page);
+  // the ring slot of the newest token (WINDOW only)
+  int newest = 0;
+  if constexpr (WINDOW) {
+    newest = (len - 1) % n_valid;
+    if (newest < 0) newest += n_valid;
+  }
   // ranges 0 .. live - 1 hold rows; a CTA of a range wholly past the length
   // has nothing to do, and a sequence with one live range needs no combine
   const int span = p.pages_per_split * page;
@@ -332,16 +353,30 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
         }
         // the online softmax of the lane's score (rows past n: -inf); the
         // batch's max and sum over its rows are xor rounds over the row
-        // bits of the lane (row r0 is valid, so the new max is finite and
-        // exp2(-inf) is an exact 0)
-        const float s_me = r0 + r_me >= n ? -INFINITY : uniform ? 0.f : sc[0];
+        // bits of the lane (without a window row r0 is valid, so the new
+        // max is finite and exp2(-inf) is an exact 0)
+        float s_me = r0 + r_me >= n ? -INFINITY : uniform ? 0.f : sc[0];
+        if constexpr (WINDOW) {
+          // ring distance of the lane's row from the newest token
+          int dist = newest - (t0 + r0 + r_me);
+          if (dist < 0) dist += n_valid;
+          if (dist >= p.window) s_me = -INFINITY;
+        }
         float mx = s_me;
 #pragma unroll
         for (int o = GC; o < 32; o <<= 1)
           mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
         const float m_new = fmaxf(m_me, mx);
-        const float corr = exp2f(m_me - m_new);
-        const float p_me = exp2f(s_me - m_new);
+        float corr = exp2f(m_me - m_new);
+        float p_me = exp2f(s_me - m_new);
+        if constexpr (WINDOW) {
+          // no attended row yet (the head's max is -inf, the same on every
+          // lane: the mask is a row's): nothing to rescale or add
+          if (m_new == -INFINITY) {
+            corr = 1.f;
+            p_me = 0.f;
+          }
+        }
         float sum = p_me;
 #pragma unroll
         for (int o = GC; o < 32; o <<= 1)
@@ -525,9 +560,9 @@ size_t smem_bytes(const Params& p, int gc_max, size_t esize) {
          16 + static_cast<size_t>(p.pages_per_split) * sizeof(int);
 }
 
-template <typename T, int C4, int GC>
+template <typename T, int C4, int GC, bool WINDOW>
 int launch(const Params& p, int B, void* stream) {
-  auto kernel = paged_attention_kernel<T, C4, GC>;
+  auto kernel = paged_attention_kernel<T, C4, GC, WINDOW>;
   const size_t smem = smem_bytes(p, GC, sizeof(T));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -545,46 +580,39 @@ int launch(const Params& p, int B, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C4>
+template <typename T, int C4, bool WINDOW>
 int dispatch_gc(const Params& p, int B, void* stream) {
-  if (p.gc <= 1) return launch<T, C4, 1>(p, B, stream);
-  if (p.gc <= 2) return launch<T, C4, 2>(p, B, stream);
-  if (p.gc <= 4) return launch<T, C4, 4>(p, B, stream);
+  if (p.gc <= 1) return launch<T, C4, 1, WINDOW>(p, B, stream);
+  if (p.gc <= 2) return launch<T, C4, 2, WINDOW>(p, B, stream);
+  if (p.gc <= 4) return launch<T, C4, 4, WINDOW>(p, B, stream);
   if constexpr (C4 <= 2)
-    if (p.gc <= 8) return launch<T, C4, 8>(p, B, stream);
+    if (p.gc <= 8) return launch<T, C4, 8, WINDOW>(p, B, stream);
   if constexpr (C4 == 1)
-    if (p.gc <= 16) return launch<T, C4, 16>(p, B, stream);
+    if (p.gc <= 16) return launch<T, C4, 16, WINDOW>(p, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, bool WINDOW>
 int dispatch(const Params& p, int B, void* stream) {
-  if (p.D <= 128) return dispatch_gc<T, 1>(p, B, stream);
-  if (p.D <= 256) return dispatch_gc<T, 2>(p, B, stream);
-  if (p.D <= 512) return dispatch_gc<T, 4>(p, B, stream);
+  if (p.D <= 128) return dispatch_gc<T, 1, WINDOW>(p, B, stream);
+  if (p.D <= 256) return dispatch_gc<T, 2, WINDOW>(p, B, stream);
+  if (p.D <= 512) return dispatch_gc<T, 4, WINDOW>(p, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16 (q, the pools and out alike).  gc,
-// splits, pages_per_split, rows and warps are the wrapper's plan
-// (paged_attention.py::plan); part and counters its workspace (unused
-// with one split).  Returns the CUDA error of the launch (0 = launched).
-int paged_attention_launch(const void* q, const void* kpool,
-                           const void* vpool, const int* block_table,
-                           const int* seq_lens, void* out, void* part,
-                           void* counters, int B, int H, int Hkv, int D,
-                           int page, int P, int dtype, int gc, int splits,
-                           int pages_per_split, int rows, int warps,
-                           void* stream) {
+// Both entries: the checks, the Params, the dtype's instantiation.
+template <bool WINDOW>
+int launch_entry(const void* q, const void* kpool, const void* vpool,
+                 const int* block_table, const int* seq_lens, void* out,
+                 void* part, void* counters, int B, int H, int Hkv, int D,
+                 int page, int P, int dtype, int gc, int splits,
+                 int pages_per_split, int rows, int warps, int window,
+                 void* stream) {
   const int G = Hkv > 0 ? H / Hkv : 0;
   if (B < 1 || G < 1 || gc < 1 || splits < 1 || rows < 1 ||
       (warps != 4 && warps != MAX_WARPS) ||
       pages_per_split < 1 || (splits - 1) * pages_per_split >= P ||
-      splits * pages_per_split < P)
+      splits * pages_per_split < P || (WINDOW && window < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -607,9 +635,46 @@ int paged_attention_launch(const void* q, const void* kpool,
   p.rows = rows;
   p.warps = warps;
   p.qscale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  if (dtype == 0) return dispatch<float>(p, B, stream);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, stream);
+  p.window = window;
+  if (dtype == 0) return dispatch<float, WINDOW>(p, B, stream);
+  if (dtype == 1) return dispatch<__nv_bfloat16, WINDOW>(p, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, the pools and out alike).  gc,
+// splits, pages_per_split, rows and warps are the wrapper's plan
+// (paged_attention.py::plan); part and counters its workspace (unused
+// with one split).  Returns the CUDA error of the launch (0 = launched).
+int paged_attention_launch(const void* q, const void* kpool,
+                           const void* vpool, const int* block_table,
+                           const int* seq_lens, void* out, void* part,
+                           void* counters, int B, int H, int Hkv, int D,
+                           int page, int P, int dtype, int gc, int splits,
+                           int pages_per_split, int rows, int warps,
+                           void* stream) {
+  return launch_entry<false>(q, kpool, vpool, block_table, seq_lens, out,
+                             part, counters, B, H, Hkv, D, page, P, dtype,
+                             gc, splits, pages_per_split, rows, warps, 0,
+                             stream);
+}
+
+// The same under a sliding window of `window` >= 1 tokens: seq_lens counts
+// each row's tokens, the new one included, and the table is its ring.
+int paged_attention_window_launch(const void* q, const void* kpool,
+                                  const void* vpool, const int* block_table,
+                                  const int* seq_lens, void* out, void* part,
+                                  void* counters, int B, int H, int Hkv,
+                                  int D, int page, int P, int dtype, int gc,
+                                  int splits, int pages_per_split, int rows,
+                                  int warps, int window, void* stream) {
+  return launch_entry<true>(q, kpool, vpool, block_table, seq_lens, out,
+                            part, counters, B, H, Hkv, D, page, P, dtype, gc,
+                            splits, pages_per_split, rows, warps, window,
+                            stream);
 }
 
 }  // extern "C"

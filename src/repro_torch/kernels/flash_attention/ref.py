@@ -3,7 +3,8 @@
 :func:`attention_ref` is the reference's oracle
 (``repro/kernels/flash_attention/ref.py``) on ``(BH, S, D)``: scores in
 f32 scaled ``1/sqrt(D)``, an optional causal mask by index written as
-``-1e30``, a softmax over the keys and ``p @ v`` in f32, the output in
+``-1e30`` (with a sliding ``window``, also keys ``window`` or more
+positions before the query: ``_online_attn``'s mask), a softmax over the keys and ``p @ v`` in f32, the output in
 ``q``'s dtype.  :func:`flash_mha_ref` is the same on the model's layout
 ``(B, S, H, D)`` with ``(B, S, Hkv, D)`` keys and values — the GQA fold of
 ``repro/kernels/flash_attention/ops.py``: query head ``h`` reads KV head
@@ -36,18 +37,20 @@ NEG = -1e30
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 
 
-def attention_ref(q, k, v, causal=True):
+def attention_ref(q, k, v, causal=True, window=0):
     BH, S, D = q.shape
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
     if causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        if window:
+            mask = mask & ~torch.ones_like(mask).tril(-window)
         s = torch.where(mask[None], s, NEG)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def flash_mha_ref(q, k, v, causal=True):
+def flash_mha_ref(q, k, v, causal=True, window=0):
     """q ``(B, S, H, D)``, k/v ``(B, S, Hkv, D)`` -> ``(B, S, H, D)``."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
@@ -56,7 +59,7 @@ def flash_mha_ref(q, k, v, causal=True):
 
     def fold(x):
         return x.transpose(1, 2).reshape(B * H, S, D)
-    o = attention_ref(fold(q), fold(kr), fold(vr), causal)
+    o = attention_ref(fold(q), fold(kr), fold(vr), causal, window)
     return o.reshape(B, H, S, D).transpose(1, 2)
 
 

@@ -14,9 +14,14 @@ from .ref import paged_attention_ref
 IMPLS = ("kernel", "ref")
 
 
-def paged_decode(q, kpool, vpool, block_table, seq_lens, impl="kernel"):
+def paged_decode(q, kpool, vpool, block_table, seq_lens, impl="kernel",
+                 window=0):
+    """``window`` > 0: the block table is a ring, attended by distance from
+    the new token (see :mod:`.ref`)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel" and q.is_cuda:
-        return paged_attention(q, kpool, vpool, block_table, seq_lens)
-    return paged_attention_ref(q, kpool, vpool, block_table, seq_lens)
+        return paged_attention(q, kpool, vpool, block_table, seq_lens,
+                               window)
+    return paged_attention_ref(q, kpool, vpool, block_table, seq_lens,
+                               window)

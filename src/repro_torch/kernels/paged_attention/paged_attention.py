@@ -9,7 +9,11 @@ and combines their partial softmaxes in the same launch
 (:func:`plan` picks the split from the shapes and the SM count).  The
 library is built and loaded at the first call, never at import.  Page ids
 must lie in ``[0, NP)``: the kernel does not check them (that would cost a
-host sync).
+host sync).  A sliding window launches the kernel's windowed
+instantiation (``paged_attention_window_launch``, counted in
+``paged_attention.window_launches``); ``window = 0`` launches the
+untouched one (``paged_attention_launch``, counted in
+``paged_attention.launches``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+#: the windowed entry's: ``window`` before the stream
+_WINDOW_ARGS = _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
 #: the kernel's ring stages per warp (paged_attention.cu), and its warps
 #: per CTA: 4, or 8 for a range of at most ``SHORT_CHUNKS`` chunks
@@ -144,14 +150,16 @@ def _check(q, kpool, vpool, block_table, seq_lens):
     return dev, ws, ws[0].data_ptr(), ws[1].data_ptr(), tail
 
 
-def paged_attention(q, kpool, vpool, block_table, seq_lens):
+def paged_attention(q, kpool, vpool, block_table, seq_lens, window=0):
     """Same contract as :func:`~repro_torch.kernels.paged_attention.ref.\
 paged_attention_ref`, for CUDA tensors: ``q`` ``(B, H, D)`` and the pools
     ``(NP, page, Hkv, D)`` all float32 or all bfloat16, ``block_table``
     ``(B, P)`` and ``seq_lens`` ``(B,)`` int32.  ``D`` times the element
     size must be a multiple of 16 bytes, and ``D`` at most ``D_MAX``.
     Returns ``(B, H, D)`` in ``q``'s dtype; one launch on the current
-    stream, no synchronisation.  The partials of a split sequence live in
+    stream, no synchronisation.  ``window`` > 0 reads the table as the
+    ring of a sliding window (the windowed instantiation; see
+    :mod:`.ref`).  The partials of a split sequence live in
     a per-device workspace that calls share in stream order (see
     :func:`workspace`)."""
     key = (q.device, q.dtype, q.shape, kpool.shape, vpool.shape,
@@ -170,13 +178,22 @@ paged_attention_ref`, for CUDA tensors: ``q`` ``(B, H, D)`` and the pools
                          "16-byte aligned addresses")
     out = torch.empty_like(q)
     stream = _build.current_stream(dev)
+    args = (qp, kp, vp, block_table.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), part, counters, *tail)
+    if window:
+        _build.launch("paged_attention", _build.entry(
+            "paged_attention", "paged_attention_window_launch",
+            _WINDOW_ARGS), (*args, int(window), stream), dev)
+        paged_attention.window_launches += 1
+        return out
     _build.launch("paged_attention", _build.entry(
         "paged_attention", "paged_attention_launch", _ARGS),
-        (qp, kp, vp, block_table.data_ptr(), seq_lens.data_ptr(),
-         out.data_ptr(), part, counters, *tail, stream), dev)
+        (*args, stream), dev)
     paged_attention.launches += 1
     return out
 
 
-#: launches of the CUDA kernel since the counter was last set to 0
+#: launches of the CUDA kernel since the counter was last set to 0: the
+#: instantiation without a window, and the windowed one
 paged_attention.launches = 0
+paged_attention.window_launches = 0

@@ -1,10 +1,11 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch qwen3-8b``
 
 Seeded random parameters (no weights are needed), a continuous-batching
-:class:`~repro_torch.serving.engine.ServeEngine` over the paged KV cache,
-``--requests`` short prompts.  Runs on the GPU; ``--device cpu`` asks for
-the CPU (``--smoke`` shrinks the model to a CPU-sized one of the same
-family).
+:class:`~repro_torch.serving.engine.ServeEngine` over the paged KV cache
+and the recurrent states, ``--requests`` short prompts.  ``--arch`` is
+any model of the registry (dense, MoE, the jamba hybrid, xLSTM).  Runs
+on the GPU; ``--device cpu`` asks for the CPU (``--smoke`` shrinks the
+model to a CPU-sized one of the same family).
 """
 from __future__ import annotations
 

@@ -41,26 +41,35 @@ def opt_state_from_jax(state, device="cuda"):
                                  dtype=torch.int32, device=device)}
 
 
+#: the recurrent leaves of a decode state: the same layout in both packages
+RECURRENT = ("mamba_h", "mamba_conv", "mlstm_C", "slstm_h", "slstm_c")
+
+
 def decode_state_from_jax(state, device="cuda"):
     """The reference's decode state with its per-row pools ``(steps,
     n_attn, B, P, page, Hkv, D)`` as the port's global pools ``(steps,
     n_attn, B * P, page, Hkv, D)``: row ``b``'s page ``j`` becomes global
     page ``b * P + j``, so its block table is offset by ``b * P``.  Exact
-    wherever the reference is well defined (every id below ``P``)."""
-    kp = np.asarray(state["kpool"])
-    steps, n_attn, B, P = kp.shape[:4]
+    wherever the reference is well defined (every id below ``P``).  A
+    state without pools (a layout with no attention) keeps its table as
+    it is; the recurrent states carry over as they are, f32 as f32."""
     bt = np.asarray(state["block_tables"]).astype(np.int64)
-    if bt.min() < 0 or bt.max() >= P:
-        raise ValueError("decode_state_from_jax: the reference reads page "
-                         f"ids >= {P} from the wrong row; got ids in "
-                         f"[{bt.min()}, {bt.max()}]")
-    out = {
-        "seq_lens": _tensor(np.asarray(state["seq_lens"], np.int32), device),
-        "block_tables": _tensor(
-            (bt + P * np.arange(B)[:, None]).astype(np.int32), device),
-    }
-    for name in ("kpool", "vpool"):
-        a = np.asarray(state[name])
-        out[name] = _tensor(a.reshape(steps, n_attn, B * P, *a.shape[4:]),
-                            device)
+    out = {"seq_lens": _tensor(np.asarray(state["seq_lens"], np.int32),
+                               device)}
+    if "kpool" in state:
+        kp = np.asarray(state["kpool"])
+        steps, n_attn, B, P = kp.shape[:4]
+        if bt.min() < 0 or bt.max() >= P:
+            raise ValueError("decode_state_from_jax: the reference reads "
+                             f"page ids >= {P} from the wrong row; got ids "
+                             f"in [{bt.min()}, {bt.max()}]")
+        bt = bt + P * np.arange(B)[:, None]
+        for name in ("kpool", "vpool"):
+            a = np.asarray(state[name])
+            out[name] = _tensor(a.reshape(steps, n_attn, B * P,
+                                          *a.shape[4:]), device)
+    out["block_tables"] = _tensor(bt.astype(np.int32), device)
+    for name in RECURRENT:
+        if name in state:
+            out[name] = _tensor(state[name], device)
     return out

@@ -1,16 +1,18 @@
-"""Model substrate of the port: the dense decoder, for training and
-serving.
+"""Model substrate of the port: every layout of the registry, for training
+and serving.
 
 The counterpart of :mod:`repro.models.core`: the primitives
-(:func:`rmsnorm`, :func:`rope`, :func:`swiglu`), the parameter layout and
-seeded initialisation (:func:`init_params`, plain dictionaries of tensors
-stacked over layers, as the reference's pytrees), the training / prefill
-:func:`forward` and :func:`loss_fn`, the paged KV cache
-(:func:`make_decode_state`) and one decode step (:func:`decode_step`).
-PyTorch runs eagerly, so the reference's layer ``lax.scan`` is a Python
-loop, ``jax.checkpoint`` around a layer is
-``torch.utils.checkpoint.checkpoint`` and the decode state is updated in
-place.
+(:func:`rmsnorm`, :func:`rope`, :func:`swiglu`), the sublayers
+(:func:`attention`, :func:`moe`, :func:`mamba`, :func:`mlstm`,
+:func:`slstm`), the parameter layout and seeded initialisation
+(:func:`init_params`, plain dictionaries of tensors stacked over scan
+steps, as the reference's pytrees), the training / prefill
+:func:`forward` and :func:`loss_fn`, the decode state
+(:func:`make_decode_state`: a paged KV cache and the recurrent states) and
+one decode step (:func:`decode_step`).  PyTorch runs eagerly, so the
+reference's scan over layers is a Python loop, ``jax.checkpoint`` around a
+scan step is ``torch.utils.checkpoint.checkpoint`` and the decode state is
+updated in place.
 
 The KV cache is one **global** page pool per K and V, ``(steps, n_attn,
 NP, page, Hkv, D)``, addressed by the block table — the contract of the
@@ -20,17 +22,21 @@ serving engine's global page ids, which is only well defined while every
 id is below ``pages_per_seq``; where it is, the global pool gives the
 same numbers (flatten the rows to ``B * pages_per_seq`` pages and offset
 row ``b``'s table by ``b * pages_per_seq``, as
-:func:`repro_torch.models.convert.decode_state_from_jax` does).
+:func:`repro_torch.models.convert.decode_state_from_jax` does).  Under a
+sliding window the cache is the reference's ring of ``min(max_seq, window
++ PAGE_SIZE)`` slots, and decode attends to ring slot ``t`` iff ``(seq_len
+- t) mod ring < window`` — slots never written included, as the reference
+does (ROADMAP Queue C, "Recorded").
 
 Attention goes through the ported kernels: :func:`forward` through
 :func:`repro_torch.kernels.flash_attention.ops.flash_mha` (the reference
 calls its own ``_online_attn``, the same function: ``q`` scaled in f32
-first, the causal mask by index, an f32 softmax), decode through
-:func:`repro_torch.kernels.paged_attention.ops.paged_decode`.  The matrix
-products stay ``torch.matmul``, as the reference leaves them to XLA.  Only
-the dense layout (``["attn", "mlp"]``, full attention) is ported: MoE,
-Mamba and xLSTM sublayers and sliding windows raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+first, the causal and window masks by index, an f32 softmax), decode
+through :func:`repro_torch.kernels.paged_attention.ops.paged_decode`.  The
+MoE dispatch, the scans and the recurrences have no Pallas twin in the
+reference (it leaves them to XLA) and stay plain PyTorch; every product
+stays ``torch.matmul``.  bf16 values are rounded after every operation,
+as the reference's operations round them.
 """
 from __future__ import annotations
 
@@ -47,10 +53,11 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 I32 = torch.int32
 
+SSM_CHUNK = 256
 PAGE_SIZE = 64          # tokens per KV page
 
-_NOT_PORTED = ("ROADMAP Queue A 9b: only the dense decoder is ported; {} "
-               "is not")
+#: the sublayers that carry decode state, in the state's key order
+_STATEFUL = ("attn", "mamba", "mlstm", "slstm")
 
 
 def resolve_device(device) -> torch.device:
@@ -102,17 +109,25 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``
+    in ``x``'s dtype, rounded after every operation.  Not ``F.softplus``,
+    which returns ``x`` itself above a threshold of 20."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def swiglu(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
 
 
 # ---------------------------------------------------------------------------
-# parameters (stacked over layers, as the reference's scan carries them)
+# parameters (stacked over scan steps, as the reference's scan carries them)
 # ---------------------------------------------------------------------------
 def _dense_init(gen, shape, scale=None, steps=None):
-    """bf16 ``N(0, scale^2)``, ``scale = 1/sqrt(fan_in)`` by default; with
+    """bf16 ``N(0, scale^2)``, ``scale = 1/sqrt(shape[0])`` by default (the
+    reference's fan-in: the expert count for an expert stack); with
     ``steps``, ``steps`` such tensors stacked, drawn one at a time so the
-    f32 draw never holds more than one layer."""
+    f32 draw never holds more than one scan step."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale or (1.0 / math.sqrt(fan_in))
     dev = gen.device
@@ -128,19 +143,22 @@ def _dense_init(gen, shape, scale=None, steps=None):
     return out
 
 
+def _full(gen, shape, value, steps, dtype=BF16):
+    return torch.full((steps, *shape), value, dtype=dtype, device=gen.device)
+
+
 def _attn_params(gen, cfg: ModelConfig, steps):
     d, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    dev = gen.device
     p = {
         "wq": _dense_init(gen, (d, H * D), steps=steps),
         "wk": _dense_init(gen, (d, Hkv * D), steps=steps),
         "wv": _dense_init(gen, (d, Hkv * D), steps=steps),
         "wo": _dense_init(gen, (H * D, d), steps=steps),
-        "norm": torch.ones((steps, d), dtype=BF16, device=dev),
+        "norm": _full(gen, (d,), 1.0, steps),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((steps, D), dtype=BF16, device=dev)
-        p["k_norm"] = torch.ones((steps, D), dtype=BF16, device=dev)
+        p["q_norm"] = _full(gen, (D,), 1.0, steps)
+        p["k_norm"] = _full(gen, (D,), 1.0, steps)
     return p
 
 
@@ -150,7 +168,65 @@ def _mlp_params(gen, cfg: ModelConfig, steps):
         "w_gate": _dense_init(gen, (d, ff), steps=steps),
         "w_in": _dense_init(gen, (d, ff), steps=steps),
         "w_out": _dense_init(gen, (ff, d), steps=steps),
-        "norm": torch.ones((steps, d), dtype=BF16, device=gen.device),
+        "norm": _full(gen, (d,), 1.0, steps),
+    }
+
+
+def _moe_params(gen, cfg: ModelConfig, steps):
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": _dense_init(gen, (d, E), scale=0.02, steps=steps),
+        "w_gate": _dense_init(gen, (E, d, ff), steps=steps),
+        "w_in": _dense_init(gen, (E, d, ff), steps=steps),
+        "w_out": _dense_init(gen, (E, ff, d), steps=steps),
+        "norm": _full(gen, (d,), 1.0, steps),
+    }
+
+
+def _mamba_params(gen, cfg: ModelConfig, steps):
+    d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    # A_log stays f32, as in the reference
+    a_log = torch.log(torch.arange(1, N + 1, dtype=F32, device=gen.device)
+                      / 2.0)
+    return {
+        "w_in": _dense_init(gen, (d, 2 * di), steps=steps),
+        "conv_w": _dense_init(gen, (W, di), scale=0.2, steps=steps),
+        "w_dt": _dense_init(gen, (di, di), scale=0.01, steps=steps),
+        "dt_bias": _full(gen, (di,), 0.0, steps),
+        "w_B": _dense_init(gen, (di, N), steps=steps),
+        "w_C": _dense_init(gen, (di, N), steps=steps),
+        "A_log": a_log.expand(steps, di, N).contiguous(),
+        "d_skip": _full(gen, (di,), 1.0, steps),
+        "w_out": _dense_init(gen, (di, d), steps=steps),
+        "norm": _full(gen, (d,), 1.0, steps),
+    }
+
+
+def _mlstm_params(gen, cfg: ModelConfig, steps):
+    d = cfg.d_model
+    return {
+        "wq": _dense_init(gen, (d, d), steps=steps),
+        "wk": _dense_init(gen, (d, d), steps=steps),
+        "wv": _dense_init(gen, (d, d), steps=steps),
+        "wf": _dense_init(gen, (d, cfg.n_heads), scale=0.02, steps=steps),
+        "wi": _dense_init(gen, (d, cfg.n_heads), scale=0.02, steps=steps),
+        "wo": _dense_init(gen, (d, d), steps=steps),
+        "out_norm": _full(gen, (d,), 1.0, steps),
+        "norm": _full(gen, (d,), 1.0, steps),
+    }
+
+
+def _slstm_params(gen, cfg: ModelConfig, steps):
+    d = cfg.d_model
+    return {
+        "w_z": _dense_init(gen, (d, d), steps=steps),
+        "w_f": _dense_init(gen, (d, d), steps=steps),
+        "w_i": _dense_init(gen, (d, d), steps=steps),
+        "w_o": _dense_init(gen, (d, d), steps=steps),
+        # bf16 values held in f32, as in the reference
+        "r": _dense_init(gen, (d, d), scale=0.02, steps=steps).float(),
+        "w_out": _dense_init(gen, (d, d), steps=steps),
+        "norm": _full(gen, (d,), 1.0, steps),
     }
 
 
@@ -187,33 +263,29 @@ def n_scan_steps(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
-def _check_dense(cfg: ModelConfig):
-    layout = period_layout(cfg)
-    if layout != ["attn", "mlp"]:
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"{cfg.name}'s {cfg.arch_type} layout {layout}"))
-    if cfg.sliding_window:
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"{cfg.name}'s sliding-window attention"))
+_SUBLAYER_INIT = {
+    "attn": _attn_params, "mlp": _mlp_params, "moe": _moe_params,
+    "mamba": _mamba_params, "mlstm": _mlstm_params, "slstm": _slstm_params,
+}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Seeded random parameters in the reference's layout (``embed``,
-    ``blocks`` = one dict per sublayer of the layout with every leaf
-    stacked over layers, ``final_norm``, ``lm_head`` unless tied), bf16,
-    on ``device``.  A ``torch.Generator`` on that device draws them, so
-    the numbers differ from the reference's ``jax.random`` ones; tests
-    carry the reference's parameters over with
+    ``blocks`` = one dict per sublayer of :func:`period_layout` with every
+    leaf stacked over scan steps, ``final_norm``, ``lm_head`` unless
+    tied), bf16 but for the f32 ``A_log`` and ``r``, on ``device``.  A
+    ``torch.Generator`` on that device draws them, so the numbers differ
+    from the reference's ``jax.random`` ones; tests carry the reference's
+    parameters over with
     :func:`repro_torch.models.convert.params_from_jax`."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     steps = n_scan_steps(cfg)
     params = {
         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
-        "blocks": [_attn_params(gen, cfg, steps),
-                   _mlp_params(gen, cfg, steps)],
+        "blocks": [_SUBLAYER_INIT[name](gen, cfg, steps)
+                   for name in period_layout(cfg)],
         "final_norm": torch.ones((cfg.d_model,), dtype=BF16, device=dev),
     }
     if not cfg.tied_embeddings:
@@ -223,12 +295,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# forward (training / prefill)
+# sublayers
 # ---------------------------------------------------------------------------
 def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     """Causal self-attention over the whole sequence (the reference's
     ``attention`` without a cache) with GQA, RoPE (``cos``/``sin`` from
-    :func:`rope_angles`) and qk-norm."""
+    :func:`rope_angles`), qk-norm and the config's sliding window.
+    Returns ``(out, k, v)``: the keys after RoPE and the values, the
+    cache a prefill leaves."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ p["wq"]).reshape(B, S, H, D)
@@ -239,42 +313,270 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope_apply(q, cos, sin)
     k = rope_apply(k, cos, sin)
-    o = flash_mha(q, k, v, causal=True, impl=impl)
-    return o.reshape(B, S, H * D) @ p["wo"]
+    window = {"window": cfg.sliding_window} if cfg.sliding_window else {}
+    o = flash_mha(q, k, v, causal=True, impl=impl, **window)
+    return o.reshape(B, S, H * D) @ p["wo"], k, v
 
 
-def _layer(cfg, layer, x, cos, sin, impl):
-    """One scan step of the dense layout: ``attn`` then ``mlp``, each
-    ``x + f(rmsnorm(x))`` (the reference's ``_apply_sublayer``)."""
-    attn, mlp = layer
-    x = x + attention(attn, cfg, rmsnorm(x, attn["norm"], cfg.norm_eps),
-                      cos, sin, impl)
-    return x + swiglu(mlp, rmsnorm(x, mlp["norm"], cfg.norm_eps))
+def moe(p, cfg: ModelConfig, x2d):
+    """Sort-based capacity-dispatch MoE (the reference's ``moe``): ``x2d``
+    ``(T, d)`` -> ``((T, d), aux)``.  Each token's top-``K`` experts by
+    the f32 router softmax (ties to the lower index, as ``lax.top_k``),
+    gates renormalised over the ``K``; the ``T * K`` assignments sorted by
+    expert (stable, as ``jnp.argsort``), each expert taking at most ``C =
+    int(capacity_factor * T * K / E) + 1`` in that order.  A dropped
+    assignment adds zeros into its expert's slot ``C - 1`` and gets no
+    output.  Every expert runs on its ``C`` slots; a token's ``K``
+    contributions are summed in bf16 in the sorted order.  ``aux`` is the
+    Switch balance loss ``E * sum(mean(probs) * share of assignments)``."""
+    T, d = x2d.shape
+    E, K = cfg.n_experts, cfg.top_k
+    dev = x2d.device
+    logits = x2d.float() @ p["router"].float()                # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :K]
+    gate_vals = probs.gather(1, idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    me = probs.mean(0)
+    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * K)
+    aux = E * (me * ce).sum()
+
+    C = int(cfg.capacity_factor * T * K / E) + 1
+    e_flat = idx.reshape(-1)                                  # (T*K,)
+    tok_flat = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(e_flat, stable=True)
+    e_s, tok_s = e_flat[order], tok_flat[order]
+    g_s = gate_vals.reshape(-1)[order]
+    start = torch.searchsorted(e_s, torch.arange(E, device=dev))
+    pos = torch.arange(T * K, device=dev) - start[e_s]
+    keep = pos < C
+    row = e_s * C + torch.where(keep, pos, C - 1)
+    buf = x2d.new_zeros((E * C, d)).index_add(
+        0, row, x2d[tok_s] * keep[:, None].to(x2d.dtype)).view(E, C, d)
+    h = torch.bmm(buf, p["w_gate"])
+    h2 = torch.bmm(buf, p["w_in"])
+    out_buf = torch.bmm(silu(h) * h2, p["w_out"]).view(E * C, d)
+    contrib = out_buf[row] * (g_s * keep.float())[:, None].to(x2d.dtype)
+    # back to (token, k); a token's contributions in sorted (expert) order
+    per_tok = torch.empty_like(contrib).index_copy(0, order, contrib)
+    per_tok = per_tok.view(T, K, d)
+    rank = (idx[:, None, :] < idx[:, :, None]).sum(-1)        # (T, K)
+    per_tok = per_tok.gather(
+        1, rank.argsort(dim=1)[..., None].expand(T, K, d))
+    y = x2d.new_zeros((T, d))
+    for r in range(K):
+        y = y + per_tok[:, r]
+    return y, aux
+
+
+def _linear_scan(a, b):
+    """Inclusive scan over axis 1 of ``h_t = a_t * h_{t-1} + b_t`` from
+    ``h_{-1} = 0``: the cumulative products of ``a`` and the states, by the
+    reference's combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)`` in
+    ``ceil(log2(c))`` vectorised steps (``lax.associative_scan`` combines
+    in another order, so the f32 results differ in rounding)."""
+    n, s = a.shape[1], 1
+    while s < n:
+        a, b = (torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], 1),
+                torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], 1))
+        s *= 2
+    return a, b
+
+
+def mamba(p, cfg: ModelConfig, x, state=None):
+    """The reference's chunked selective scan.  ``x`` ``(B, S, d)``;
+    ``state`` ``(h (B, di, N) f32, conv (B, W - 1, di))`` for decode.
+    Returns ``(out, (h, conv))``."""
+    B, S, d = x.shape
+    di, N, W = cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    # causal depthwise conv1d: a Python sum of W bf16 products, in order
+    pad = xi.new_zeros((B, W - 1, di)) if state is None else state[1]
+    xc = torch.cat([pad, xi], dim=1)
+    new_conv = xc[:, -(W - 1):, :]
+    kern = p["conv_w"]
+    xi = sum(xc[:, w:w + S, :] * kern[w] for w in range(W))
+    xi = silu(xi)
+    dt = softplus(xi @ p["w_dt"] + p["dt_bias"])              # (B,S,di)
+    Bm = xi @ p["w_B"]                                        # (B,S,N)
+    Cm = xi @ p["w_C"]
+    A = -torch.exp(p["A_log"].float())                        # (di,N)
+    decay = torch.exp(dt.float()[..., None] * A)              # (B,S,di,N)
+    drive = (dt.float() * xi.float())[..., None] * \
+        Bm.float()[:, :, None, :]
+
+    nchunk = max(S // SSM_CHUNK, 1)
+    c = S // nchunk
+    decay_c = decay.reshape(B, nchunk, c, di, N)
+    drive_c = drive.reshape(B, nchunk, c, di, N)
+    C_c = Cm.float().reshape(B, nchunk, c, N)
+    h = x.new_zeros((B, di, N), dtype=F32) if state is None else \
+        state[0].float()
+    ys = []
+    for j in range(nchunk):
+        cdec, cdrv = _linear_scan(decay_c[:, j], drive_c[:, j])
+        h_all = cdec * h[:, None] + cdrv                      # (B,c,di,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c[:, j]))
+        h = h_all[:, -1]
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    y = y + xi * p["d_skip"]
+    out = (y * silu(z)) @ p["w_out"]
+    return out, (h, new_conv)
+
+
+def mlstm(p, cfg: ModelConfig, x, state=None):
+    """The reference's chunked gated linear attention.  ``state`` ``C``
+    ``(B, H, D, D)`` f32 for decode; returns ``(out, C)``."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    D = d // H
+    q = (x @ p["wq"]).reshape(B, S, H, D)
+    k = (x @ p["wk"]).reshape(B, S, H, D) / math.sqrt(D)
+    v = (x @ p["wv"]).reshape(B, S, H, D)
+    f = torch.sigmoid((x @ p["wf"]).reshape(B, S, H).float())
+    i = torch.exp(-softplus(-(x @ p["wi"]).reshape(B, S, H).float()))
+
+    nchunk = max(S // SSM_CHUNK, 1)
+    c = S // nchunk
+    qc, kc, vc = (t.float().reshape(B, nchunk, c, H, D) for t in (q, k, v))
+    fc, ic = f.reshape(B, nchunk, c, H), i.reshape(B, nchunk, c, H)
+    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    C = x.new_zeros((B, H, D, D), dtype=F32) if state is None else \
+        state.float()
+    ys = []
+    for j in range(nchunk):
+        qj, kj, vj, fj, ij = qc[:, j], kc[:, j], vc[:, j], fc[:, j], ic[:, j]
+        logf = torch.log(fj.clamp(min=1e-9))                  # (B,c,H)
+        cum = torch.cumsum(logf, dim=1)
+        total = cum[:, -1:]
+        # intra-chunk causal gated attention; pairwise log-decay
+        cum_h = cum.transpose(1, 2)                           # (B,H,c)
+        dec = torch.exp((cum_h[:, :, :, None] - cum_h[:, :, None, :])
+                        .clamp(max=0.0))
+        w = dec * ij.transpose(1, 2)[:, :, None, :]
+        s = torch.einsum("bqhd,bkhd->bhqk", qj, kj) * w
+        s = torch.where(mask, s, 0.0)
+        intra = torch.einsum("bhqk,bkhd->bqhd", s, vj)
+        # inter-chunk: q_t * decay(0..t) @ C
+        inter = torch.einsum("bqhd,bhde->bqhe",
+                             qj * torch.exp(cum)[..., None], C)
+        wk = ij * torch.exp(total - cum)                      # decay t..end
+        C = C * torch.exp(total)[:, 0, :, None, None] + \
+            torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
+        ys.append(intra + inter)
+    y = torch.cat(ys, dim=1).reshape(B, S, H * D).to(x.dtype)
+    y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
+    return y @ p["wo"], C
+
+
+def slstm(p, cfg: ModelConfig, x, state=None):
+    """Scalar-memory LSTM with recurrent mixing, one step at a time.
+    ``state`` ``(h, c)`` ``(B, d)`` f32 for decode; returns ``(out, (h,
+    c))``.  ``h @ r`` is an f32 product (TF32 stays off, PyTorch's
+    default)."""
+    B, S, d = x.shape
+    zi = (x @ p["w_z"]).float()
+    fi = (x @ p["w_f"]).float()
+    ii = (x @ p["w_i"]).float()
+    oi = (x @ p["w_o"]).float()
+    if state is None:
+        h = x.new_zeros((B, d), dtype=F32)
+        c = x.new_zeros((B, d), dtype=F32)
+    else:
+        h, c = state
+    hs = []
+    for t in range(S):
+        rec = h @ p["r"]
+        f = torch.sigmoid(fi[:, t] + rec)
+        i = torch.sigmoid(ii[:, t] + rec)
+        z = torch.tanh(zi[:, t] + rec)
+        o = torch.sigmoid(oi[:, t] + rec)
+        c = f * c + i * z
+        h = o * torch.tanh(c)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)
+    return y @ p["w_out"], (h, c)
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+def _apply_sublayer(name, p, cfg, x, cos, sin, impl):
+    """``(x + f(rmsnorm(x)), aux, cache)`` — the reference's
+    ``_apply_sublayer``; ``cache`` is ``None`` for ``mlp`` and ``moe``."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    aux, cache = None, None
+    if name == "attn":
+        o, k, v = attention(p, cfg, h, cos, sin, impl)
+        cache = (k, v)
+    elif name == "mlp":
+        o = swiglu(p, h)
+    elif name == "moe":
+        B, S, d = h.shape
+        o, aux = moe(p, cfg, h.reshape(B * S, d))
+        o = o.reshape(B, S, d)
+    elif name == "mamba":
+        o, cache = mamba(p, cfg, h)
+    elif name == "mlstm":
+        o, cache = mlstm(p, cfg, h)
+    elif name == "slstm":
+        o, cache = slstm(p, cfg, h)
+    else:
+        raise ValueError(name)
+    return x + o, aux, cache
+
+
+def _step(cfg, layout, layer, x, cos, sin, impl):
+    """One scan step: every sublayer of the layout in order.  Returns
+    ``(x, aux, caches)``, ``aux`` the sum of the step's MoE balance
+    losses (f32), ``caches`` those of its cache-bearing sublayers."""
+    aux = x.new_zeros((), dtype=F32)
+    caches = []
+    for name, p in zip(layout, layer):
+        x, a, c = _apply_sublayer(name, p, cfg, x, cos, sin, impl)
+        if a is not None:
+            aux = aux + a
+        if c is not None:
+            caches.append(c)
+    return x, aux, tuple(caches)
 
 
 def _unstack(blocks):
-    """Per-layer views of the stacked block parameters.  ``unbind`` (not
-    one index per layer) so that the backward writes each stacked
-    gradient once, not once per layer."""
+    """Per-step views of the stacked block parameters.  ``unbind`` (not
+    one index per step) so that the backward writes each stacked
+    gradient once, not once per step."""
     per = [{n: t.unbind(0) for n, t in sub.items()} for sub in blocks]
     steps = len(next(iter(per[0].values())))
     return [[{n: ts[i] for n, ts in sub.items()} for sub in per]
             for i in range(steps)]
 
 
+def _stack_caches(per_step):
+    """The caches of every step stacked over steps, as ``lax.scan``
+    stacks its outputs: a tuple over the cache-bearing sublayers, each a
+    tensor or a tuple of tensors with a leading steps axis."""
+    def stack(items):
+        if isinstance(items[0], tuple):
+            return tuple(stack(list(z)) for z in zip(*items))
+        return torch.stack(items)
+    return tuple(stack(list(z)) for z in zip(*per_step))
+
+
 def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
             collect_cache=False, impl="kernel"):
-    """tokens ``(B, S)`` -> ``(logits (B, S, V) bf16, aux)``.
-    ``prefix_embeds`` ``(B, P, d)`` replaces the embeddings of the first
-    ``P`` positions (modality stub).  Each layer runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
-    backward recomputes it — and launches the attention kernel again.
-    ``aux`` (the MoE balance loss) is 0 for the dense layout.  ``impl``
-    picks the attention implementation, as in :func:`decode_step`."""
-    _check_dense(cfg)
-    if collect_cache:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "forward(collect_cache=True), a prefill into the KV cache"))
+    """tokens ``(B, S)`` -> ``(logits (B, S, V) bf16, aux)``, or ``(logits,
+    caches, aux)`` with ``collect_cache``.  ``prefix_embeds`` ``(B, P, d)``
+    replaces the embeddings of the first ``P`` positions (modality stub).
+    Each scan step runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``), so a backward recomputes it — and launches the
+    attention kernel again; with ``collect_cache`` it does not, as the
+    reference drops the checkpoint there.  ``aux`` is the sum of the MoE
+    balance losses (0 without MoE).  ``caches`` (see
+    :func:`_stack_caches`) holds ``(k, v)`` ``(steps, B, S, Hkv, D)`` per
+    attention sublayer, ``(h, conv)`` per Mamba, ``C`` per mLSTM and
+    ``(h, c)`` per sLSTM.  ``impl`` picks the attention implementation,
+    as in :func:`decode_step`."""
+    layout = period_layout(cfg)
     x = params["embed"][tokens.long()].to(BF16)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[1]
@@ -282,14 +584,24 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
     cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    aux = x.new_zeros((), dtype=F32)
+    per_step = []
     for layer in _unstack(params["blocks"]):
-        x = checkpoint(_layer, cfg, layer, x, cos, sin, impl,
-                       use_reentrant=False)
+        if collect_cache:
+            x, a, caches = _step(cfg, layout, layer, x, cos, sin, impl)
+            per_step.append(caches)
+        else:
+            x, a, _ = checkpoint(_step, cfg, layout, layer, x, cos, sin,
+                                 impl, use_reentrant=False)
+        aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return x @ head, torch.zeros((), dtype=F32, device=x.device)
+    logits = x @ head
+    if collect_cache:
+        return logits, _stack_caches(per_step), aux
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, impl="kernel"):
@@ -310,76 +622,144 @@ def loss_fn(cfg: ModelConfig, params, batch, impl="kernel"):
 # Paged KV cache + decode
 # ---------------------------------------------------------------------------
 def pages_per_seq(cfg: ModelConfig, max_seq: int) -> int:
-    return (max_seq + PAGE_SIZE - 1) // PAGE_SIZE
+    """Block-table width: ``max_seq`` tokens, or under a sliding window
+    the reference's ring of ``min(max_seq, window + PAGE_SIZE)``."""
+    window = cfg.sliding_window or 0
+    eff_seq = min(max_seq, window + PAGE_SIZE) if window else max_seq
+    return (eff_seq + PAGE_SIZE - 1) // PAGE_SIZE
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       n_pages: int | None = None, device="cuda"):
     """Decode-time state: ``seq_lens`` ``(B,)`` int32, ``block_tables``
-    ``(B, pages_per_seq)`` int32 and the global pools ``kpool``/``vpool``
-    ``(steps, 1, n_pages, PAGE_SIZE, Hkv, D)`` bf16, zeroed.  By default
+    ``(B, pages_per_seq)`` int32; for a layout with attention the global
+    pools ``kpool``/``vpool`` ``(steps, n_attn, n_pages, PAGE_SIZE, Hkv,
+    D)`` bf16; the recurrent states ``mamba_h`` ``(steps, n_mamba, B, di,
+    N)`` f32 and ``mamba_conv`` ``(steps, n_mamba, B, W - 1, di)`` bf16,
+    ``mlstm_C`` ``(steps, n_mlstm, B, H, D, D)`` f32, ``slstm_h`` and
+    ``slstm_c`` ``(steps, n_slstm, B, d)`` f32 — all zeroed.  By default
     the pool has ``batch * pages_per_seq`` pages and row ``b`` owns pages
     ``b * pages_per_seq ...`` — the reference's identity tables over its
     per-row pool; the serving engine passes its own ``n_pages`` and sends
     the tables every step."""
-    _check_dense(cfg)
     dev = resolve_device(device)
+    steps = n_scan_steps(cfg)
+    n = {name: period_layout(cfg).count(name) for name in _STATEFUL}
     P = pages_per_seq(cfg, max_seq)
-    n_pages = batch * P if n_pages is None else n_pages
     state = {
         "seq_lens": torch.zeros((batch,), dtype=I32, device=dev),
         "block_tables": torch.arange(batch * P, dtype=I32, device=dev)
         .reshape(batch, P),
-        "kpool": torch.zeros((n_scan_steps(cfg), 1, n_pages, PAGE_SIZE,
-                              cfg.n_kv_heads, cfg.d_head), dtype=BF16,
-                             device=dev),
     }
-    state["vpool"] = torch.zeros_like(state["kpool"])
+    if n["attn"]:
+        n_pages = batch * P if n_pages is None else n_pages
+        state["kpool"] = torch.zeros(
+            (steps, n["attn"], n_pages, PAGE_SIZE, cfg.n_kv_heads,
+             cfg.d_head), dtype=BF16, device=dev)
+        state["vpool"] = torch.zeros_like(state["kpool"])
+    if n["mamba"]:
+        state["mamba_h"] = torch.zeros(
+            (steps, n["mamba"], batch, cfg.d_inner, cfg.ssm_state),
+            dtype=F32, device=dev)
+        state["mamba_conv"] = torch.zeros(
+            (steps, n["mamba"], batch, cfg.conv_width - 1, cfg.d_inner),
+            dtype=BF16, device=dev)
+    if n["mlstm"]:
+        D = cfg.d_model // cfg.n_heads
+        state["mlstm_C"] = torch.zeros(
+            (steps, n["mlstm"], batch, cfg.n_heads, D, D), dtype=F32,
+            device=dev)
+    if n["slstm"]:
+        state["slstm_h"] = torch.zeros(
+            (steps, n["slstm"], batch, cfg.d_model), dtype=F32, device=dev)
+        state["slstm_c"] = torch.zeros_like(state["slstm_h"])
     return state
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
-    """One decode step.  ``tokens`` ``(B,)`` int64.  Writes each row's new
-    K/V into its page and slot, attends over its pages through the block
-    table, advances ``seq_lens`` — all in place on ``state`` — and
-    returns ``(logits (B, vocab), state)``.  ``impl`` picks the attention
-    implementation (``"kernel"``: the CUDA kernel for CUDA tensors;
-    ``"ref"``: the plain version)."""
-    _check_dense(cfg)
+    """One decode step.  ``tokens`` ``(B,)`` int64.  Each attention
+    sublayer writes its row's new K/V into the ring or linear slot of its
+    page and attends over the row's pages through the block table; the
+    recurrent sublayers advance their states; ``seq_lens`` advances — all
+    in place on ``state`` — and returns ``(logits (B, vocab), state)``.
+    The MoE sublayers dispatch the ``B`` rows as ``B`` tokens, so rows
+    compete for expert capacity, idle rows included, as in the reference.
+    ``impl`` picks the attention implementation (``"kernel"``: the CUDA
+    kernel for CUDA tensors; ``"ref"``: the plain version)."""
+    layout = period_layout(cfg)
     B = tokens.shape[0]
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    window = cfg.sliding_window or 0
     x = params["embed"][tokens][:, None, :]                   # (B,1,d)
     seq_lens = state["seq_lens"]
-    positions = seq_lens[:, None]                             # (B,1)
-    bt = state["block_tables"]                                # (B,P)
-    kv_len = bt.shape[1] * PAGE_SIZE
-    # linear growth, clamped at the last slot as in the reference
-    slot = seq_lens.clamp(max=kv_len - 1).long()
-    page_of_slot = bt.gather(1, (slot // PAGE_SIZE)[:, None])[:, 0].long()
-    off = slot % PAGE_SIZE
-    # the new token is written before attention: it sees slots <= its
-    # position (the reference's mask kv_pos <= q_pos, clamped at kv_len)
-    lens = (seq_lens + 1).clamp(max=kv_len)
-    cos, sin = rope_angles(positions, D, cfg.rope_theta)
-    attn, mlp = params["blocks"]
-    kpool, vpool = state["kpool"], state["vpool"]
+    if "attn" in layout:
+        bt = state["block_tables"]                            # (B,P)
+        n_pages = bt.shape[1]
+        kv_len = n_pages * PAGE_SIZE
+        if window:
+            # the ring: slot seq_len mod kv_len; the kernel attends by
+            # ring distance from the new token, so lens is not clamped
+            slot = (seq_lens % kv_len).long()
+            lens = seq_lens + 1
+        else:
+            # linear growth, clamped at the last slot as in the reference;
+            # the new token is written before attention: it sees slots <=
+            # its position (the reference's mask kv_pos <= q_pos)
+            slot = seq_lens.clamp(max=kv_len - 1).long()
+            lens = (seq_lens + 1).clamp(max=kv_len)
+        page_of_slot = bt.gather(
+            1, ((slot // PAGE_SIZE) % n_pages)[:, None])[:, 0].long()
+        off = slot % PAGE_SIZE
+        cos, sin = rope_angles(seq_lens[:, None], D, cfg.rope_theta)
+    blocks = params["blocks"]
     for i in range(n_scan_steps(cfg)):
-        h = rmsnorm(x, attn["norm"][i], cfg.norm_eps)
-        q = (h @ attn["wq"][i]).reshape(B, 1, H, D)
-        k = (h @ attn["wk"][i]).reshape(B, 1, Hkv, D)
-        v = (h @ attn["wv"][i]).reshape(B, 1, Hkv, D)
-        if cfg.qk_norm:
-            q = rmsnorm(q, attn["q_norm"][i], cfg.norm_eps)
-            k = rmsnorm(k, attn["k_norm"][i], cfg.norm_eps)
-        q = rope_apply(q, cos, sin)
-        k = rope_apply(k, cos, sin)
-        kp, vp = kpool[i, 0], vpool[i, 0]
-        kp[page_of_slot, off] = k[:, 0]
-        vp[page_of_slot, off] = v[:, 0]
-        o = paged_decode(q[:, 0], kp, vp, bt, lens, impl=impl)  # (B,H,D)
-        x = x + o.reshape(B, 1, H * D) @ attn["wo"][i]
-        h = rmsnorm(x, mlp["norm"][i], cfg.norm_eps)
-        x = x + swiglu({n: w[i] for n, w in mlp.items()}, h)
+        j = dict.fromkeys(_STATEFUL, 0)
+        for name, sub in zip(layout, blocks):
+            p = {n: w[i] for n, w in sub.items()}
+            h = rmsnorm(x, p["norm"], cfg.norm_eps)
+            if name == "attn":
+                a = j["attn"]
+                q = (h @ p["wq"]).reshape(B, 1, H, D)
+                k = (h @ p["wk"]).reshape(B, 1, Hkv, D)
+                v = (h @ p["wv"]).reshape(B, 1, Hkv, D)
+                if cfg.qk_norm:
+                    q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+                    k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+                q = rope_apply(q, cos, sin)
+                k = rope_apply(k, cos, sin)
+                kp, vp = state["kpool"][i, a], state["vpool"][i, a]
+                kp[page_of_slot, off] = k[:, 0]
+                vp[page_of_slot, off] = v[:, 0]
+                o = paged_decode(q[:, 0], kp, vp, bt, lens, impl=impl,
+                                 window=window)               # (B,H,D)
+                o = o.reshape(B, 1, H * D) @ p["wo"]
+            elif name == "mlp":
+                o = swiglu(p, h)
+            elif name == "moe":
+                o, _ = moe(p, cfg, h.reshape(B, -1))
+                o = o.reshape(B, 1, -1)
+            elif name == "mamba":
+                a = j["mamba"]
+                m_h, m_conv = state["mamba_h"][i, a], state["mamba_conv"][i, a]
+                o, (h_new, conv_new) = mamba(p, cfg, h, state=(m_h, m_conv))
+                m_h.copy_(h_new)
+                m_conv.copy_(conv_new)
+            elif name == "mlstm":
+                a = j["mlstm"]
+                C = state["mlstm_C"][i, a]
+                o, C_new = mlstm(p, cfg, h, state=C)
+                C.copy_(C_new)
+            elif name == "slstm":
+                a = j["slstm"]
+                s_h, s_c = state["slstm_h"][i, a], state["slstm_c"][i, a]
+                o, (h_new, c_new) = slstm(p, cfg, h, state=(s_h, s_c))
+                s_h.copy_(h_new)
+                s_c.copy_(c_new)
+            else:
+                raise ValueError(name)
+            if name in j:
+                j[name] += 1
+            x = x + o
     seq_lens += 1
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")

@@ -16,7 +16,8 @@ mapping (DESIGN.md §2, Layer B):
   * the page lists are carried out on the device before the step's decode:
     PageS with one ``page_set`` launch over the K and V pools of every
     layer, PageCP with ``page_copy`` on each (the reference books them and
-    never applies them);
+    never applies them); a layout without attention (xLSTM) has no pools,
+    and its page lists are booked alone, as the reference books them;
   * the device-side **stop mask** = HFutex: per-slot stop conditions
     (EOS / max-len) accumulate on device and the host polls the packed
     mask every ``poll_every`` steps instead of syncing each step.
@@ -30,6 +31,17 @@ own.  Token streams, step counts, page statistics and per-category
 traffic bytes are the reference's wherever the reference is well defined
 (every page id below ``pages_per_seq``); beyond that every request gets
 the tokens it gets when run alone.
+
+Under a sliding window the block table is a ring that decode reads
+whole, unallocated entries included.  The reference reads its own row's
+page there; in the global pool page 0 belongs to another request, so a
+windowed engine keeps a **zero page** behind the dump page that nothing
+writes, and points every unallocated entry of a running request at it:
+the request reads zeros there, as a fresh decode state holds.  Admission
+resets only a slot's length, as the reference's does: its Mamba, mLSTM
+and sLSTM states and its conv tail carry into the next request (ROADMAP
+Queue C, "Recorded"), and MoE layers dispatch every slot as a token, idle
+ones included.
 
 With ``fleet=`` (a :class:`~repro_torch.core.fleet.FleetRuntime` or
 :class:`~repro_torch.core.fleet.FleetRouter`) the decode slots are
@@ -160,13 +172,19 @@ class ServeEngine:
         self._kv_page_bytes = (2 * cfg.n_layers * M.PAGE_SIZE *
                                cfg.n_kv_heads * cfg.d_head * 4)
         self.link_tick = 0            # modelled completion of the last batch
+        # the ring's width under a sliding window, as the reference takes
+        # it from its decode state's block table
         self.pages_per_seq = M.pages_per_seq(cfg, max_seq)
         self.kv = PagedKVManager(slots * self.pages_per_seq * 2)
         #: the pool page idle slots write into (no request reads it)
         self.dump_page = self.kv.n_pages
-        self.state = M.make_decode_state(cfg, slots, max_seq,
-                                         n_pages=self.kv.n_pages + 1,
-                                         device=self.device)
+        #: under a sliding window, the all-zero page the unallocated ring
+        #: entries of a running request point at (nothing writes it)
+        self.zero_page = self.kv.n_pages + 1 if cfg.sliding_window else None
+        self.state = M.make_decode_state(
+            cfg, slots, max_seq,
+            n_pages=self.kv.n_pages + 1 + (self.zero_page is not None),
+            device=self.device)
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}      # slot -> request
         self.traffic = TrafficStats()
@@ -334,11 +352,16 @@ class ServeEngine:
     def _upload(self, cb: CommandBatch):
         """The step's commands as one int32 buffer on the device (one
         host->device copy): overrides, eos, max_lens, the block tables
-        (idle slots pointed at the dump page), PageS ids, PageCP pairs."""
+        (idle slots pointed at the dump page; under a window, the
+        unallocated entries of the others at the zero page), PageS ids,
+        PageCP pairs."""
         S, P = self.slots, self.pages_per_seq
         bt = cb.block_tables.copy()
         idle = [s for s in range(S) if s not in self.active]
         bt[idle] = self.dump_page
+        if self.zero_page is not None:
+            for slot, req in self.active.items():
+                bt[slot, len(self.kv.seqs[req.rid].pages):] = self.zero_page
         buf = np.concatenate([
             cb.override.astype(np.int32), cb.eos.astype(np.int32),
             cb.max_lens.astype(np.int32), bt.reshape(-1),
@@ -358,10 +381,11 @@ class ServeEngine:
     def _device_step(self, cb: CommandBatch):
         override, eos, max_lens, bt, zeros, copies = self._upload(cb)
         st = self.state
-        if zeros.numel():        # K and V in one launch
+        pools = "kpool" in st    # none without attention: booked only
+        if pools and zeros.numel():        # K and V in one launch
             page_ops.page_set((st["kpool"], st["vpool"]), zeros, 0.0,
                               impl=self.impl)
-        if copies.numel():
+        if pools and copies.numel():
             for pool in (st["kpool"], st["vpool"]):
                 page_ops.page_copy(pool, copies, impl=self.impl)
         st["block_tables"] = bt

@@ -252,3 +252,48 @@ def test_two_parts_of_p_miss_the_tolerance_where_outputs_cancel():
             over[parts] += _over_chip_tolerance(
                 _tensor_core_numerics(q, k, v, True, parts), want)
     assert over[2] > 0 and over[3] == 0
+
+
+@pytest.mark.parametrize("window", [1, 5, 16])
+def test_windowed_plain_version_matches_the_reference(window):
+    """``flash_mha_ref`` with a sliding window against the reference's
+    ``_online_attn`` with the same window (positions by index), f32;
+    a window of ``S`` or more is full causal attention."""
+    from repro.models.core import _online_attn
+    rng = np.random.default_rng(window)
+    B, S, H, Hkv, D = 2, 16, 4, 2, 16
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    want = _online_attn(jnp.asarray(q).reshape(B, S, Hkv, H // Hkv, D),
+                        jnp.asarray(k), jnp.asarray(v), pos, pos, window)
+    got = ops.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(
+        B, S, H, D), rtol=1e-5, atol=1e-5)
+    full = ops.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v))
+    assert torch.equal(ops.flash_mha(torch.from_numpy(q),
+                                     torch.from_numpy(k),
+                                     torch.from_numpy(v), window=S), full)
+    assert (window >= S) == torch.equal(got, full)
+
+
+def test_kernel_route_refuses_a_window_shorter_than_the_sequence(
+        monkeypatch):
+    """A CUDA call with ``window < S`` raises NotImplementedError naming the
+    ROADMAP item at the argument check, before any build (the build
+    helpers are replaced by ones that fail the test)."""
+    import types
+    from repro_torch.kernels import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("flash_mha built or launched a kernel")
+    for name in ("load_all", "entry", "launch"):
+        monkeypatch.setattr(_build, name, no_build)
+    q = types.SimpleNamespace(shape=(1, 4096, 32, 128), is_cuda=True)
+    with pytest.raises(NotImplementedError, match="Queue A 9c"):
+        ops.flash_mha(q, q, q, window=1024)
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_mha(q, q, q, impl="pallas", window=1024)

@@ -557,6 +557,67 @@ def test_paged_attention_at_long_context(cuda):
         smoke.LONG_CHECK_LENS))
 
 
+def test_windowed_paged_attention_equals_plain_version(cuda):
+    """The windowed instantiation against its plain version at jamba's
+    heads (its serve ring, the wrapped ring of 129 pages) and on small
+    rings whose window masks whole one-page ranges, f32 and bf16
+    (``chip_smoke.check_window_attention``); its own counter moves."""
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    before = (PA.paged_attention.launches,
+              PA.paged_attention.window_launches)
+    _chip_smoke().check_window_attention(torch, cuda)
+    # one unwindowed launch: the full attention the window is held apart
+    # from
+    assert PA.paged_attention.launches == before[0] + 1
+    assert PA.paged_attention.window_launches >= before[1] + 7
+
+
+@pytest.mark.parametrize("splits", ["1", "2", "P"])
+def test_windowed_paged_attention_at_each_split_count(cuda, splits):
+    """Shapes whose plan cuts each ring into 1, 2 and P ranges, with the
+    window masking a span across a page boundary and, at P, whole
+    ranges; lengths past the wrap and below the window."""
+    from repro_torch.kernels.paged_attention import paged_attention as PA
+    smoke = _chip_smoke()
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    H, Hkv, D, page, P = 4, 1, 128, 16, 6
+    per = PA.WAVES * PA.CTAS_PER_SM * sm
+    B = {"1": per, "2": per // 2, "P": 5}[splits]
+    assert PA.plan(B, H, Hkv, D, page, P, 2, sm).splits == \
+        {"1": 1, "2": 2, "P": P}[splits]
+    lens = [1, 9, 95, 96, 200][:B] + [(53 * i) % 400 + 1
+                                      for i in range(B - 5)]
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        smoke.attention_err(torch, *smoke.attention_inputs(
+            torch, cuda, B, H, Hkv, D, page, P, dtype, seed, lens),
+            window=40)
+
+
+def test_family_serving_routes_on_the_card(cuda):
+    """chip_smoke.py's checks of the jamba and xlstm serve runs at smoke
+    width: jamba's kernel route against its plain route one step at a
+    time with the router's near ties accounted, and xlstm's first decode
+    steps on the card against the same steps on the CPU."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    from repro_torch.training.optim import tree_map
+    smoke = _chip_smoke()
+    cfg = CONFIGS[smoke.JAMBA_ARCH].smoke()
+    params = M.init_params(cfg, 0, device=cuda)
+    with smoke.RouterLog(M) as log:
+        eng, stats, busiest, _ = smoke.lockstep(torch, cfg, params,
+                                                resync=True, routing=log)
+    assert M.moe is log.real
+    assert stats["steps"] > 100 and busiest is not None
+    cfg = CONFIGS[smoke.XLSTM_ARCH].smoke()
+    params = M.init_params(cfg, 0, device=cuda)
+    f32 = tree_map(lambda t: t.float(), params)
+    _, stats, _, _ = smoke.lockstep(
+        torch, cfg, f32, ref_params=tree_map(lambda t: t.cpu(), f32),
+        ref_device="cpu", max_steps=smoke.XLSTM_CPU_STEPS)
+    assert stats["steps"] == smoke.XLSTM_CPU_STEPS
+
+
 def test_page_ops_kernels_equal_plain_versions(cuda):
     from repro_torch.kernels.page_ops import page_ops
     before = (page_ops.page_set.launches, page_ops.page_copy.launches)

@@ -49,7 +49,11 @@ PORT_MODULES = [
     "repro_torch.analysis.lint",
     "repro_torch.analysis.cli",
     "repro_torch.analysis.__main__",
-]
+    "repro_torch.models.convert",
+] + [f"repro_torch.configs.{name}" for name in (
+    "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
+    "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",
+    "phi35_moe_42b", "qwen3_8b", "xlstm_350m")]
 
 
 @pytest.mark.parametrize("module", PORT_MODULES)
@@ -151,9 +155,9 @@ def test_unported_surfaces_raise():
 
 
 def test_unported_serving_surfaces_raise():
-    """The non-dense decode sublayers are a later slice (ROADMAP Queue A
-    9); fleet-sharded serving (Queue A 7) is ported, and an engine over a
-    fleet shards its slots across the boards."""
+    """The non-dense decode sublayers are ported (ROADMAP Queue A 9b): an
+    MoE decode step runs; fleet-sharded serving (Queue A 7) is ported,
+    and an engine over a fleet shards its slots across the boards."""
     import torch
     from repro_torch.configs import CONFIGS
     from repro_torch.core.fleet import FleetRouter
@@ -166,6 +170,7 @@ def test_unported_serving_surfaces_raise():
                       max_seq=64, fleet=router, device="cpu")
     assert eng._dev_slots == [(0, [0, 2]), (1, [1, 3])]
     moe = CONFIGS["llama4-scout-17b-a16e"].smoke()
-    state = M.make_decode_state(cfg, 1, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        M.decode_step(moe, {}, state, torch.zeros((1,), dtype=torch.long))
+    state = M.make_decode_state(moe, 1, 64, device="cpu")
+    logits, _ = M.decode_step(moe, M.init_params(moe, 0, device="cpu"),
+                              state, torch.zeros((1,), dtype=torch.long))
+    assert logits.shape == (1, moe.vocab) and int(state["seq_lens"]) == 1

@@ -5,8 +5,11 @@ H, Hkv, D, page, P) in float32 and bfloat16, with lengths of 1, mid-page,
 a page boundary, ``P * page`` and 0 (every slot masked: the mean of V).
 Tolerances are those of ``tests/test_kernels.py``: 3e-3 in float32 and
 2e-2 in bfloat16, where both sides round the output once to bfloat16 but
-sum in another order.  The CUDA kernel is held against this plain
-version on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``)."""
+sum in another order.  Under a sliding window (``WINDOW_CASES``) the plain
+version is held against the reference's windowed decode attention, its
+``_online_attn`` over the ring's positions.  The CUDA kernel is held
+against this plain version on the card (``chip_smoke.py``,
+``tests/test_torch_gpu.py``)."""
 import math
 
 import ml_dtypes
@@ -257,3 +260,70 @@ def test_workspace_is_kept_until_it_grows():
         assert not grown[1].any()
     finally:
         PA._workspace.pop(dev.index, None)
+
+
+# -- a sliding window over a ring ------------------------------------------
+def _ring_reference(q, kp, vp, bt, lens, window):
+    """The reference's windowed decode attention on the same inputs:
+    ``decode_step``'s ring positions (``repro/models/core.py:675-683``,
+    ``s`` the length before the new token) through its ``_online_attn``."""
+    from repro.models.core import _online_attn
+    B, H, D = q.shape
+    _, page, Hkv, _ = kp.shape
+    P = bt.shape[1]
+    kv = P * page
+    s = jnp.asarray(lens, jnp.int32) - 1
+    kv_pos = s[:, None] - (s[:, None] % kv - jnp.arange(kv)[None]) % kv
+    kg = jnp.asarray(kp)[jnp.asarray(bt)].reshape(B, kv, Hkv, D)
+    vg = jnp.asarray(vp)[jnp.asarray(bt)].reshape(B, kv, Hkv, D)
+    qg = jnp.asarray(q).reshape(B, 1, Hkv, H // Hkv, D)
+    o = _online_attn(qg, kg, vg, s[:, None], kv_pos, window)
+    return np.asarray(o.reshape(B, H, D), np.float32)
+
+
+#: (B, H, Hkv, D, page, P), dtype, lengths, window: a window past the ring
+#: (every slot attended), rings wrapped with the masked span across a page
+#: boundary and over whole pages, lengths below the window
+WINDOW_CASES = [
+    ((2, 4, 2, 16, 8, 4), "float32", [1, 30], 64),
+    ((3, 8, 2, 32, 8, 4), "float32", [40, 45, 70], 20),
+    ((3, 8, 2, 32, 8, 4), "float32", [33, 64, 97], 10),
+    ((1, 4, 2, 32, 8, 3), "float32", [5], 16),
+    ((2, 8, 2, 32, 16, 4), "bfloat16", [65, 100], 50),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,lens,window", WINDOW_CASES)
+def test_window_ring_matches_the_reference(shape, dtype, lens, window):
+    """The plain version with ``window`` equals the reference's windowed
+    decode attention over the same ring, within ``TOL``."""
+    args = _inputs(*shape, dtype, lens)
+    got = ops.paged_decode(*(_torch(a) for a in args), window=window)
+    want = _ring_reference(*args, window)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_window_attends_unwritten_slots_as_the_reference_does():
+    """The recorded reference fault: under a window of the ring or more,
+    a one-token sequence attends to every slot of its ring, written or
+    not, so its output is its one value averaged with the zeros of the
+    other slots — in both packages — where full attention returns the
+    value itself."""
+    B, H, Hkv, D, page, P = 1, 4, 2, 16, 8, 4
+    q, kp, vp, bt, _ = _inputs(B, H, Hkv, D, page, P, "float32", [1])
+    kp[:], vp[:] = 0, 0
+    kp[bt[0, 0], 0], vp[bt[0, 0], 0] = 1, 1          # slot 0 written only
+    lens = np.asarray([1], np.int32)
+    full = ops.paged_decode(*(_torch(a) for a in (q, kp, vp, bt, lens)))
+    ring = ops.paged_decode(*(_torch(a) for a in (q, kp, vp, bt, lens)),
+                            window=8192)
+    np.testing.assert_allclose(full.numpy(), 1.0, rtol=1e-6)
+    kv = P * page
+    # slot 0 scores q.k / sqrt(D) against 0 for the others
+    s0 = q.reshape(H, D).sum(-1) / math.sqrt(D)
+    want = np.exp(s0) / (np.exp(s0) + kv - 1)
+    np.testing.assert_allclose(ring[0].numpy(), np.repeat(want[:, None], D,
+                                                          1), rtol=1e-5)
+    np.testing.assert_allclose(ring.numpy(), _ring_reference(
+        q, kp, vp, bt, lens, 8192), rtol=1e-5)

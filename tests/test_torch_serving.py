@@ -286,3 +286,110 @@ def test_engine_keeps_its_last_batch_and_host_time_split():
     eng.run()
     assert set(eng.host_s) == {"schedule", "enqueue", "poll"}
     assert all(v > 0 for v in eng.host_s.values())
+
+
+# -- the non-dense families ------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _family_params(name):
+    jp = JM.init_params(JCONFIGS[name].smoke(), 0)
+    return jp, params_from_jax(jax.device_get(jp), device="cpu")
+
+
+def test_xlstm_engine_matches_the_reference():
+    """xlstm-350m at smoke width has no attention and no MoE, so its slots
+    are independent and the reference is well defined whatever the page
+    ids: the same streams, steps, page statistics and per-category traffic
+    (the page commands are booked, and with no pools nothing applies
+    them)."""
+    name = "xlstm-350m"
+    jp, tp = _family_params(name)
+    reqs = [(i, [5 + i, 7, 11] * (1 + i % 3), 6) for i in range(5)]
+    je, jout = _run(JEngine, JRequest, jp, 2, reqs, cfg=JCONFIGS[name].smoke())
+    te, tout = _run(ServeEngine, Request, tp, 2, reqs,
+                    cfg=CONFIGS[name].smoke(), device="cpu")
+    assert "kpool" not in te.state and te.zero_page is None
+    assert tout == jout and sum(len(o) for o in tout.values()) >= 20
+    assert te.steps == je.steps
+    assert te.kv.stats == je.kv.stats
+    assert te.traffic.by_cat == je.traffic.by_cat
+    assert te.traffic.by_cat["page_cmds"] > 0
+    assert te.traffic.h2d_bytes == je.traffic.h2d_bytes
+    assert te.traffic.d2h_bytes == je.traffic.d2h_bytes
+    assert te.step_spans == je.step_spans and te.link_tick == je.link_tick
+
+
+def test_recurrent_state_carries_into_the_next_request():
+    """Admission resets only a slot's length (the reference's
+    ``serving/engine.py:304-305``): the mLSTM/sLSTM states a request leaves
+    in its slot are the next request's start, so a request admitted into a
+    used slot ends in other recurrent states than the same request in a
+    fresh engine — in both packages alike.  The mLSTM state carries it in
+    both packages within ``1e-5`` of its largest magnitude (the gap is a
+    hundred times that); the sLSTM states, which the reference's jitted
+    step moves by about 1 % over the run, only differ in each package."""
+    name = "xlstm-350m"
+    jp, tp = _family_params(name)
+    first, second = (0, [9, 8, 7, 6], 6), (1, [5, 4, 3], 6)
+    outs = {}
+    for pkg, (E, R, P, kw) in {
+            "jax": (JEngine, JRequest, jp, dict(cfg=JCONFIGS[name].smoke())),
+            "torch": (ServeEngine, Request, tp,
+                      dict(cfg=CONFIGS[name].smoke(), device="cpu"))}.items():
+        used, after = _run(E, R, P, 1, [first, second], **kw)
+        fresh, alone = _run(E, R, P, 1, [second], **kw)
+        states = {tag: {k: np.asarray(eng.state[k], np.float32)
+                        for k in ("mlstm_C", "slstm_h", "slstm_c")}
+                  for tag, eng in (("used", used), ("fresh", fresh))}
+        for k, want in states["fresh"].items():
+            gap = np.abs(states["used"][k] - want).max()
+            assert gap > 1e-3 * np.abs(want).max(), (pkg, k, gap)
+        outs[pkg] = (after, alone, states)
+    assert outs["jax"][:2] == outs["torch"][:2]
+    jC, tC = (outs[p][2] for p in ("jax", "torch"))
+    tol = 1e-5 * np.abs(jC["fresh"]["mlstm_C"]).max()
+    for tag in ("used", "fresh"):
+        np.testing.assert_allclose(tC[tag]["mlstm_C"], jC[tag]["mlstm_C"],
+                                   rtol=0, atol=tol)
+    assert np.abs(jC["used"]["mlstm_C"] - jC["fresh"]["mlstm_C"]).max() > \
+        100 * tol
+
+
+def test_windowed_engine_reads_a_zero_page_past_its_pages():
+    """jamba-v0.1-52b at smoke width (window 8192 over a ring of
+    ``max_seq`` 128, so decode reads the whole table): every unallocated
+    entry of a running request's table points at the zero page, behind the
+    dump page, and nothing writes it; every request finishes with finite
+    logits."""
+    name = "jamba-v0.1-52b"
+    cfg = CONFIGS[name].smoke()
+    _, tp = _family_params(name)
+    eng = ServeEngine(cfg, tp, slots=3, max_seq=128, device="cpu")
+    assert eng.zero_page == eng.dump_page + 1 == eng.kv.n_pages + 1
+    assert eng.state["kpool"].shape[2] == eng.kv.n_pages + 2
+    tables = []
+    real = eng._upload
+
+    def upload(cb):
+        out = real(cb)
+        tables.append((out[3].clone(), {s: len(eng.kv.seqs[r.rid].pages)
+                                        for s, r in eng.active.items()}))
+        return out
+    eng._upload = upload
+    for i in range(5):
+        eng.submit(Request(rid=i, prompt=[3 + i] * (20 + 30 * i), max_new=4,
+                           eos=1))
+    done = eng.run()
+    assert len(done) == 5
+    assert any(n < eng.pages_per_seq for _, held in tables
+               for n in held.values())
+    for bt, held in tables:
+        for slot in range(eng.slots):
+            if slot in held:
+                assert (bt[slot, held[slot]:] == eng.zero_page).all()
+                assert (bt[slot, :held[slot]] < eng.kv.n_pages).all()
+            else:
+                assert (bt[slot] == eng.dump_page).all()
+    for pool in ("kpool", "vpool"):
+        assert not eng.state[pool][:, :, eng.zero_page].any()
+        assert eng.state[pool][:, :, eng.dump_page].any()
+    assert bool(torch.isfinite(eng.logits).all())
