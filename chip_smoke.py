@@ -8,7 +8,8 @@ CUDA toolkit::
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's three paths:
+plain PyTorch version on the card (``flash_attention`` with and without
+a sliding window, in both designs), and drives the port's paths:
 
 * the FASE path: the two reference pins (hello@UART, bc@PCIe) on
   ``TorchTarget(device="cuda")`` on both routes of the interpreter — the
@@ -19,7 +20,9 @@ plain PyTorch version on the card, and drives the port's three paths:
   deployment (4 cores, 64 MiB target image resident on the card, PCIe
   async queue pair) running GAPBS ``bc`` with 4 threads — against
   constants pinned from the pure-Python reference simulator; then
-  CoreMark (``coremark 1``, 1 core, UART) against its pins;
+  CoreMark (``coremark 1``, 1 core, UART) against its pins; boards of 40
+  and 64 cores (the chunk kernels' CTA-wide instantiation, untraced,
+  traced and fleet) against the eager loop after every chunk;
 * telemetry (phase ``telemetry``): hello@UART and bc@PCIe with both
   out-of-band bridges armed on both interpreter routes, the ring included
   in the fields compared after every chunk; bc@PCIe on the chunk kernel's
@@ -55,7 +58,17 @@ plain PyTorch version on the card, and drives the port's three paths:
   cannot hold AdamW's state for all 36), one sequence of 4096 tokens a
   step, attention through the ``flash_attention`` kernel; one step on the
   kernel route against the plain route; a failure-restart run at smoke
-  width against an uninterrupted one.
+  width against an uninterrupted one;
+* the families (phase ``families``): jamba-v0.1-52b's gradients at one
+  period on the kernel route against the plain route (which replays the
+  kernel route's MoE routing) and a planted attention fault, its prefill
+  at 16 384 tokens on ``flash_attention``'s windowed instantiation, and
+  xlstm-350m through ``train``; the windowed kernel timed at jamba's
+  prefill shape;
+* the dry run (phase ``dryrun``): ``python -m repro_torch.launch.dryrun``
+  on two production cells (fake tensors on the host's CPU, started with
+  the build and run beside the card's phases), with the card's measured
+  bf16 GEMM and HBM copy rates.
 
 Every phase prints one JSON line; any mismatch, build failure or launch
 error ends the run with a non-zero exit code, and nothing runs on the CPU
@@ -166,6 +179,8 @@ REPLACES = {
     "page_gather": "src/repro/kernels/page_ops/page_ops.py:94",
     "flash_attention":
     "src/repro/kernels/flash_attention/flash_attention.py:70",
+    "flash_attention_window":
+    "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
 SOURCES = {
     "walk_fetch_block": "src/repro_torch/csrc/page_walk.cu",
@@ -178,6 +193,7 @@ SOURCES = {
     "page_copy": "src/repro_torch/csrc/page_ops.cu",
     "page_gather": "src/repro_torch/csrc/page_ops.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_window": "src/repro_torch/csrc/flash_attention.cu",
 }
 #: every csrc/<name>.cu the paths launch
 CUDA_LIBS = ("page_walk", "run_chunk", "page_ops", "paged_attention",
@@ -327,7 +343,7 @@ TRACE_SLOTS = 4096
 CAPTURE_SLOTS = 1 << 15
 
 PHASES = ("kernel", "chunk", "full", "coremark", "telemetry", "fleet",
-          "serve", "train")
+          "serve", "train", "families", "dryrun")
 
 
 def emit(obj):
@@ -569,13 +585,14 @@ def phase_kernel(torch, dev):
           "max_abs_err": worst, "equal": True})
     check_run_chunk_wrapper(torch, dev)
     return {"walk_fetch_block": worst, **check_attention(torch, dev),
-            **check_page_ops(torch, dev), **check_flash_attention(torch, dev)}
+            **check_page_ops(torch, dev), **check_flash_attention(torch, dev),
+            "flash_attention_window": check_flash_window(torch, dev)}
 
 
 def check_run_chunk_wrapper(torch, dev):
     """The chunk kernel's wrapper refuses what the kernel does not take:
-    a CPU state, a field of another dtype, more cores than a warp has
-    lanes, block words beyond shared memory."""
+    a CPU state, a field of another dtype, more cores than a CTA has
+    threads, block words beyond shared memory."""
     from repro_torch.core.target import cpu
     from repro_torch.kernels.run_chunk import run_chunk as RC
     st = cpu.make_state(2, 1 << 20, device=dev)
@@ -1037,7 +1054,171 @@ def phase_chunk(torch):
           "chunks": n_hello + n_bc, "fields_equal_after_every_chunk": True,
           "tolerance": 0, "walk_fetch_block_launches_eager": walks,
           "seconds": round(time.time() - t0, 1)})
+    wide_boards(torch)
     return walks
+
+
+#: boards past one warp (the chunk kernels' CTA-wide instantiation): the
+#: atomics/MMU program of tests/test_torch_gpu.py on every core, in 97-tick
+#: chunks, against the eager loop (on the host) after every chunk
+WIDE_CORES = (40, 64)
+WIDE_MEM = 1 << 21
+WIDE_CHUNK = 97
+WIDE_PROGRAM = """
+_start:
+    la s0, counter
+    li t1, 12
+loop:
+    amoadd.d t2, t1, (s0)
+    amoadd.w t3, t1, (s0)
+    lr.d t4, (s0)
+    addi t4, t4, 1
+    sc.d t5, t4, (s0)
+    amomax.d t6, a0, (s0)
+    amominu.w s1, t1, (s0)
+    la s2, bytes_area
+    add s3, s2, a0
+    sb t1, 0(s3)
+    lb s4, 0(s3)
+    sh t1, 8(s2)
+    lhu s5, 8(s2)
+    mul s6, t1, t3
+    divu s7, s6, t1
+    rem s8, s6, t1
+    mulh s9, s6, t3
+    addi t1, t1, -1
+    bnez t1, loop
+    li a7, 93
+    ecall
+.data
+counter: .dword 0
+bytes_area: .zero 64
+"""
+
+
+#: the eager loop's states after every chunk, by core count (both phases)
+_WIDE_EAGER = {}
+
+
+def load_wide(t, img, nc):
+    """``img`` on ``nc`` cores of ``t`` behind a 3-level Sv39 table (root,
+    l1, l0 at pages 2, 3, 4; vpn 16..95 and 256..271 identity, RWXU), core
+    ``c`` with a0 = c."""
+    from repro_torch.core.target import isa
+    for seg in img.segments:
+        data = bytes(seg.data).ljust((len(seg.data) + 7) // 8 * 8, b"\0")
+        for i in range(0, len(data), 8):
+            t.mem_write_word(seg.vaddr + i,
+                             int.from_bytes(data[i:i + 8], "little"))
+    flags = (isa.PTE_V | isa.PTE_R | isa.PTE_W | isa.PTE_X | isa.PTE_U |
+             isa.PTE_A | isa.PTE_D)
+    t.mem_write_word(2 * 4096, (3 << 10) | isa.PTE_V)
+    t.mem_write_word(3 * 4096, (4 << 10) | isa.PTE_V)
+    for vpn0 in list(range(16, 96)) + list(range(256, 272)):
+        t.mem_write_word(4 * 4096 + vpn0 * 8, (vpn0 << 10) | flags)
+    for c in range(nc):
+        t.set_satp(c, (8 << 60) | 2)
+        t.reg_write(c, 10, c)
+        t.redirect(c, img.entry)
+
+
+def wide_run(torch, targets, nc, step_all, on_chunk):
+    """Chunks of every target until every core has parked: ``step_all``
+    runs one chunk of each, ``on_chunk(i)`` compares; each exit is
+    cleared and parked as the runtime would."""
+    for i in range(400):
+        step_all()
+        on_chunk(i)
+        for t in targets:
+            for c in t.pending_cores():
+                t.clear_pending(c)
+                t.park(c)
+        if all(t.get_priv(c) == 3 for t in targets for c in range(nc)):
+            return i + 1
+    fail(f"wide board of {nc} cores: the program did not finish")
+
+
+def wide_boards(torch, fleet=False):
+    """Boards of ``WIDE_CORES`` cores on the chunk kernel's CTA-wide
+    instantiation (untraced and traced), or with ``fleet`` on the fleet
+    kernel (two boards in one launch a global chunk), each held field for
+    field against the eager loop after every chunk: the eager loop runs
+    on the host with the ring armed (4096 slots, no wrap), its states are
+    kept, and every kernel run is compared with them (the untraced one on
+    every field but the ring's)."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.core.target import asm
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    img = asm.assemble(WIDE_PROGRAM)
+    out = {}
+    for nc in WIDE_CORES:
+        t0 = time.time()
+        if nc not in _WIDE_EAGER:
+            eager = TorchTarget(nc, WIDE_MEM, device="cpu")
+            eager.trace_arm(4096)
+            load_wide(eager, img, nc)
+            states = []
+            wide_run(torch, [eager], nc,
+                     lambda: eager.run(max_cycles=WIDE_CHUNK),
+                     lambda i: states.append({k: v.clone() for k, v in
+                                              state_fields(eager.st).items()}))
+            _WIDE_EAGER[nc] = (states, eager.substeps, time.time() - t0)
+        want, subs, eager_s = _WIDE_EAGER[nc]
+        runs = {}
+        if fleet:
+            ft = FleetTarget(2, nc, WIDE_MEM, device="cuda")
+            views = [ft.view(d) for d in range(2)]
+            for v in views:
+                load_wide(v, img, nc)
+            before = RC.run_chunk_fleet.launches
+
+            def cmp_fleet(i):
+                for v in views:
+                    got = {k: x.cpu() for k, x in state_fields(v.st).items()
+                           if not k.startswith("trace")}
+                    compare_states(torch, got, {k: w for k, w in
+                                                want[i].items()
+                                                if k in got},
+                                   f"fleet kernel, {nc} cores, board "
+                                   f"{v.d}, chunk {i}")
+            n = wide_run(torch, views, nc,
+                         lambda: ft.run_global([WIDE_CHUNK] * 2), cmp_fleet)
+            check(n == len(want) and
+                  RC.run_chunk_fleet.launches - before == n,
+                  f"fleet kernel at {nc} cores: {n} global chunks")
+            runs["fleet"] = n
+        else:
+            for traced in (False, True):
+                t = TorchTarget(nc, WIDE_MEM, device="cuda")
+                if traced:
+                    t.trace_arm(4096)
+                load_wide(t, img, nc)
+                counter = "trace_launches" if traced else "launches"
+                before = getattr(RC.run_chunk, counter)
+
+                def cmp_chunk(i, t=t, traced=traced):
+                    got = {k: x.cpu() for k, x in state_fields(t.st).items()
+                           if traced or not k.startswith("trace")}
+                    compare_states(torch, got, {k: want[i][k] for k in got},
+                                   f"run_chunk {'traced' if traced else ''}"
+                                   f", {nc} cores, chunk {i}")
+                n = wide_run(torch, [t], nc,
+                             lambda t=t: t.run(max_cycles=WIDE_CHUNK),
+                             cmp_chunk)
+                check(n == len(want) and t.substeps == subs and
+                      getattr(RC.run_chunk, counter) - before == n,
+                      f"run_chunk at {nc} cores (traced={traced}): {n} "
+                      f"chunks, {t.substeps} substeps, eager {subs}")
+                runs["traced" if traced else "untraced"] = n
+        out[nc] = {"chunks": runs, "eager_substeps": subs,
+                   "instret": sum(int(x) for x in want[-1]["instret"]),
+                   "eager_host_s": round(eager_s, 1),
+                   "seconds": round(time.time() - t0, 1)}
+    emit({"phase": "wide_boards", "kernel": "run_chunk_fleet" if fleet
+          else "run_chunk", "cores": list(WIDE_CORES),
+          "fields_equal_after_every_chunk": True, "tolerance": 0,
+          "boards": out})
 
 
 def loop_target(torch, nc, mem_bytes, **opts):
@@ -1596,7 +1777,8 @@ def time_run_chunk_trace(torch, latency):
     dev = {}
     for e in device_events(prof.key_averages()):
         if "run_chunk_kernel" in e.key:
-            key = "traced" if "<true>" in e.key else "untraced"
+            # run_chunk_kernel<TRACE, MULTI>: the traced one is <true, ...>
+            key = "traced" if "<true" in e.key else "untraced"
             dev[key] = e.self_device_time_total / e.count / 1e3
     check(set(dev) == {"traced", "untraced"},
           f"profile: the two instantiations were not both traced: {dev}")
@@ -2139,6 +2321,7 @@ def time_run_chunk_fleet(torch, latency):
 def phase_fleet(torch, latency):
     t0 = time.time()
     sync_in_lockstep(torch)
+    wide_boards(torch, fleet=True)
     fleet_pins(torch)
     launches = fleet_full_width(torch)
     timing = time_run_chunk_fleet(torch, latency)
@@ -2881,21 +3064,21 @@ def flash_inputs(torch, dev, B, S, H, Hkv, D, dtype, seed):
     return draw(H), draw(Hkv), draw(Hkv)
 
 
-def flash_err(torch, q, k, v, causal):
+def flash_err(torch, q, k, v, causal, window=0):
     """Largest |kernel - plain version| of flash_attention on one input
-    set (``flash_mha`` on both routes); fails beyond ``ATTN_TOL`` or on a
-    non-finite output, and where a bfloat16 case at D = 64 or 128 did not
-    run the tensor-core design."""
+    set (``flash_mha`` on both routes, with ``window``); fails beyond
+    ``ATTN_TOL`` or on a non-finite output, and where a bfloat16 case at
+    D = 64 or 128 did not run the tensor-core design."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import ATTN_TOL
-    got = ops.flash_mha(q, k, v, causal)
+    got = ops.flash_mha(q, k, v, causal, window=window)
     want_design = "tensor-core" if q.dtype == torch.bfloat16 and \
         q.shape[-1] in (64, 128) else "scalar"
     check(FA.flash_attention.last_design == want_design,
           f"flash_attention q {tuple(q.shape)} {q.dtype}: ran the "
           f"{FA.flash_attention.last_design} design, not {want_design}")
-    want = ops.flash_mha(q, k, v, causal, impl="ref")
+    want = ops.flash_mha(q, k, v, causal, impl="ref", window=window)
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape,
           "flash_attention: kernel output dtype/shape differs")
@@ -2904,7 +3087,8 @@ def flash_err(torch, q, k, v, causal):
     atol, rtol = ATTN_TOL[str(q.dtype).split(".")[1]]
     over = float((diff - rtol * want.float().abs()).max())
     check(over <= atol, f"flash_attention q {tuple(q.shape)} k "
-          f"{tuple(k.shape)} {q.dtype} causal={causal}: kernel differs from "
+          f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
+          f"kernel differs from "
           f"the plain version by {over} beyond rtol {rtol} > atol {atol} "
           f"(max abs diff {float(diff.max())})")
     return float(diff.max())
@@ -2960,6 +3144,146 @@ def check_flash_attention(torch, dev):
           "path_max_abs_err": {str(shape): e for (shape, _, _), e in
                                zip(path, errs[len(cases):])}})
     return {"flash_attention": max(errs)}
+
+
+#: jamba-v0.1-52b's attention (H 32, Hkv 8, D 128, bf16) at its prefill
+#: run's S = 2 x window; the plain version's (BH, S, S) f32 scores fit for
+#: one GQA group of 4 heads (4.3 GB), not for all 32 (34 GB)
+JAMBA_ATTN = (1, 16384, 32, 8, 128)
+JAMBA_SLICE = (1, 16384, 4, 1, 128)
+
+
+def check_flash_window(torch, dev):
+    """The windowed kernel == its plain version on the card, in both
+    designs: window 1, 64 with S not a multiple of a tile, S - 1, and a
+    window whose first tile is wholly masked for the tile's later rows; f32
+    and bf16 at D 16 and 64 (bf16 D 64 is the tensor-core design);
+    jamba's heads at S = 16 384 with its 8192 window on one GQA group (the
+    plain version's scores fit for 4 heads); then the windowed backward
+    (the kernel route's gradients) against autograd through the plain
+    version.  Counts the windowed launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import ATTN_TOL
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dtype in (f32, bf16):
+        for D in (16, 64):
+            cases += [((1, 200, 4, 2, D), dtype, 1),
+                      ((1, 300, 4, 2, D), dtype, 64),
+                      ((2, 129, 4, 2, D), dtype, 128),
+                      ((1, 520, 4, 2, D), dtype, 3)]
+    cases += [((1, 4097, 8, 2, 128), bf16, 4096),
+              ((1, 1000, 8, 2, 128), bf16, 200),
+              ((1, 4096, 32, 8, 128), bf16, 1024),
+              (JAMBA_SLICE, bf16, 8192)]
+    before = FA.flash_attention.window_launches
+    errs, designs = [], []
+    for i, (shape, dtype, window) in enumerate(cases):
+        errs.append(flash_err(torch, *flash_inputs(torch, dev, *shape, dtype,
+                                                   300 + i), True, window))
+        designs.append({"shape": list(shape), "dtype": str(dtype)[6:],
+                        "window": window,
+                        "design": FA.flash_attention.last_design,
+                        "max_abs_err": errs[-1]})
+    launched = FA.flash_attention.window_launches - before
+    check(launched == len(cases), f"windowed flash_attention launches "
+          f"{launched} != {len(cases)} cases")
+    check({d["design"] for d in designs} == {"scalar", "tensor-core"},
+          "the windowed cases did not run both designs")
+    bwd = {}
+    for shape, dtype, window in (((2, 256, 1, 1, 64), f32, 64),
+                                 ((1, 300, 4, 2, 16), f32, 5),
+                                 ((1, 4096, 32, 8, 128), bf16, 1024)):
+        q, k, v = flash_inputs(torch, dev, *shape, dtype, 17)
+        do = flash_inputs(torch, dev, *shape, dtype, 18)[0]
+        grads = []
+        for impl in ("kernel", "ref"):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ops.flash_mha(*leaves, causal=True, impl=impl,
+                          window=window).backward(do)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_REL_L2[str(dtype).split(".")[1]]
+        rel = {}
+        for name, a, b in zip("qkv", *grads):
+            check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                  f"windowed flash backward d{name}: dtype or non-finite")
+            rel[f"d{name}"] = float((a.float() - b.float()).norm() /
+                                    b.float().norm().clamp(min=1e-30))
+            check(rel[f"d{name}"] <= tol, f"windowed flash backward {shape} "
+                  f"{dtype} window {window} d{name}: relative L2 "
+                  f"{rel[f'd{name}']} > {tol}")
+        bwd[f"{shape}/{str(dtype).split('.')[1]}/w{window}"] = rel
+        del grads
+    emit({"phase": "flash_window_vs_plain", "cases": designs,
+          "tolerance": ATTN_TOL, "max_abs_err": max(errs),
+          "backward_rel_l2": bwd, "backward_tolerance": FLASH_BWD_REL_L2})
+    return max(errs)
+
+
+def attended_pairs(S, window):
+    """(query, key) pairs a causal call with ``window`` (0: none)
+    attends: the work its bound counts."""
+    w = window if 0 < window < S else S
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def time_flash_window(torch, dev, worst):
+    """The windowed kernel at jamba's prefill shape (``JAMBA_ATTN``,
+    window 8192): its time over all 32 heads against its bound, which
+    counts the attended ``2·2·pairs·D`` operations a head (not S²/2);
+    then on one GQA group (``JAMBA_SLICE``), where the plain version fits,
+    the kernel, the plain version and SDPA with the same boolean mask
+    (measured only, never on the path)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops
+    W = WINDOW
+
+    def bound(B, S, H, Hkv, D):
+        flops = 4 * B * H * attended_pairs(S, W) * D
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+        return (max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "operations" if flops / BF16_FLOP_PER_S >
+                nbytes / HBM_BYTES_PER_S else "bytes", flops, nbytes)
+    q, k, v = flash_inputs(torch, dev, *JAMBA_ATTN, torch.bfloat16, 21)
+    ms = time_ms(torch, lambda: ops.flash_mha(q, k, v, window=W), 10,
+                 warmup=2)
+    design = FA.flash_attention.last_design
+    b_ms, b_by, flops, nbytes = bound(*JAMBA_ATTN)
+    del q, k, v
+    q, k, v = flash_inputs(torch, dev, *JAMBA_SLICE, torch.bfloat16, 22)
+    worst = max(worst, flash_err(torch, q, k, v, True, W))
+    S = JAMBA_SLICE[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    mask &= ~torch.ones_like(mask).tril(-W)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float() - ops.flash_mha(
+        q, k, v, impl="ref", window=W).float()).abs().max())
+    slice_ms = time_ms(torch, lambda: ops.flash_mha(q, k, v, window=W), 20,
+                       warmup=3)
+    plain_ms = time_ms(torch, lambda: ops.flash_mha(q, k, v, impl="ref",
+                                                    window=W), 3, warmup=1)
+    library_ms = time_ms(torch, sdpa, 10, warmup=2)
+    sb_ms, _, _, _ = bound(*JAMBA_SLICE)
+    out = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
+               bytes=nbytes, design=design, max_abs_err=worst,
+               slice=dict(shape=list(JAMBA_SLICE), ms=slice_ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          library_max_abs_err=lib_err, bound_ms=sb_ms),
+               plain_ms=plain_ms, library_ms=library_ms,
+               shape=dict(q=list(JAMBA_ATTN[:3]) + [JAMBA_ATTN[4]],
+                          kv=[JAMBA_ATTN[0], JAMBA_ATTN[1], JAMBA_ATTN[3],
+                              JAMBA_ATTN[4]], dtype="bfloat16", window=W,
+                          note="plain_ms and library_ms are on the slice"))
+    emit({"phase": "flash_window_timing", **out})
+    return out
 
 
 def path_shape(cfg):
@@ -3141,12 +3465,12 @@ def time_flash(torch, dev, cfg, worst):
                    causal=True))
 
 
-def timed_steps(torch, cfg):
+def timed_steps(torch, cfg, batch=None, seq=None, steps=None):
     """``train``'s steps again, each timed on the host clock around a
     device sync: seed-0 parameters, the pipeline's batches and
     ``make_train_step`` (what ``train`` calls), without its checkpoint
-    and restart bookkeeping.  Returns each step's loss, grad norm and
-    seconds."""
+    and restart bookkeeping (the train run's batch, sequence and steps by
+    default).  Returns each step's loss, grad norm and seconds."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import core as M
     from repro_torch.training.data import TokenPipeline
@@ -3154,9 +3478,9 @@ def timed_steps(torch, cfg):
     params = M.init_params(cfg, 0, device="cuda")
     opt = init_opt_state(params)
     step = make_train_step(cfg)
-    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    pipe = TokenPipeline(cfg.vocab, batch or TRAIN_BATCH, seq or TRAIN_SEQ)
     out = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps or TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3312,6 +3636,427 @@ def phase_train(torch, dev, errs, profile_dir):
     return launches, time_flash(torch, dev, cfg, errs["flash_attention"])
 
 
+# ---------------------------------------------------------------------------
+# the families on the training and prefill paths; the dry run
+# ---------------------------------------------------------------------------
+#: jamba's gradients: one hybrid period at full width (13.26 G parameters:
+#: 26.5 GB of bf16 weights and as much of gradients; AdamW's f32 moments
+#: would add 106 GB, so this run stops at the gradients) over one sequence
+#: of FAMILY_GRAD_SEQ tokens: each Mamba scan chunk is recomputed in the
+#: backward (models/core.py), so a Mamba layer keeps ~2 (B, S, 8192, 16)
+#: f32 tensors, ~1 GB at 1024 tokens
+FAMILY_GRAD_SEQ = 1024
+#: xlstm-350m whole through ``train``: one sequence of XLSTM_SEQ tokens a
+#: step (each sLSTM token is ~30 launches a layer), the first step warm
+XLSTM_ARCH, XLSTM_SEQ, XLSTM_STEPS = "xlstm-350m", 512, 3
+#: jamba's prefill past its window: one period, B = 1, S = 2 x window
+#: (prefill_32k's 32 768 x 32 cut: its Mamba transients do not fit beside
+#: 27.5 GB of weights); the plain route held beside the kernel route at
+#: PREFILL_CHECK_SEQ, the longest S past the window (a multiple of the
+#: 256-token scan chunk) at which the plain attention's (32, S, S) f32
+#: scores (10.9 GB, about three live at once) fit beside the weights
+PREFILL_SEQ, PREFILL_CHECK_SEQ = 2 * WINDOW, 9216
+#: the fault planted in the kernel route's attention output to show the
+#: families' route checks can fail (2^-5 high, as the serve lockstep's
+#: ROUTER_FAULTS plant it)
+PLANTED_SCALE = 2.0 ** -5
+#: the batches jamba's gradients are read on: both on seed-0 parameters
+#: (the first with the planted fault too), the first on seed-1 ones
+JAMBA_GRAD_TOKEN_SEEDS = (11, 13)
+#: jamba's gradient limits (loss, grad norm relative, attention leaf
+#: relative L2), PERF.md section 2: from three honest readings on the
+#: card (batches 11 and 13 on seed-0 parameters, batch 11 on seed-1 ones:
+#: loss gaps 1.2e-4 / 4.4e-4 / 1.04e-3, grad norms 4.4e-4-7.2e-4, leaves
+#: 0.039-0.041) and the planted 2^-5 attention fault (loss 2.3e-3, leaves
+#: 0.105-0.106; it leaves the grad norm alone): loss and leaf near the
+#: geometric mean of the largest honest and the planted reading, the grad
+#: norm's the train limit.  One attention layer's bf16 rounding moves the
+#: loss through seven Mamba and four MoE layers more than qwen3's 12
+#: dense ones, whose 5e-4 stays
+JAMBA_GRAD_LIMITS = (1.5e-3, TRAIN_GN_RTOL, 6.5e-2)
+#: the dry run's cells at production size (started with the build, they
+#: run on the host's CPU beside the card's phases, minutes each)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
+                ("jamba-v0.1-52b", "prefill_32k", True))
+DRYRUN_TIMEOUT = 900
+
+
+class RouterReplay:
+    """Installed over ``models.core.moe`` (``with RouterReplay(M) as
+    rr``): with ``rr.mode = "record"`` each MoE call runs the model's
+    ``moe`` and keeps its routing (each token's top-k experts); with
+    ``"replay"`` the i-th call dispatches by the i-th recorded routing
+    (``models.core.moe_dispatch`` with its own router's probabilities)
+    and notes the tokens its own router would have sent elsewhere, with
+    the largest gap of their router probabilities to the recorded call's
+    (``rr.flips``).  The plain route replays the kernel route's routing,
+    so the two are compared on the same experts: a near tie of a router
+    that bf16 rounding tips would otherwise send tokens to other experts
+    (the serve lockstep's ``ROUTER_TIE``), and one sequence of thousands
+    of tokens has such ties in every run."""
+
+    def __init__(self, torch, M):
+        self.torch, self.M, self.real = torch, M, M.moe
+        self.mode, self.calls, self.i, self.flips = "record", [], 0, []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def moe(p, cfg, x2d):
+            probs, own = self.M.route(p, cfg, x2d)
+            if self.mode == "record":
+                self.calls.append((own, probs.detach()))
+                return self.M.moe_dispatch(p, cfg, x2d, probs, own)
+            idx, rprobs = self.calls[self.i]
+            self.i += 1
+            apart = (own.sort(dim=-1).values !=
+                     idx.sort(dim=-1).values).any(dim=-1)
+            if bool(apart.any()):
+                gap = (probs.detach() - rprobs).abs().amax(dim=-1)[apart]
+                self.flips.append((self.i - 1, int(apart.sum()),
+                                   float(gap.max())))
+            return self.M.moe_dispatch(p, cfg, x2d, probs, idx)
+        self.M.moe = moe
+        return self
+
+    def replay(self):
+        self.mode, self.i, self.flips = "replay", 0, []
+
+    def __exit__(self, *exc):
+        self.M.moe = self.real
+
+
+class PlantedAttention:
+    """Installed over ``models.core.flash_mha``: the kernel route's
+    attention output ``1 + scale`` times the kernel's (the plain route's
+    untouched).  A control: the families' route checks must fail it."""
+
+    def __init__(self, M, scale):
+        self.M, self.real, self.scale = M, M.flash_mha, scale
+
+    def __enter__(self):
+        real, scale = self.real, self.scale
+
+        def flash_mha(q, k, v, causal=True, impl="kernel", window=0):
+            o = real(q, k, v, causal, impl=impl, window=window)
+            if impl != "kernel":
+                return o
+            return (o.float() * (1 + scale)).to(o.dtype)
+        self.M.flash_mha = flash_mha
+        return self
+
+    def __exit__(self, *exc):
+        self.M.flash_mha = self.real
+
+
+def grad_run(torch, cfg, params, batch, impl):
+    """One ``loss_and_grads``: loss, grad norm, the attention leaves'
+    gradients (f32 copies), seconds and peak device bytes; the rest of
+    the gradients are freed."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.training.optim import global_norm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss, grads = loss_and_grads(cfg, params, batch, impl)
+    gn = float(global_norm(grads))
+    torch.cuda.synchronize()
+    out = dict(loss=float(loss), grad_norm=gn,
+               attn={n: grads["blocks"][0][n].float().clone()
+                     for n in ATTN_LEAVES},
+               seconds=time.time() - t0,
+               peak=torch.cuda.max_memory_allocated())
+    del grads
+    return out
+
+
+def route_gaps(a, b, limits=None):
+    """Kernel route ``a`` against plain route ``b``: the loss gap, the grad
+    norm's relative gap, each attention leaf's relative L2 error, and
+    whether each is within ``limits`` (loss, grad norm, leaf; by default
+    PERF.md section 2's train limits)."""
+    loss_atol, gn_rtol, leaf_l2 = limits or (
+        TRAIN_LOSS_ATOL, TRAIN_GN_RTOL, TRAIN_LEAF_REL_L2)
+    leaf = {n: float((a["attn"][n] - b["attn"][n]).norm() /
+                     b["attn"][n].norm()) for n in ATTN_LEAVES}
+    loss = abs(a["loss"] - b["loss"])
+    gn = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+    ok = (loss <= loss_atol and gn <= gn_rtol and
+          all(math.isfinite(e) and e <= leaf_l2 for e in leaf.values()))
+    return dict(loss_gap=loss, grad_norm_rel_gap=gn, attn_grad_rel_l2=leaf,
+                within=ok)
+
+
+def jamba_grads(torch, cfg, params, pseed, token_seeds, plant):
+    """jamba (one period, full width, parameters from seed ``pseed``)
+    ``loss_and_grads`` on the kernel route, then on the plain route
+    replaying its MoE routing, on a batch from each of ``token_seeds``;
+    with ``plant``, then the kernel route with the attention fault planted
+    (replaying too) on the first batch: each honest pair within
+    JAMBA_GRAD_LIMITS, the planted one beyond them.  The attention kernel
+    runs twice a pair's kernel route (forward and the period's recompute);
+    at S <= window it is the unwindowed instantiation."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import core as M
+    runs = []
+    for i, tseed in enumerate(token_seeds):
+        g = torch.Generator(device="cuda").manual_seed(tseed)
+        tok = torch.randint(0, cfg.vocab, (1, FAMILY_GRAD_SEQ + 1),
+                            generator=g, device="cuda", dtype=torch.int32)
+        batch = {"tokens": tok[:, :-1].contiguous(),
+                 "labels": tok[:, 1:].contiguous()}
+        with RouterReplay(torch, M) as rr:
+            FA.flash_attention.launches = 0
+            FA.flash_attention.window_launches = 0
+            k = grad_run(torch, cfg, params, batch, "kernel")
+            launches = (FA.flash_attention.launches,
+                        FA.flash_attention.window_launches)
+            rr.replay()
+            r = grad_run(torch, cfg, params, batch, "ref")
+            flips = rr.flips
+            f = None
+            if plant and i == 0:
+                rr.replay()
+                with PlantedAttention(M, PLANTED_SCALE):
+                    f = grad_run(torch, cfg, params, batch, "kernel")
+        for q in (k, r, f):
+            if q is not None:
+                q["routes_ok"] = math.isfinite(q["loss"]) and \
+                    math.isfinite(q["grad_norm"]) and q["grad_norm"] > 0
+        honest = route_gaps(k, r, JAMBA_GRAD_LIMITS)
+        planted = None if f is None else route_gaps(f, r, JAMBA_GRAD_LIMITS)
+        emit({"phase": "jamba_grads", "arch": JAMBA_ARCH,
+              "layers": cfg.n_layers, "params": cfg.param_count(),
+              "seq": FAMILY_GRAD_SEQ, "params_seed": pseed,
+              "tokens_seed": tseed,
+              "loss_kernel": k["loss"], "loss_plain": r["loss"],
+              "grad_norm_kernel": k["grad_norm"],
+              "grad_norm_plain": r["grad_norm"],
+              "honest": honest, "planted": planted,
+              "planted_scale": PLANTED_SCALE if f is not None else None,
+              "plain_router_flips": flips,
+              "flash_attention_launches": launches[0],
+              "flash_attention_window_launches": launches[1],
+              "seconds": {"kernel": k["seconds"], "plain": r["seconds"]},
+              "peak_device_bytes": {"kernel": k["peak"], "plain": r["peak"]},
+              "tolerance": dict(zip(("loss_atol", "grad_norm_rtol",
+                                     "attn_grad_rel_l2"),
+                                    JAMBA_GRAD_LIMITS))})
+        runs.append((k, r, f, honest, planted, launches))
+    for k, r, f, honest, planted, launches in runs:
+        check(all(q["routes_ok"] for q in (k, r, f) if q is not None),
+              "jamba gradients: a non-finite or zero loss or grad norm")
+        check(launches == (2, 0), f"jamba gradients: flash_attention "
+              f"launches {launches} != (2, 0) (forward and recompute, "
+              f"unwindowed)")
+        check(honest["within"], f"jamba gradients: kernel route against "
+              f"plain route beyond the limits: {honest}")
+        check(planted is None or not planted["within"],
+              f"jamba gradients: the planted attention fault passed the "
+              f"limits: {planted}")
+
+
+def jamba_prefill(torch, cfg, params):
+    """``make_prefill_step`` on one jamba period at PREFILL_SEQ tokens: the
+    windowed kernel on its one attention sublayer, finite last-token
+    logits; then at PREFILL_CHECK_SEQ the kernel route against the plain
+    route (replaying the kernel route's MoE routing) within
+    SERVE_LOGIT_TOL, and the planted fault's reading."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import core as M
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tok = torch.randint(0, cfg.vocab, (1, PREFILL_SEQ), generator=g,
+                        device="cuda", dtype=torch.int32)
+    step = make_prefill_step(cfg)
+    FA.flash_attention.launches = FA.flash_attention.window_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    logits = step(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    secs, peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    launches = (FA.flash_attention.launches,
+                FA.flash_attention.window_launches)
+    check(tuple(logits.shape) == (1, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          f"jamba prefill: logits {tuple(logits.shape)} or non-finite")
+    check(launches == (0, 1), f"jamba prefill at {PREFILL_SEQ}: "
+          f"flash_attention launches {launches} != (0, 1) windowed")
+    short = {"tokens": tok[:, :PREFILL_CHECK_SEQ].contiguous()}
+    plain = make_prefill_step(cfg, impl="ref")
+    with RouterReplay(torch, M) as rr:
+        lk = step(params, short).float()
+        rr.replay()
+        torch.cuda.reset_peak_memory_stats()
+        lr = plain(params, short).float()
+        plain_peak = torch.cuda.max_memory_allocated()
+        flips = rr.flips
+        rr.replay()
+        with PlantedAttention(M, PLANTED_SCALE):
+            lf = step(params, short).float()
+    diff = float((lk - lr).abs().max())
+    planted = float((lf - lr).abs().max())
+    emit({"phase": "jamba_prefill", "arch": JAMBA_ARCH,
+          "layers": cfg.n_layers, "seq": PREFILL_SEQ,
+          "window": cfg.sliding_window, "seconds": secs,
+          "tokens_per_s": PREFILL_SEQ / secs, "peak_device_bytes": peak,
+          "flash_attention_window_launches": launches[1],
+          "check_seq": PREFILL_CHECK_SEQ, "max_abs_logit_diff": diff,
+          "planted_max_abs_logit_diff": planted,
+          "planted_scale": PLANTED_SCALE, "plain_router_flips": flips,
+          "plain_peak_device_bytes": plain_peak,
+          "tolerance": SERVE_LOGIT_TOL})
+    check(diff <= SERVE_LOGIT_TOL, f"jamba prefill at {PREFILL_CHECK_SEQ}: "
+          f"kernel route against plain route {diff} > {SERVE_LOGIT_TOL}")
+    check(planted > SERVE_LOGIT_TOL, f"jamba prefill at "
+          f"{PREFILL_CHECK_SEQ}: the planted attention fault moved the "
+          f"logits {planted} <= {SERVE_LOGIT_TOL}")
+    return launches[1]
+
+
+def xlstm_train(torch):
+    """xlstm-350m whole through ``train`` (AdamW) for XLSTM_STEPS steps,
+    then the same steps timed: losses and grad norms finite, the timed
+    losses ``train``'s."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.training.train_loop import train
+    cfg = CONFIGS[XLSTM_ARCH]
+    logs = []
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        losses = train(cfg, steps=XLSTM_STEPS, batch=1, seq=XLSTM_SEQ,
+                       ckpt_dir=ckdir, ckpt_every=XLSTM_STEPS + 1,
+                       log=logs.append)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall, peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    records = timed_steps(torch, cfg, 1, XLSTM_SEQ, XLSTM_STEPS)
+    timed = [r["seconds"] for r in records[1:]]
+    s_step = sum(timed) / len(timed)
+    emit({"phase": "xlstm_train", "arch": XLSTM_ARCH,
+          "layers": cfg.n_layers, "params": cfg.param_count(), "batch": 1,
+          "seq": XLSTM_SEQ, "steps": len(losses), "wall_s": wall,
+          "s_per_step": s_step, "tokens_per_s": XLSTM_SEQ / s_step,
+          "losses": losses, "timed_losses": [r["loss"] for r in records],
+          "grad_norms": [r["grad_norm"] for r in records],
+          "peak_device_bytes": peak, "log": logs})
+    check(len(losses) == XLSTM_STEPS and all(math.isfinite(x)
+                                             for x in losses),
+          f"xlstm train losses {losses}")
+    check(all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+              for r in records), "xlstm: non-finite or zero grad norm")
+    check(all(abs(r["loss"] - x) <= TRAIN_LOSS_ATOL
+              for r, x in zip(records, losses)), "xlstm: the timed steps' "
+          f"losses {[r['loss'] for r in records]} are not train's {losses}")
+
+
+def phase_families(torch, dev, errs):
+    """jamba's gradients and long prefill, xlstm's training, and the
+    windowed kernel's timing at jamba's prefill shape."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = CONFIGS[JAMBA_ARCH].scaled(n_layers=JAMBA_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    jamba_grads(torch, cfg, params, 0, JAMBA_GRAD_TOKEN_SEEDS, plant=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    window_launches = jamba_prefill(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, seed=1, device="cuda")
+    jamba_grads(torch, cfg, params, 1, JAMBA_GRAD_TOKEN_SEEDS[:1],
+                plant=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_train(torch)
+    t = time_flash_window(torch, dev, errs["flash_attention_window"])
+    emit({"phase": "families", "seconds": round(time.time() - t0, 1)})
+    return window_launches, t
+
+
+def measured_rates(torch, dev):
+    """The card's bf16 GEMM rate (8192^3, CUDA events) and HBM copy rate
+    (a 2 GiB device-to-device copy: read and write counted), beside the
+    data-sheet figures the dry run's roofline uses."""
+    n = 8192
+    a = torch.randn((n, n), device=dev).to(torch.bfloat16)
+    b = torch.randn((n, n), device=dev).to(torch.bfloat16)
+    gemm_ms = time_ms(torch, lambda: a @ b, 20, warmup=5)
+    src = torch.empty(1 << 30, dtype=torch.int16, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(torch, lambda: dst.copy_(src), 20, warmup=3)
+    return {"bf16_gemm_flop_per_s": 2 * n ** 3 / (gemm_ms / 1e3),
+            "hbm_copy_bytes_per_s": 2 * src.numel() * 2 / (copy_ms / 1e3)}
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` on each of DRYRUN_CELLS at
+    production size, started at once in the background (fake tensors on
+    the host's CPU, no card): ``[(cell, out path, Popen, times)]``, where
+    a thread puts each process's wall seconds in ``times["wall"]`` when it
+    ends."""
+    import threading
+
+    def clock(proc, times):
+        proc.wait()
+        times["wall"] = time.time() - times["start"]
+    runs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dry_"),
+                            "cell.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", path] + \
+            (["--multi-pod"] if multi_pod else [])
+        times = {"start": time.time()}
+        with open(path + ".log", "w") as log:    # no pipe for it to fill
+            proc = subprocess.Popen(
+                cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        threading.Thread(target=clock, args=(proc, times),
+                         daemon=True).start()
+        runs.append(((arch, shape, multi_pod), path, proc, times))
+    return runs
+
+
+def phase_dryrun(torch, dev, runs):
+    """The dry-run cells started by ``start_dryrun`` (they ran beside the
+    card's phases), each report read back and ``OK``; the card's measured
+    rates beside the data sheet's the roofline divides by."""
+    from repro_torch.launch import dryrun as DR
+    rates = measured_rates(torch, dev)
+    out = []
+    for (arch, shape, multi_pod), path, proc, times in runs:
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        wall = times.get("wall", time.time() - times["start"])
+        with open(path + ".log") as f:
+            log = f.read()
+        check(proc.returncode == 0, f"dryrun {arch} {shape} multi_pod="
+              f"{multi_pod}: rc {proc.returncode}\n{log[-3000:]}")
+        with open(path) as f:
+            cell = json.load(f)[0]
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        check(cell["status"] == "OK", f"dryrun {arch} {shape}: {cell}")
+        out.append({**cell, "wall_s": round(wall, 1)})
+    emit({"phase": "dryrun", "cells": out, "measured": rates,
+          "data_sheet": {"bf16_flop_per_s": DR.PEAK_FLOPS,
+                         "hbm_bytes_per_s": DR.HBM_BW,
+                         "link_bytes_per_s": DR.LINK_BW}})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=DEFAULT_SCALE,
@@ -3340,6 +4085,18 @@ def main():
           "cuda": torch.version.cuda})
 
     phase_build()
+    dry = start_dryrun() if "dryrun" in args.only else []
+    try:
+        return run_phases(torch, dev, args, smi, t_start, dry)
+    finally:
+        for _, _, proc, _ in dry:         # stop what a failed run left
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(torch, dev, args, smi, t_start, dry):
+    """Every phase of ``args.only`` in order; returns the exit code."""
     errs = dict.fromkeys(REPLACES, 0.0)
     kernels = []
     if "kernel" in args.only:
@@ -3463,6 +4220,23 @@ def main():
             "library_max_abs_err": t["library_max_abs_err"],
             "design": t["design"],
             "shape": t["shape"]})
+    if "families" in args.only:
+        launches, t = phase_families(torch, dev, errs)
+        kernels.append({
+            "name": "flash_attention_window", "route": "cuda",
+            "source": SOURCES["flash_attention_window"],
+            "replaces": REPLACES["flash_attention_window"],
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "design": t["design"],
+            "slice": t["slice"], "shape": t["shape"],
+            "note": "the windowed instantiation of flash_attention (the "
+                    "reference's _online_attn mask): jamba's attention at "
+                    "its prefill run's S = 2 x window; launches are the "
+                    "jamba prefill's"})
+    if "dryrun" in args.only:
+        phase_dryrun(torch, dev, dry)
     if set(args.only) != set(PHASES):
         emit({"phase": "partial", "ran": list(args.only),
               "seconds": round(time.time() - t_start, 1)})

@@ -14,6 +14,19 @@
 // rows and keys past S are neither summed nor stored (the TPU kernel pads
 // its last tile and reads NaN there when S % 128 != 0).
 //
+// A sliding window (window > 0, causal only; the TPU kernel has none, the
+// reference's model attention _online_attn, src/repro/models/core.py:67-99,
+// has it): query r attends key c iff c <= r and c > r - window.  Both
+// designs take it as a launch argument.  A query tile starting at q0 starts
+// its key loop at the tile holding key q0 - window + 1, so the tiles wholly
+// before the window are skipped as those wholly after the diagonal are; the
+// tiles the window's edge cuts are masked by index.  The first tile of a
+// windowed range can be wholly masked for some rows of the query tile:
+// while a row's running maximum is still the mask value -1e30, its
+// probabilities are taken against 0, so they are exp(-1e30) = 0 and not
+// exp(-1e30 + 1e30) = 1.  window = 0 launches the unwindowed code (in tc::,
+// a template instantiation of its own).
+//
 // What bounds it here: operations.  A causal call does 2 * 2 * BH * S^2 *
 // D / 2 FLOPs on S * D inputs per head, far above the card's ~295 FLOP per
 // byte, so the tensor cores are what it must use.  Two designs live in
@@ -58,10 +71,18 @@
 //   the K tile's space.  Causal tiles are skipped and scheduled as in
 //   tc::.  Masked scores are -1e30, as the reference writes them.
 
+#ifdef __CUDACC__
 #include <cuda.h>
+#endif
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#ifdef __CUDACC__
+// the scalar design's dynamic shared memory (tests/cuda_shim defines its own)
+extern __shared__ __align__(16) unsigned char smem[];
+#endif
 
 namespace {
 
@@ -113,7 +134,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int S, int H, int Hkv, float scale, int causal) {
+                           int S, int H, int Hkv, float scale, int causal,
+                           int window) {
   constexpr int C = D / 16;   // output columns per thread
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
@@ -121,8 +143,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;                 // [D][QS]  q * scale, transposed
+  float* qT = reinterpret_cast<float*>(smem);   // [D][QS] q*scale, transposed
   float* kT = qT + D * QS;          // [D][KS]  K tile, transposed
   float* pT = kT;                   // [BK][QS] probabilities, transposed
   float* vs = kT + (D * KS > BK * QS ? D * KS : BK * QS);   // [BK][D]
@@ -150,8 +171,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
+  const int kv_begin = window ? max(0, q0 - window + 1) / BK * BK : 0;
   const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     const int kn = min(BK, S - k0);   // keys of this tile inside S
     __syncthreads();   // the previous tile's p and V are read; q is written
     for (int i = tid; i < BK * D; i += THREADS) {
@@ -185,7 +207,8 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
     }
 
-    // online softmax; a key past S gets probability 0 outright
+    // online softmax; a key past S gets probability 0 outright, and a row
+    // with no attended key yet (m_new still NEG) gets 0 against base 0
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -193,15 +216,18 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        if (col >= S || (causal && col > row)) s[i][j] = NEG;
+        if (col >= S || (causal && col > row) ||
+            (window && col <= row - window))
+          s[i][j] = NEG;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
+      const float base = m_new == NEG ? 0.f : m_new;
+      const float corr = expf(m[i] - base);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx * 4 + j < S ? expf(s[i][j] - m_new) : 0.f;
+        const float p = k0 + tx * 4 + j < S ? expf(s[i][j] - base) : 0.f;
         s[i][j] = p;
         sum += p;
       }
@@ -255,24 +281,35 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int Hkv, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  if (smem > 48 * 1024) {
+             int S, int H, int Hkv, int causal, int window,
+             cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * smem_floats<D>();
+  if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+#ifdef __CUDACC__
+  flash_attention_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv,
-      1.0f / sqrtf(static_cast<float>(D)), causal);
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, scale, causal,
+      window);
+#else  // g++ under the CPU emulation of tests/cuda_shim
+  (void)stream;
+  cuda_shim::launch(flash_attention_kernel<T, D>, grid, THREADS, bytes,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv,
+                    scale, causal, window);
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sc
 
+#ifdef __CUDACC__  // the tensor-core design: nvcc only, not the g++ shim
 namespace tc {
 
 constexpr int BQ = 128;           // query rows of a CTA (two warpgroups)
@@ -476,13 +513,16 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;   // room to align to 1024
 };
 
-template <int D>
+// WINDOW: the sliding window (causal only); the false instantiation is the
+// unwindowed kernel, unchanged
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o, int S, int H,
-                           int Hkv, float scale_log2, int causal) {
+                           int Hkv, float scale_log2, int causal,
+                           int window) {
   using L = Smem<D>;
   constexpr int ATOMS = D / ATOM;
   extern __shared__ uint8_t smem_raw[];
@@ -501,6 +541,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
   const int kv_tiles_all = (S + BK - 1) / BK;
   const int n_tiles = causal ? min(kv_tiles_all, q0 / BK + 1) : kv_tiles_all;
+  // the first key tile: the one holding key q0 - window + 1 (tile n is the
+  // (n - n_first)-th through the ring, in producer and consumers alike)
+  const int n_first = WINDOW ? max(0, q0 - window + 1) / BK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -523,9 +566,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(q_full, L::Q);
       for (int c = 0; c < ATOMS; ++c)
         tma_load(q_s + c * BQ * ROW_BYTES, &tq, q_full, c * ATOM, h, q0, b);
-      for (int n = 0; n < n_tiles; ++n) {
-        const int st = n % STAGES;
-        if (n >= STAGES) mbar_wait(empty + st, ((n / STAGES) & 1) ^ 1);
+      for (int n = n_first; n < n_tiles; ++n) {
+        const int i = n - n_first;
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
         uint8_t* k_s = smem + L::Q + st * 2 * L::KV;
         uint8_t* v_s = k_s + L::KV;
         mbar_expect_tx(k_full + st, L::KV);
@@ -553,9 +597,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;   // l: this thread's part
 
     mbar_wait(q_full, 0);
-    for (int n = 0; n < n_tiles; ++n) {
-      const int st = n % STAGES;
-      const int par = (n / STAGES) & 1;
+    for (int n = n_first; n < n_tiles; ++n) {
+      const int st = (n - n_first) % STAGES;
+      const int par = ((n - n_first) / STAGES) & 1;
       const uint8_t* k_s = smem + L::Q + st * 2 * L::KV;
       const uint8_t* v_s = k_s + L::KV;
       const int k0 = n * BK;
@@ -581,8 +625,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs<BK / 2>(s);
 
       // online softmax on rows row0 (s[4i], s[4i+1]) and row1 (s[4i+2],
-      // s[4i+3]), keys k0 + 8i + 2t + {0, 1}
-      const bool edge = k0 + BK > S || (causal && n == n_tiles - 1);
+      // s[4i+3]), keys k0 + 8i + 2t + {0, 1}; a tile is masked by index
+      // where it crosses S, the diagonal or the window's lower edge
+      const bool edge = k0 + BK > S || (causal && n == n_tiles - 1) ||
+                        (WINDOW && k0 + window <= q0 + BQ - 1);
       float mx0 = NEG, mx1 = NEG;
 #pragma unroll
       for (int i = 0; i < BK / 8; ++i) {
@@ -592,7 +638,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (edge) {
             const int col = k0 + 8 * i + 2 * t + (e & 1);
             const int row = e < 2 ? row0 : row1;
-            if (col >= S || (causal && col > row)) x = NEG;
+            if (col >= S || (causal && col > row) ||
+                (WINDOW && col <= row - window))
+              x = NEG;
           }
           s[4 * i + e] = x;
         }
@@ -601,16 +649,20 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       const float mn0 = fmaxf(m0, quad_max(mx0));
       const float mn1 = fmaxf(m1, quad_max(mx1));
-      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      // under the window a row may have no attended key yet: its base is 0
+      // then, so its masked scores give exp2(-1e30) = 0, not 1
+      const float b0 = WINDOW && mn0 == NEG ? 0.f : mn0;
+      const float b1 = WINDOW && mn1 == NEG ? 0.f : mn1;
+      const float c0 = exp2f(m0 - b0), c1 = exp2f(m1 - b1);
       m0 = mn0;
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int i = 0; i < BK / 8; ++i) {
-        s[4 * i] = exp2f(s[4 * i] - mn0);
-        s[4 * i + 1] = exp2f(s[4 * i + 1] - mn0);
-        s[4 * i + 2] = exp2f(s[4 * i + 2] - mn1);
-        s[4 * i + 3] = exp2f(s[4 * i + 3] - mn1);
+        s[4 * i] = exp2f(s[4 * i] - b0);
+        s[4 * i + 1] = exp2f(s[4 * i + 1] - b0);
+        s[4 * i + 2] = exp2f(s[4 * i + 2] - b1);
+        s[4 * i + 3] = exp2f(s[4 * i + 3] - b1);
         sum0 += s[4 * i] + s[4 * i + 1];
         sum1 += s[4 * i + 2] + s[4 * i + 3];
       }
@@ -726,61 +778,81 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int D, bool WINDOW>
+int launch_w(const CUtensorMap& tq, const CUtensorMap& tk,
+             const CUtensorMap& tv, void* o, int B, int S, int H, int Hkv,
+             int causal, int window, cudaStream_t stream) {
+  const int bytes = Smem<D>::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<D, WINDOW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_attention_kernel<D, WINDOW><<<grid, THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv,
+      1.4426950408889634f / sqrtf(static_cast<float>(D)), causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int Hkv, int causal, cudaStream_t stream) {
+             int S, int H, int Hkv, int causal, int window,
+             cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, S, H, D, BQ) || !make_map(&tk, k, B, S, Hkv, D, BK)
       || !make_map(&tv, v, B, S, Hkv, D, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = Smem<D>::ALLOC;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv,
-      1.4426950408889634f / sqrtf(static_cast<float>(D)), causal);
-  return static_cast<int>(cudaGetLastError());
+  if (window)
+    return launch_w<D, true>(tq, tk, tv, o, B, S, H, Hkv, causal, window,
+                             stream);
+  return launch_w<D, false>(tq, tk, tv, o, B, S, H, Hkv, causal, 0, stream);
 }
 
 }  // namespace tc
+#endif  // __CUDACC__
 
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); D one of 16,
-// 32, 64, 128.  Sets *design to the design launched (1 = tc, the tensor
-// cores; 0 = sc, scalar) and returns the CUDA error of the launch
-// (0 = launched).
+// 32, 64, 128; window 0 (none) or, with causal, the sliding window (the
+// caller passes 0 when window >= S).  Sets *design to the design launched
+// (1 = tc, the tensor cores; 0 = sc, scalar) and returns the CUDA error of
+// the launch (0 = launched).  Built under the g++ shim, the tensor-core
+// cases return cudaErrorInvalidValue.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int Hkv, int D,
-                           int causal, int dtype, void* stream,
+                           int causal, int window, int dtype, void* stream,
                            int* design) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *design = dtype == 1 && (D == 64 || D == 128);
+  if (window < 0 || (window && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     switch (D) {
       case 16: return sc::launch_d<bf16, 16>(q, k, v, o, B, S, H, Hkv, causal,
-                                             st);
+                                             window, st);
       case 32: return sc::launch_d<bf16, 32>(q, k, v, o, B, S, H, Hkv, causal,
-                                             st);
-      case 64: return tc::launch_d<64>(q, k, v, o, B, S, H, Hkv, causal, st);
-      case 128: return tc::launch_d<128>(q, k, v, o, B, S, H, Hkv, causal, st);
+                                             window, st);
+#ifdef __CUDACC__
+      case 64: return tc::launch_d<64>(q, k, v, o, B, S, H, Hkv, causal,
+                                       window, st);
+      case 128: return tc::launch_d<128>(q, k, v, o, B, S, H, Hkv, causal,
+                                         window, st);
+#endif
     }
   } else if (dtype == 0) {
     switch (D) {
       case 16: return sc::launch_d<float, 16>(q, k, v, o, B, S, H, Hkv, causal,
-                                              st);
+                                              window, st);
       case 32: return sc::launch_d<float, 32>(q, k, v, o, B, S, H, Hkv, causal,
-                                              st);
+                                              window, st);
       case 64: return sc::launch_d<float, 64>(q, k, v, o, B, S, H, Hkv, causal,
-                                              st);
+                                              window, st);
       case 128: return sc::launch_d<float, 128>(q, k, v, o, B, S, H, Hkv,
-                                                causal, st);
+                                                causal, window, st);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

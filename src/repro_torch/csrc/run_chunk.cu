@@ -12,12 +12,21 @@
 // repro_torch/core/target/cpu.py::_run_chunk_eager (its plain version):
 // every CpuState field, the four model counters and the substep count.
 //
-// Design.  One CTA of one warp runs the whole chunk; lane l of the warp is
-// core l (the contract: at most LANES_MAX = 32 cores, the wrapper refuses
-// more).  So every cross-lane step of a substep -- the same-tick conflict
-// test, the prefix of safe lanes, any/argmax, the u64 minimum of the stall
-// gaps and the loop predicate -- is a ballot or a shuffle, with no block
-// barrier and no host round trip.  Architectural state lives in registers
+// Design.  One CTA runs the whole chunk; thread l is core l.  A board of at
+// most 32 cores is one warp (chunk_body<TRACE, false>): every cross-lane
+// step of a substep -- the same-tick conflict test, the prefix of safe
+// lanes, any/argmax, the u64 minimum of the stall gaps and the loop
+// predicate -- is a ballot or a shuffle, with no block barrier and no host
+// round trip.  A board of 33 to LANES_MAX = 1024 cores (one CTA's threads)
+// is ceil(n / 32) warps (chunk_body<TRACE, true>): each of those steps
+// becomes CTA-wide -- a warp's ballot goes to a shared word of its own,
+// __syncthreads stands where __syncwarp stood, the lowest lane is taken
+// across the words, the store words that the conflict test compares are
+// read from shared memory, and the minimum and maximum go through shared
+// memory -- with the same rule: the lowest conflicting lane still bounds
+// the prefix, so the commit order stays the eager loop's.  The shared
+// memory a board needs (its register files, TLB and fetch slots) must fit
+// one CTA's 227 KB; the wrapper refuses a board that does not.  Architectural state lives in registers
 // (the register file in shared memory, indexed by rs1/rs2/rd) and is
 // loaded once and written back once per launch.  The fetch-block cache and
 // the data TLB are rebuilt empty in shared memory at every launch: the
@@ -42,8 +51,8 @@
 // movement -- so a CTA that stops at its own predicate, tested every
 // issue_width substeps as the flat loop tests it, leaves its board as the
 // flat loop does.  A CTA whose budget is 0 returns before it reads or writes
-// any state: the board is untouched, bit for bit.  So the limit of one warp
-// is 32 cores a board, for any number of boards.
+// any state: the board is untouched, bit for bit.  A board of more than 32
+// cores runs on the CTA-wide instantiation, as in run_chunk.
 //
 // The commit-trace ring (src/repro/core/target/cpu.py:1021-1060, the
 // `if trace_on:` block of _exec_substep).  chunk_body is a template on
@@ -74,7 +83,8 @@
 
 namespace {
 
-constexpr int LANES_MAX = 32;
+constexpr int LANES_MAX = 1024;      // one CTA's threads
+constexpr int WARP_LANES = 32;       // above this, the CTA-wide steps
 constexpr unsigned FULL = 0xffffffffu;
 constexpr u64 RES_INVALID = ~0ull;
 constexpr u64 M32 = 0xFFFFFFFFull;
@@ -234,12 +244,98 @@ __device__ __forceinline__ u64 warp_umin(u64 v) {
   return v;
 }
 
-// The chunk loop of one target (one board of a fleet), run by the warp of
-// the calling CTA; with TRACE it records the commit-trace ring.
-template <bool TRACE>
+// ---- the CTA-wide steps of a board of more than 32 cores -------------------
+// The shared scratch after the fetch slots: one word a warp for each ballot
+// site, one u64 a warp for each of the two reductions, and each thread's
+// store word (what the conflict test and the kills compare).  A site is used
+// once a substep; the substep's closing __syncthreads separates its reads
+// from the next substep's writes.
+enum Site { S_GO, S_GATE, S_ACTIVE, S_COMMITS0, S_CONFS, S_COMMITS, S_DEFS,
+            S_CAND, S_RUNNABLE, SITES };
+
+struct Cross {
+  unsigned* words;   // [SITES][32]
+  u64* red;          // [2][32]: the minimum's, then the maximum's
+  u64* stw;          // [threads]
+  int warps;
+};
+
+__host__ __device__ constexpr size_t align8(size_t b) {
+  return (b + 7) & ~size_t(7);
+}
+
+__host__ __device__ constexpr size_t cross_bytes(int threads) {
+  return (size_t)SITES * 32 * 4 + 2 * 32 * 8 + (size_t)threads * 8;
+}
+
+// this warp's ballot of `pred` into site `s`, after the CTA has written its
+// words; returns the site's words
+__device__ __forceinline__ const unsigned* cta_ballot(const Cross& x, int s,
+                                                      bool pred) {
+  const unsigned m = __ballot_sync(FULL, pred);
+  unsigned* w = x.words + s * 32;
+  if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = m;
+  __syncthreads();
+  return w;
+}
+
+__device__ __forceinline__ bool cta_any(const Cross& x, int s, bool pred) {
+  const unsigned* w = cta_ballot(x, s, pred);
+  unsigned a = 0;
+  for (int i = 0; i < x.warps; ++i) a |= w[i];
+  return a != 0;
+}
+
+// the lowest lane whose `pred` holds, or `none`
+__device__ __forceinline__ int cta_lowest(const Cross& x, int s, bool pred,
+                                          int none) {
+  const unsigned* w = cta_ballot(x, s, pred);
+  for (int i = 0; i < x.warps; ++i)
+    if (w[i]) return i * 32 + __ffs(w[i]) - 1;
+  return none;
+}
+
+__device__ __forceinline__ u64 cta_umin(const Cross& x, u64 v) {
+  v = warp_umin(v);
+  if ((threadIdx.x & 31) == 0) x.red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  u64 r = ~0ull;
+  for (int i = 0; i < x.warps; ++i) r = umin(r, x.red[i]);
+  return r;
+}
+
+__device__ __forceinline__ unsigned cta_max(const Cross& x, unsigned v) {
+  v = __reduce_max_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) x.red[32 + (threadIdx.x >> 5)] = v;
+  __syncthreads();
+  unsigned r = 0;
+  for (int i = 0; i < x.warps; ++i) r = max(r, (unsigned)x.red[32 + i]);
+  return r;
+}
+
+// any lane's `pred`: a ballot of the warp, or across the CTA at site `s`
+template <bool MULTI>
+__device__ __forceinline__ bool team_any(const Cross& x, int s, bool pred) {
+  if constexpr (MULTI) return cta_any(x, s, pred);
+  else return __ballot_sync(FULL, pred) != 0;
+}
+
+// orders every lane's memory accesses before the next step's
+template <bool MULTI>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (MULTI) __syncthreads();
+  else __syncwarp();
+}
+
+// The chunk loop of one target (one board of a fleet), run by the calling
+// CTA: one warp, or with MULTI ceil(nc / 32) warps; with TRACE it records
+// the commit-trace ring.
+template <bool TRACE, bool MULTI>
 __device__ __forceinline__ void chunk_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
+  const int wl = MULTI ? (lane & 31) : lane;     // lane within its warp
+  const int wbase = MULTI ? lane - wl : 0;       // its warp's first lane
   const int nc = p.nc;
   const bool on = lane < nc;
   const u64 mask = p.mask;
@@ -260,6 +356,15 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   u64* const TP = tlb_ppn + lane * ways;
   u64* const TM = tlb_perm + lane * ways;
   u64* const TW = tlb_ptw + lane * ways;
+  Cross x{};
+  if constexpr (MULTI) {
+    unsigned char* const c = smem + align8((unsigned char*)(slots_sh +
+                                                   nc * bw) - smem);
+    x.words = (unsigned*)c;
+    x.red = (u64*)(c + SITES * 32 * 4);
+    x.stw = x.red + 2 * 32;
+    x.warps = (int)(blockDim.x >> 5);
+  }
 
   // ---- state in: once per launch ------------------------------------------
   u64 pc = 0, stall = 0, satp = 0, mcause = 0, mepc = 0, mtval = 0;
@@ -298,8 +403,8 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   }
   u64 ticks = *p.ticks;
   const bool active = on && priv != 3;       // priv is not written here
-  const unsigned any_active = __ballot_sync(FULL, active);
-  __syncwarp();
+  const bool any_active = team_any<MULTI>(x, S_ACTIVE, active);
+  team_sync<MULTI>();
 
   long long cycles = 0;
   int exec_from = 0;
@@ -307,11 +412,12 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   long long trips = 0;
   while (true) {
     // the loop predicate of cpu.py:631-632, tested every issue_width
-    const bool go = (cycles < p.limit && !__ballot_sync(FULL, pending) &&
+    const bool go = (cycles < p.limit && !team_any<MULTI>(x, S_GO, pending) &&
                      any_active) || exec_from > 0;
     if (!go) break;
     for (int it = 0; it < p.issue_width; ++it) {
-      const bool gate = !__ballot_sync(FULL, pending) && cycles < p.limit;
+      const bool gate = !team_any<MULTI>(x, S_GATE, pending) &&
+                        cycles < p.limit;
       const u64 budget_left = (u64)(p.limit - cycles);
       const bool cont = exec_from > 0;
       const bool runnable = active && !pending && ticks >= stall;
@@ -341,13 +447,13 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       const u64 ipa = hit ? fb_pbase + off : fw.pa;
       if (p.block_cache) {
         // every missing lane that translated fills, deferred ones too; the
-        // whole warp gathers each filling lane's slots
+        // whole warp gathers each of its filling lanes' slots
         const bool fill = miss && !ifault;
         for (unsigned m = __ballot_sync(FULL, fill); m; m &= m - 1) {
           const int f = __ffs(m) - 1;
           const u64 fpa = __shfl_sync(FULL, fw.pa, f);
-          for (int k = lane; k < bw; k += 32)
-            slots_sh[f * bw + k] = pw::fetch_slot(mem, fpa, k, mask);
+          for (int k = wl; k < bw; k += 32)
+            slots_sh[(wbase + f) * bw + k] = pw::fetch_slot(mem, fpa, k, mask);
         }
         if (fill) {
           fb_vbase = pc;
@@ -486,28 +592,55 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       const u64 res_word =
           cand && res != RES_INVALID ? sra(res, 3) : pw::NO_WORD;
       bool conf = false;
-      const unsigned commits0 = __ballot_sync(FULL, commit0);
-      for (unsigned m = commits0; m; m &= m - 1) {
-        const int i = __ffs(m) - 1;
-        const u64 si = __shfl_sync(FULL, stw, i);
-        if (i < lane && cand)
-          conf = conf || si == r_inst || si == r_data ||
-                 si == fw.words[0] || si == fw.words[1] ||
-                 si == fw.words[2] || si == dw.words[0] ||
-                 si == dw.words[1] || si == dw.words[2] ||
-                 (commit0 && si == stw) || si == res_word;
+      int first_conf;
+      unsigned commits = 0;              // one warp: the committing lanes
+      const unsigned* kwords = nullptr;  // MULTI: their words a warp
+      // (the one-warp branches spell out their own expressions: sharing
+      // lambdas with the CTA-wide ones cost the one-warp kernel 6
+      // registers and 4 % of its time a substep on an H100)
+      if constexpr (MULTI) {
+        x.stw[lane] = stw;               // published by the ballot's barrier
+        const unsigned* cw = cta_ballot(x, S_COMMITS0, commit0);
+        if (cand)
+          for (int w = 0; w <= (lane >> 5); ++w)
+            for (unsigned m = cw[w]; m; m &= m - 1) {
+              const int i = w * 32 + __ffs(m) - 1;
+              if (i >= lane) break;
+              const u64 si = x.stw[i];
+              conf = conf || si == r_inst || si == r_data ||
+                     si == fw.words[0] || si == fw.words[1] ||
+                     si == fw.words[2] || si == dw.words[0] ||
+                     si == dw.words[1] || si == dw.words[2] ||
+                     (commit0 && si == stw) || si == res_word;
+            }
+        first_conf = cta_lowest(x, S_CONFS, conf, LANES_MAX);
+      } else {
+        const unsigned commits0 = __ballot_sync(FULL, commit0);
+        for (unsigned m = commits0; m; m &= m - 1) {
+          const int i = __ffs(m) - 1;
+          const u64 si = __shfl_sync(FULL, stw, i);
+          if (i < lane && cand)
+            conf = conf || si == r_inst || si == r_data ||
+                   si == fw.words[0] || si == fw.words[1] ||
+                   si == fw.words[2] || si == dw.words[0] ||
+                   si == dw.words[1] || si == dw.words[2] ||
+                   (commit0 && si == stw) || si == res_word;
+        }
+        const unsigned confs = __ballot_sync(FULL, conf);
+        first_conf = confs ? __ffs(confs) - 1 : WARP_LANES;
       }
-      const unsigned confs = __ballot_sync(FULL, conf);
-      const int first_conf = confs ? __ffs(confs) - 1 : LANES_MAX;
       const bool safe = cand && lane < first_conf;
       const bool deferred = cand && !safe;
       const bool tr = safe && traps;
       const bool ret = safe && !traps;
       const bool commit = commit0 && safe;
-      const unsigned commits = __ballot_sync(FULL, commit);
+      if constexpr (MULTI)
+        kwords = cta_ballot(x, S_COMMITS, commit);
+      else
+        commits = __ballot_sync(FULL, commit);
 
       // ---- phase 2: the prefix commits -------------------------------------
-      __syncwarp();
+      team_sync<MULTI>();
       if (commit) {
         const u64 sval = (is_store || is_sc) ? b : amo_new;
         const u64 wmask = sizemask << dshift;
@@ -531,16 +664,31 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
                                                             : res;
       bool inv = false;
       bool kill = false;
-      for (unsigned m = commits; m; m &= m - 1) {
-        const int i = __ffs(m) - 1;
-        const u64 si = __shfl_sync(FULL, stw, i);
-        inv = inv || (i != lane && si == sra(own, 3));
-        const long long sb = (long long)(si << 3);
-        kill = kill || (sb + 8 > (long long)fb_pbase &&
-                        sb < (long long)(fb_pbase + fb_nbytes));
-        if (on)
-          for (int w = 0; w < ways; ++w)
-            if (TW[w] == si) TV[w] = pw::NO_WORD;
+      if constexpr (MULTI) {
+        for (int w = 0; w < x.warps; ++w)
+          for (unsigned m = kwords[w]; m; m &= m - 1) {
+            const int i = w * 32 + __ffs(m) - 1;
+            const u64 si = x.stw[i];
+            inv = inv || (i != lane && si == sra(own, 3));
+            const long long sb = (long long)(si << 3);
+            kill = kill || (sb + 8 > (long long)fb_pbase &&
+                            sb < (long long)(fb_pbase + fb_nbytes));
+            if (on)
+              for (int w2 = 0; w2 < ways; ++w2)
+                if (TW[w2] == si) TV[w2] = pw::NO_WORD;
+          }
+      } else {
+        for (unsigned m = commits; m; m &= m - 1) {
+          const int i = __ffs(m) - 1;
+          const u64 si = __shfl_sync(FULL, stw, i);
+          inv = inv || (i != lane && si == sra(own, 3));
+          const long long sb = (long long)(si << 3);
+          kill = kill || (sb + 8 > (long long)fb_pbase &&
+                          sb < (long long)(fb_pbase + fb_nbytes));
+          if (on)
+            for (int w = 0; w < ways; ++w)
+              if (TW[w] == si) TV[w] = pw::NO_WORD;
+        }
       }
       res = inv ? RES_INVALID : own;
       if (kill) fb_nbytes = 0;
@@ -577,16 +725,32 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       if (ret && writes_rd && rd != 0) R[rd] = wval;
 
       // ---- tick bookkeeping --------------------------------------------------
-      const unsigned defs = __ballot_sync(FULL, deferred);
-      const bool started = __ballot_sync(FULL, cand) != 0 || cont;
+      unsigned defs;      // nonzero iff some lane deferred
+      int first_def = 0;  // MULTI: the lowest deferred lane
+      if constexpr (MULTI) {
+        first_def = cta_lowest(x, S_DEFS, deferred, -1);
+        defs = first_def >= 0;
+      } else {
+        defs = __ballot_sync(FULL, deferred);
+      }
+      const bool started = team_any<MULTI>(x, S_CAND, cand) || cont;
       const bool tick_done = started && !defs;
-      const bool skip = gate && !cont && !__ballot_sync(FULL, runnable) &&
+      const bool skip = gate && !cont &&
+                        !team_any<MULTI>(x, S_RUNNABLE, runnable) &&
                         any_active;
       const u64 wait = stall - ticks;
       u64 dticks = tick_done ? 1 : 0;
-      if (skip)           // warp-uniform: every lane takes this branch
-        dticks = umin(warp_umin(active ? wait : ~0ull), budget_left);
-      exec_from = defs ? __ffs(defs) - 1 : 0;
+      if (skip) {         // uniform: every lane of the CTA takes this branch
+        const u64 gap = active ? wait : ~0ull;
+        if constexpr (MULTI)
+          dticks = umin(cta_umin(x, gap), budget_left);
+        else
+          dticks = umin(warp_umin(gap), budget_left);
+      }
+      if constexpr (MULTI)
+        exec_from = first_def < 0 ? 0 : first_def;
+      else
+        exec_from = defs ? __ffs(defs) - 1 : 0;
       const bool stalled = active && stall > ticks;
       if (stalled) c_stall += umin(wait, dticks);
       if (TRACE) {
@@ -632,8 +796,11 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       for (int k = 0; k < 3; ++k)
         chain += (fw.words[k] != pw::NO_WORD) + (dw.words[k] != pw::NO_WORD);
       chain += miss;
-      trips += __reduce_max_sync(FULL, (unsigned)chain);
-      __syncwarp();          // the commits land before the next reads
+      if constexpr (MULTI)
+        trips += cta_max(x, (unsigned)chain);
+      else
+        trips += __reduce_max_sync(FULL, (unsigned)chain);
+      team_sync<MULTI>();    // the commits land before the next reads
     }
     substeps += p.issue_width;
   }
@@ -665,15 +832,17 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   }
 }
 
-template <bool TRACE>
-__global__ void __launch_bounds__(32, 1) run_chunk_kernel(Params p) {
-  chunk_body<TRACE>(p);
+template <bool TRACE, bool MULTI>
+__global__ void __launch_bounds__(MULTI ? LANES_MAX : WARP_LANES, 1)
+    run_chunk_kernel(Params p) {
+  chunk_body<TRACE, MULTI>(p);
 }
 
 // CTA d runs board d: `p` points at board 0's slice of every stacked field
 // and at the image of board 0 (`words` u64 words a board), `budgets` holds
 // the boards' limits, `p.out` is (D, 2).
-__global__ void __launch_bounds__(32, 1)
+template <bool MULTI>
+__global__ void __launch_bounds__(MULTI ? LANES_MAX : WARP_LANES, 1)
     run_chunk_fleet_kernel(Params p, const long long* budgets,
                            long long words) {
   const int d = blockIdx.x;
@@ -703,7 +872,7 @@ __global__ void __launch_bounds__(32, 1)
   p.fetch_hits += c;
   p.fetch_walks += c;
   p.tlb_walks += c;
-  chunk_body<false>(p);
+  chunk_body<false, MULTI>(p);
 }
 
 // One thread follows `steps` links of `next` from `start` (the measure of
@@ -760,19 +929,51 @@ Params make_params(void* mem, void* regs, void* pc, void* priv,
   return p;
 }
 
-template <bool TRACE>
+// threads of a CTA for a board of `lanes` cores: whole warps
+int cta_threads(int lanes) { return (lanes + 31) / 32 * 32; }
+
+template <bool TRACE, bool MULTI>
 int launch_chunk(const Params& p, size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        run_chunk_kernel<TRACE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        run_chunk_kernel<TRACE, MULTI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const int threads = cta_threads(p.nc);
 #ifdef __CUDACC__
-  run_chunk_kernel<TRACE><<<1, 32, smem, (cudaStream_t)stream>>>(p);
+  run_chunk_kernel<TRACE, MULTI><<<1, threads, smem, (cudaStream_t)stream>>>(
+      p);
 #else  // g++ under the CPU emulation of tests/cuda_shim
   (void)stream;
-  cuda_shim::launch(run_chunk_kernel<TRACE>, 1, 32, smem, p);
+  cuda_shim::launch(run_chunk_kernel<TRACE, MULTI>, 1, threads, smem, p);
+#endif
+  return (int)cudaGetLastError();
+}
+
+template <bool TRACE>
+int launch_chunk(const Params& p, size_t smem, void* stream) {
+  return p.nc > WARP_LANES ? launch_chunk<TRACE, true>(p, smem, stream)
+                           : launch_chunk<TRACE, false>(p, smem, stream);
+}
+
+template <bool MULTI>
+int launch_fleet(const Params& p, int boards, const long long* budgets,
+                 long long words, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        run_chunk_fleet_kernel<MULTI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = cta_threads(p.nc);
+#ifdef __CUDACC__
+  run_chunk_fleet_kernel<MULTI><<<boards, threads, smem,
+                                  (cudaStream_t)stream>>>(p, budgets, words);
+#else  // g++ under the CPU emulation of tests/cuda_shim
+  (void)stream;
+  cuda_shim::launch(run_chunk_fleet_kernel<MULTI>, boards, threads, smem, p,
+                    budgets, words);
 #endif
   return (int)cudaGetLastError();
 }
@@ -782,13 +983,16 @@ int launch_chunk(const Params& p, size_t smem, void* stream) {
 
 extern "C" {
 
-// Shared memory a launch needs for `lanes` cores.
+// Shared memory a launch needs for `lanes` cores: the register files, the
+// data TLB, the fetch slots and, past 32 cores, the CTA-wide scratch.
 size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
-  return (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
-         (size_t)lanes * block_words * 4;
+  const size_t b = (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
+                   (size_t)lanes * block_words * 4;
+  if (lanes <= WARP_LANES) return b;
+  return align8(b) + cross_bytes(cta_threads(lanes));
 }
 
-// Runs one chunk on `stream` (one CTA of one warp) and returns
+// Runs one chunk on `stream` (one CTA of ceil(lanes / 32) warps) and returns
 // cudaGetLastError() (0 on success); does not synchronise and allocates
 // nothing.  Pointers are the CpuState fields in STATE_FIELDS order, then
 // the commit-trace ring, trace_n and trace_armed.  trace_on picks the
@@ -829,8 +1033,8 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
   return launch_chunk<true>(p, smem, stream);
 }
 
-// Runs one global chunk of `boards` boards on `stream` (one CTA of one warp
-// a board) and returns cudaGetLastError(); does not synchronise and
+// Runs one global chunk of `boards` boards on `stream` (one CTA a board) and
+// returns cudaGetLastError(); does not synchronise and
 // allocates nothing.  Pointers are the stacked CpuState fields in
 // STATE_FIELDS order ((D, lanes, ...) contiguous, ticks (D,)), the image
 // (D * words,), budgets (D,) and out (D, 2): substeps issued and dependent
@@ -853,20 +1057,10 @@ int run_chunk_fleet_launch(void* mem, void* regs, void* pc, void* priv,
       tlb_walks, out, mask, 0, lanes, issue_width, block_words, block_cache,
       ways);
   const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        run_chunk_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-#ifdef __CUDACC__
-  run_chunk_fleet_kernel<<<boards, 32, smem, (cudaStream_t)stream>>>(
-      p, (const long long*)budgets, words);
-#else  // g++ under the CPU emulation of tests/cuda_shim
-  cuda_shim::launch(run_chunk_fleet_kernel, boards, 32, smem, p,
-                    (const long long*)budgets, words);
-#endif
-  return (int)cudaGetLastError();
+  const long long* lim = (const long long*)budgets;
+  return lanes > WARP_LANES
+             ? launch_fleet<true>(p, boards, lim, words, smem, stream)
+             : launch_fleet<false>(p, boards, lim, words, smem, stream);
 }
 
 // Launches the pointer chase on `stream` (one thread); returns

@@ -40,10 +40,8 @@ ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 def attention_ref(q, k, v, causal=True, window=0):
     BH, S, D = q.shape
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        if window:
-            mask = mask & ~torch.ones_like(mask).tril(-window)
+    mask = _mask(S, causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask[None], s, NEG)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
@@ -63,8 +61,20 @@ def flash_mha_ref(q, k, v, causal=True, window=0):
     return o.reshape(B, H, S, D).transpose(1, 2)
 
 
-def attention_bwd(q, k, v, do, causal=True):
-    """Gradients ``(dq, dk, dv)`` of ``flash_mha_ref(q, k, v, causal)``
+def _mask(S, causal, window, device):
+    """The ``(S, S)`` boolean mask of :func:`attention_ref` (True:
+    attended), or None without ``causal``."""
+    if not causal:
+        return None
+    mask = torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    if window:
+        mask = mask & ~torch.ones_like(mask).tril(-window)
+    return mask
+
+
+def attention_bwd(q, k, v, do, causal=True, window=0):
+    """Gradients ``(dq, dk, dv)`` of ``flash_mha_ref(q, k, v, causal,
+    window)``
     against the output gradient ``do`` ``(B, S, H, D)``, each in its
     input's dtype.  Per sequence and KV head (one GQA group of ``G`` query
     heads at a time): ``s = (q·scale) kᵀ`` in f32, masked, ``p =
@@ -80,9 +90,7 @@ def attention_bwd(q, k, v, do, causal=True):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    mask = None
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    mask = _mask(S, causal, window, q.device)
     for b in range(B):
         for h in range(Hkv):
             heads = slice(h * G, (h + 1) * G)

@@ -3,14 +3,21 @@
 The kernel (``repro_torch/csrc/run_chunk.cu``) runs the FASE target's
 whole chunk loop — every substep of
 :func:`repro_torch.core.target.cpu.run_chunk_fast` up to the loop
-predicate — in one launch of one warp, with the Sv39 walk and the
-fetch-block fill as device functions (``csrc/page_walk.cuh``).  Its plain
+predicate — in one launch of one CTA, thread ``l`` core ``l``, with the
+Sv39 walk and the fetch-block fill as device functions
+(``csrc/page_walk.cuh``).  Its plain
 version is the eager loop ``cpu._run_chunk_eager``.  The library is built
 and loaded at the first call, never at import (the CPU tests import this
 module).
 
-Contract: one lane of the warp per core, so at most :data:`LANES_MAX`
-cores; the wrapper raises ``ValueError`` beyond.
+Contract: a board of at most :data:`WARP_LANES` cores runs on one warp
+(the cross-lane steps are warp ballots and shuffles); a board of up to
+:data:`LANES_MAX` cores, one CTA's threads, on the CTA-wide instantiation
+(``ceil(n / 32)`` warps, the same steps through shared memory and
+``__syncthreads``).  The wrapper raises ``ValueError`` past
+:data:`LANES_MAX` cores, or where the board's register files, data TLB and
+fetch slots (:func:`smem_bytes`, the source's own count) exceed the
+:data:`SMEM_MAX` bytes of shared memory one CTA may hold.
 
 With ``trace_on`` the wrapper launches the kernel's traced instantiation
 (``run_chunk_kernel<true>``), which also records the commit-trace ring
@@ -20,8 +27,8 @@ ring (``cpu._trace_record``).  Its launches count in
 ``run_chunk.trace_launches``, the untraced ones in ``run_chunk.launches``.
 
 :func:`run_chunk_fleet` launches the same loop for a fleet: one CTA per
-board of a stacked state (``cpu.make_fleet_state``), so the limit is
-:data:`LANES_MAX` cores a board, for any number of boards.  Its plain
+board of a stacked state (``cpu.make_fleet_state``), with the same limits
+a board, for any number of boards.  Its plain
 version is ``cpu._run_chunk_fleet_eager``.
 """
 from __future__ import annotations
@@ -32,8 +39,10 @@ import torch
 
 from .. import _build
 
-#: most cores one launch takes: the lanes of one warp
-LANES_MAX = 32
+#: most cores one launch takes: the threads of one CTA
+LANES_MAX = 1024
+#: boards up to this many cores run on one warp; larger ones CTA-wide
+WARP_LANES = 32
 #: dynamic shared memory one CTA may hold on Hopper (227 KiB)
 SMEM_MAX = 232_448
 
@@ -68,10 +77,27 @@ FLEET_ARGS = [ctypes.c_void_p] * (3 + len(FIELDS)) + [
     ctypes.c_void_p]
 
 
-def smem_bytes(n_cores, block_words, dtlb_ways):
-    """Shared memory of one launch: the register files, the data TLB and
-    the fetch blocks' slots (``run_chunk_smem_bytes`` in the source)."""
-    return n_cores * (32 + 4 * dtlb_ways) * 8 + n_cores * block_words * 4
+def smem_bytes(n_cores, block_words, dtlb_ways, lib=None):
+    """Shared memory of one launch as the kernel source counts it
+    (``run_chunk_smem_bytes``): the register files, the data TLB and the
+    fetch blocks' slots, and past :data:`WARP_LANES` cores the CTA-wide
+    scratch.  Asks the built library, or ``lib`` (another build of the
+    same source, loaded with ctypes)."""
+    f = (lib or _build.load("run_chunk")).run_chunk_smem_bytes
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_size_t
+    return f(n_cores, block_words, dtlb_ways)
+
+
+def check_smem(op, n_cores, block_words, dtlb_ways, lib=None):
+    """Raise ``ValueError`` where one launch needs more shared memory than
+    the :data:`SMEM_MAX` bytes one CTA may hold."""
+    need = smem_bytes(n_cores, block_words, dtlb_ways, lib)
+    if need > SMEM_MAX:
+        raise ValueError(f"{op}: {n_cores} cores with block_words "
+                         f"{block_words} and dtlb_ways {dtlb_ways} need "
+                         f"{need} bytes of shared memory, over the "
+                         f"{SMEM_MAX} one CTA may hold")
 
 
 def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways,
@@ -83,10 +109,10 @@ def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways,
     stack: every shape gains a leading axis of ``boards``."""
     op = "run_chunk" if boards is None else "run_chunk_fleet"
     if not 0 < n_cores <= LANES_MAX:
-        raise ValueError(f"{op}: the kernel runs one core per lane of one "
-                         f"warp, at most {LANES_MAX} cores"
-                         f"{'' if boards is None else ' a board'}; got "
-                         f"{n_cores}")
+        raise ValueError(f"{op}: the kernel runs one core per thread of one "
+                         f"CTA, at most {LANES_MAX} cores (a CTA's thread "
+                         f"limit){'' if boards is None else ' a board'}; "
+                         f"got {n_cores}")
     lead = () if boards is None else (boards,)
     dev = st.mem.device
     _build.check_tensor(op, "mem", st.mem, torch.int64,
@@ -101,11 +127,6 @@ def check_state(st, n_cores, mem_bytes, block_words, dtlb_ways,
     if dtlb_ways < 0 or dtlb_ways & (dtlb_ways - 1):
         raise ValueError(f"{op}: dtlb_ways must be a power of two or 0, "
                          f"got {dtlb_ways}")
-    need = smem_bytes(n_cores, block_words, dtlb_ways)
-    if need > SMEM_MAX:
-        raise ValueError(f"{op}: {n_cores} cores with block_words "
-                         f"{block_words} and dtlb_ways {dtlb_ways} need "
-                         f"{need} bytes of shared memory, over {SMEM_MAX}")
 
 
 def trigger_args(trigger):
@@ -172,6 +193,7 @@ def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
     if issue_width <= 0:
         raise ValueError(f"run_chunk: issue_width must be positive, got "
                          f"{issue_width}")
+    check_smem("run_chunk", n_cores, block_words, dtlb_ways)
     dev = st.mem.device
     out = torch.empty((2,), dtype=torch.int64, device=dev)
     args = launch_args(st, out, n_cores, mem_bytes, max_cycles,
@@ -218,6 +240,7 @@ def run_chunk_fleet(sts, n_cores, mem_bytes, budgets, issue_width=8,
     if len(budgets) != boards or min(budgets) < 0:
         raise ValueError(f"run_chunk_fleet: need {boards} budgets >= 0, "
                          f"got {list(budgets)}")
+    check_smem("run_chunk_fleet", n_cores, block_words, dtlb_ways)
     dev = sts.mem.device
     limits = torch.tensor(budgets, dtype=torch.int64).to(dev)
     out = torch.empty((boards, 2), dtype=torch.int64, device=dev)

@@ -45,6 +45,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import dtensor as DT
 from ..kernels.flash_attention.ops import flash_mha
 from ..kernels.paged_attention.ops import paged_decode
 from .config import ModelConfig
@@ -101,12 +102,35 @@ def rope(x, positions, theta):
     return rope_apply(x, *rope_angles(positions, x.shape[-1], theta))
 
 
+class _Silu(torch.autograd.Function):
+    """The forward rounds as :func:`silu` says; the backward is
+    ``g * (s + x * s * (1 - s))`` with ``s = sigmoid(x)``, all in f32.
+    Autograd through ``1 / (1 + exp(-x))`` itself would multiply the
+    gradient 0 by ``exp(-x) = inf`` where ``x`` is below about -88 (the
+    reference's ``jax.nn.silu`` differentiates its stable ``sigmoid``):
+    jamba's expert pre-activations, of standard deviation 16 at full
+    width, reach it in a few elements a step."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        xf = x.float()
+        sf = torch.sigmoid(xf)
+        return (g.float() * (sf + xf * sf * (1 - sf))).to(g.dtype)
+
+
 def silu(x):
     """``x * sigmoid(x)`` with ``sigmoid(x) = 1 / (1 + exp(-x))`` rounded
     to ``x``'s dtype after every operation, as the reference's
     ``jax.nn.silu`` is in bfloat16 (``F.silu`` rounds once, which differs
-    in the last bfloat16 bit for about a tenth of the inputs)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    in the last bfloat16 bit for about a tenth of the inputs); a finite
+    gradient at every finite ``x`` (:class:`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def softplus(x):
@@ -123,6 +147,12 @@ def swiglu(p, x):
 # ---------------------------------------------------------------------------
 # parameters (stacked over scan steps, as the reference's scan carries them)
 # ---------------------------------------------------------------------------
+def _device(gen):
+    """The device parameters are drawn on: the generator's, or ``meta``
+    (``gen`` None: shapes and dtypes only, nothing drawn or allocated)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def _dense_init(gen, shape, scale=None, steps=None):
     """bf16 ``N(0, scale^2)``, ``scale = 1/sqrt(shape[0])`` by default (the
     reference's fan-in: the expert count for an expert stack); with
@@ -130,7 +160,10 @@ def _dense_init(gen, shape, scale=None, steps=None):
     f32 draw never holds more than one scan step."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale or (1.0 / math.sqrt(fan_in))
-    dev = gen.device
+    dev = _device(gen)
+    if gen is None:
+        return torch.empty(shape if steps is None else (steps, *shape),
+                           dtype=BF16, device=dev)
 
     def draw():
         return (torch.randn(shape, generator=gen, dtype=F32, device=dev)
@@ -144,7 +177,8 @@ def _dense_init(gen, shape, scale=None, steps=None):
 
 
 def _full(gen, shape, value, steps, dtype=BF16):
-    return torch.full((steps, *shape), value, dtype=dtype, device=gen.device)
+    return torch.full((steps, *shape), value, dtype=dtype,
+                      device=_device(gen))
 
 
 def _attn_params(gen, cfg: ModelConfig, steps):
@@ -186,7 +220,7 @@ def _moe_params(gen, cfg: ModelConfig, steps):
 def _mamba_params(gen, cfg: ModelConfig, steps):
     d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.conv_width
     # A_log stays f32, as in the reference
-    a_log = torch.log(torch.arange(1, N + 1, dtype=F32, device=gen.device)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=F32, device=_device(gen))
                       / 2.0)
     return {
         "w_in": _dense_init(gen, (d, 2 * di), steps=steps),
@@ -277,10 +311,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     ``torch.Generator`` on that device draws them, so the numbers differ
     from the reference's ``jax.random`` ones; tests carry the reference's
     parameters over with
-    :func:`repro_torch.models.convert.params_from_jax`."""
+    :func:`repro_torch.models.convert.params_from_jax`.  On the ``meta``
+    device nothing is drawn: the shapes and dtypes alone (the reference's
+    ``jax.eval_shape`` of this function)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     steps = n_scan_steps(cfg)
     params = {
         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
@@ -305,9 +343,9 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     cache a prefill leaves."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, D)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, D)
+    q = DT.heads(x @ p["wq"], B, S, H, D)
+    k = DT.heads(x @ p["wk"], B, S, Hkv, D)
+    v = DT.heads(x @ p["wv"], B, S, Hkv, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -315,7 +353,7 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     k = rope_apply(k, cos, sin)
     window = {"window": cfg.sliding_window} if cfg.sliding_window else {}
     o = flash_mha(q, k, v, causal=True, impl=impl, **window)
-    return o.reshape(B, S, H * D) @ p["wo"], k, v
+    return DT.heads(o, B, S, H * D) @ p["wo"], k, v
 
 
 def moe(p, cfg: ModelConfig, x2d):
@@ -329,16 +367,30 @@ def moe(p, cfg: ModelConfig, x2d):
     output.  Every expert runs on its ``C`` slots; a token's ``K``
     contributions are summed in bf16 in the sorted order.  ``aux`` is the
     Switch balance loss ``E * sum(mean(probs) * share of assignments)``."""
+    probs, idx = route(p, cfg, x2d)
+    return moe_dispatch(p, cfg, x2d, probs, idx)
+
+
+def route(p, cfg: ModelConfig, x2d):
+    """The router of :func:`moe`: its f32 probabilities ``(T, E)`` and each
+    token's top-``K`` experts ``(T, K)``, the highest first."""
+    probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+    idx = torch.argsort(probs, dim=-1, descending=True,
+                        stable=True)[:, :cfg.top_k]
+    return probs, idx
+
+
+def moe_dispatch(p, cfg: ModelConfig, x2d, probs, idx):
+    """:func:`moe` from the router's ``probs`` and each token's experts
+    ``idx`` on: the gates, the balance loss, the capacity dispatch and the
+    experts."""
     T, d = x2d.shape
     E, K = cfg.n_experts, cfg.top_k
     dev = x2d.device
-    logits = x2d.float() @ p["router"].float()                # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    idx = torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :K]
     gate_vals = probs.gather(1, idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * K)
+    ce = DT.bincount(idx.reshape(-1), E).float() / (T * K)
     aux = E * (me * ce).sum()
 
     C = int(cfg.capacity_factor * T * K / E) + 1
@@ -347,7 +399,7 @@ def moe(p, cfg: ModelConfig, x2d):
     order = torch.argsort(e_flat, stable=True)
     e_s, tok_s = e_flat[order], tok_flat[order]
     g_s = gate_vals.reshape(-1)[order]
-    start = torch.searchsorted(e_s, torch.arange(E, device=dev))
+    start = DT.first_of_each(e_s, E)
     pos = torch.arange(T * K, device=dev) - start[e_s]
     keep = pos < C
     row = e_s * C + torch.where(keep, pos, C - 1)
@@ -383,6 +435,15 @@ def _linear_scan(a, b):
     return a, b
 
 
+def _scan_chunk(decay, drive, C, h):
+    """One chunk of the selective scan from state ``h`` ``(B, di, N)``:
+    the outputs ``(B, c, di)`` against ``C`` ``(B, c, N)`` and the state
+    after the chunk."""
+    cdec, cdrv = _linear_scan(decay, drive)
+    h_all = cdec * h[:, None] + cdrv                          # (B,c,di,N)
+    return torch.einsum("bcdn,bcn->bcd", h_all, C), h_all[:, -1]
+
+
 def mamba(p, cfg: ModelConfig, x, state=None):
     """The reference's chunked selective scan.  ``x`` ``(B, S, d)``;
     ``state`` ``(h (B, di, N) f32, conv (B, W - 1, di))`` for decode.
@@ -397,7 +458,7 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     kern = p["conv_w"]
     xi = sum(xc[:, w:w + S, :] * kern[w] for w in range(W))
     xi = silu(xi)
-    dt = softplus(xi @ p["w_dt"] + p["dt_bias"])              # (B,S,di)
+    dt = softplus(DT.summed(xi @ p["w_dt"]) + p["dt_bias"])     # (B,S,di)
     Bm = xi @ p["w_B"]                                        # (B,S,N)
     Cm = xi @ p["w_C"]
     A = -torch.exp(p["A_log"].float())                        # (di,N)
@@ -414,10 +475,13 @@ def mamba(p, cfg: ModelConfig, x, state=None):
         state[0].float()
     ys = []
     for j in range(nchunk):
-        cdec, cdrv = _linear_scan(decay_c[:, j], drive_c[:, j])
-        h_all = cdec * h[:, None] + cdrv                      # (B,c,di,N)
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c[:, j]))
-        h = h_all[:, -1]
+        args = (decay_c[:, j], drive_c[:, j], C_c[:, j], h)
+        # under autograd each chunk's scan is recomputed in the backward:
+        # its log-step intermediates are ~18 (B, c, di, N) f32 tensors a
+        # chunk, which for every chunk of seven Mamba layers would not fit
+        y_j, h = (checkpoint(_scan_chunk, *args, use_reentrant=False)
+                  if torch.is_grad_enabled() else _scan_chunk(*args))
+        ys.append(y_j)
     y = torch.cat(ys, dim=1).to(x.dtype)
     y = y + xi * p["d_skip"]
     out = (y * silu(z)) @ p["w_out"]
@@ -430,9 +494,9 @@ def mlstm(p, cfg: ModelConfig, x, state=None):
     B, S, d = x.shape
     H = cfg.n_heads
     D = d // H
-    q = (x @ p["wq"]).reshape(B, S, H, D)
-    k = (x @ p["wk"]).reshape(B, S, H, D) / math.sqrt(D)
-    v = (x @ p["wv"]).reshape(B, S, H, D)
+    q = DT.heads(x @ p["wq"], B, S, H, D)
+    k = DT.heads(x @ p["wk"], B, S, H, D) / math.sqrt(D)
+    v = DT.heads(x @ p["wv"], B, S, H, D)
     f = torch.sigmoid((x @ p["wf"]).reshape(B, S, H).float())
     i = torch.exp(-softplus(-(x @ p["wi"]).reshape(B, S, H).float()))
 
@@ -464,7 +528,7 @@ def mlstm(p, cfg: ModelConfig, x, state=None):
         C = C * torch.exp(total)[:, 0, :, None, None] + \
             torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
         ys.append(intra + inter)
-    y = torch.cat(ys, dim=1).reshape(B, S, H * D).to(x.dtype)
+    y = DT.heads(torch.cat(ys, dim=1), B, S, H * D).to(x.dtype)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
     return y @ p["wo"], C
 
@@ -529,7 +593,12 @@ def _apply_sublayer(name, p, cfg, x, cos, sin, impl):
 def _step(cfg, layout, layer, x, cos, sin, impl):
     """One scan step: every sublayer of the layout in order.  Returns
     ``(x, aux, caches)``, ``aux`` the sum of the step's MoE balance
-    losses (f32), ``caches`` those of its cache-bearing sublayers."""
+    losses (f32), ``caches`` those of its cache-bearing sublayers.  A
+    residual stream pinned with its sequence sharded (``act_spec``) is
+    gathered over the sequence first: DTensor does not flatten a sharded
+    sequence into the matmuls' rows, so the step computes on batch-sharded
+    activations and only the carry between steps is sequence-sharded."""
+    x = DT.whole_seq(x)
     aux = x.new_zeros((), dtype=F32)
     caches = []
     for name, p in zip(layout, layer):
@@ -563,7 +632,7 @@ def _stack_caches(per_step):
 
 
 def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
-            collect_cache=False, impl="kernel"):
+            collect_cache=False, impl="kernel", act_spec=None):
     """tokens ``(B, S)`` -> ``(logits (B, S, V) bf16, aux)``, or ``(logits,
     caches, aux)`` with ``collect_cache``.  ``prefix_embeds`` ``(B, P, d)``
     replaces the embeddings of the first ``P`` positions (modality stub).
@@ -575,12 +644,16 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     :func:`_stack_caches`) holds ``(k, v)`` ``(steps, B, S, Hkv, D)`` per
     attention sublayer, ``(h, conv)`` per Mamba, ``C`` per mLSTM and
     ``(h, c)`` per sLSTM.  ``impl`` picks the attention implementation,
-    as in :func:`decode_step`."""
+    as in :func:`decode_step`.  ``act_spec`` (a sharding spec) is pinned
+    onto the residual stream after the embedding and after every scan step
+    when it is a DTensor (Megatron-style sequence sharding, the
+    reference's ``act_spec``)."""
     layout = period_layout(cfg)
-    x = params["embed"][tokens.long()].to(BF16)
+    x = DT.embed(params["embed"], tokens).to(BF16)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(BF16), x[:, P:]], dim=1)
+    x = DT.pin(x, act_spec)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
     cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
@@ -593,8 +666,9 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
         else:
             x, a, _ = checkpoint(_step, cfg, layout, layer, x, cos, sin,
                                  impl, use_reentrant=False)
+        x = DT.pin(x, act_spec)
         aux = aux + a
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = rmsnorm(DT.whole_seq(x), params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
@@ -604,13 +678,15 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     return logits, aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch, impl="kernel"):
+def loss_fn(cfg: ModelConfig, params, batch, impl="kernel", act_spec=None):
     """Mean next-token NLL over the labels ``>= 0`` (f32 log-softmax of the
     bf16 logits), plus ``0.01 * aux``."""
     logits, aux = forward(cfg, params, batch["tokens"],
-                          batch.get("prefix_embeds"), impl=impl)
+                          batch.get("prefix_embeds"), impl=impl,
+                          act_spec=act_spec)
     logits = logits.float()
     labels = batch["labels"].long()
+    logits = DT.whole_vocab(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(F32)
@@ -690,7 +766,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
     B = tokens.shape[0]
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     window = cfg.sliding_window or 0
-    x = params["embed"][tokens][:, None, :]                   # (B,1,d)
+    x = DT.embed(params["embed"], tokens)[:, None, :]           # (B,1,d)
     seq_lens = state["seq_lens"]
     if "attn" in layout:
         bt = state["block_tables"]                            # (B,P)
@@ -719,20 +795,20 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
             h = rmsnorm(x, p["norm"], cfg.norm_eps)
             if name == "attn":
                 a = j["attn"]
-                q = (h @ p["wq"]).reshape(B, 1, H, D)
-                k = (h @ p["wk"]).reshape(B, 1, Hkv, D)
-                v = (h @ p["wv"]).reshape(B, 1, Hkv, D)
+                q = DT.heads(h @ p["wq"], B, 1, H, D)
+                k = DT.heads(h @ p["wk"], B, 1, Hkv, D)
+                v = DT.heads(h @ p["wv"], B, 1, Hkv, D)
                 if cfg.qk_norm:
                     q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
                     k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
                 q = rope_apply(q, cos, sin)
                 k = rope_apply(k, cos, sin)
                 kp, vp = state["kpool"][i, a], state["vpool"][i, a]
-                kp[page_of_slot, off] = k[:, 0]
-                vp[page_of_slot, off] = v[:, 0]
+                DT.write_rows(kp, page_of_slot, off, k[:, 0])
+                DT.write_rows(vp, page_of_slot, off, v[:, 0])
                 o = paged_decode(q[:, 0], kp, vp, bt, lens, impl=impl,
                                  window=window)               # (B,H,D)
-                o = o.reshape(B, 1, H * D) @ p["wo"]
+                o = DT.heads(o, B, 1, H * D) @ p["wo"]
             elif name == "mlp":
                 o = swiglu(p, h)
             elif name == "moe":

@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed import dtensor as DT
+
 F32 = torch.float32
 #: elements of one slice of a leaf in :func:`adamw_update`
 CHUNK = 1 << 24
@@ -76,10 +78,9 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     b2c = 1 - torch.pow(cfg.b2, step)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        for ps, gs, ms, vs in zip(p.view(-1).split(CHUNK),
-                                  g.reshape(-1).split(CHUNK),
-                                  m.view(-1).split(CHUNK),
-                                  v.view(-1).split(CHUNK)):
+        for ps, gs, ms, vs in zip(DT.slices(p, CHUNK),
+                                  DT.slices(g, CHUNK, view=False),
+                                  DT.slices(m, CHUNK), DT.slices(v, CHUNK)):
             gs = gs.to(F32) * scale
             ms.copy_(cfg.b1 * ms + (1 - cfg.b1) * gs)
             vs.copy_(cfg.b2 * vs + (1 - cfg.b2) * gs * gs)

@@ -1,7 +1,6 @@
 // A CPU emulation of the CUDA features the port's kernels use, so that
 // g++ can compile a source of src/repro_torch/csrc unchanged and run its
-// kernels on the host (tests/test_torch_run_chunk_shim.py,
-// tests/test_torch_paged_attention_shim.py).
+// kernels on the host (tests/test_torch_*_shim.py).
 //
 // Put this directory first on the include path: it stands in for
 // <cuda_runtime.h> and <cuda_bf16.h>.  A source launches through
@@ -50,6 +49,12 @@ struct __attribute__((aligned(8))) uint2 {
 };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
+}
+struct __attribute__((aligned(16))) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
 }
 
 struct dim3 {

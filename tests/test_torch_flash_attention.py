@@ -280,20 +280,80 @@ def test_windowed_plain_version_matches_the_reference(window):
     assert (window >= S) == torch.equal(got, full)
 
 
-def test_kernel_route_refuses_a_window_shorter_than_the_sequence(
-        monkeypatch):
-    """A CUDA call with ``window < S`` raises NotImplementedError naming the
-    ROADMAP item at the argument check, before any build (the build
-    helpers are replaced by ones that fail the test)."""
+@pytest.mark.parametrize("window", [1, 5, 16])
+def test_windowed_backward_matches_jax_grad(window):
+    """``attention_bwd`` with a sliding window against ``jax.grad`` of the
+    reference's ``_online_attn`` with that window (GQA, f32), to the
+    file's relative L2 of 1e-5 per gradient."""
+    from repro.models.core import _online_attn
+    B, S, H, Hkv, D = 2, 40, 4, 2, 16
+    q, k, v, do = _inputs(7 + window, [(B, S, H, D), (B, S, Hkv, D),
+                                       (B, S, Hkv, D), (B, S, H, D)],
+                          "float32")
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+
+    def ref(q, k, v):
+        o = _online_attn(q.reshape(B, S, Hkv, H // Hkv, D), k, v, pos, pos,
+                         window)
+        return jnp.sum(o.reshape(B, S, H, D) * do)
+    want = jax.grad(ref, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = attention_bwd(_t(q), _t(k), _t(v), _t(do), True, window)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        err = np.linalg.norm(g.numpy() - w)
+        # a window of 1 attends one key a row: dq is exactly 0 in both
+        rel = err / np.linalg.norm(w) if np.any(w) else err
+        assert g.dtype == torch.float32 and rel < GRAD_REL_L2, (name, rel)
+    full = attention_bwd(_t(q), _t(k), _t(v), _t(do), True)
+    assert not torch.equal(got[0], full[0])
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, to reach the kernel route
+    without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("window,sent", [(0, 0), (7, 7), (40, 0), (99, 0)])
+def test_kernel_route_passes_the_window_to_the_kernel(monkeypatch, window,
+                                                      sent):
+    """``flash_mha`` on the kernel route hands the window to the kernel's
+    launch (0 where it masks nothing: ``window >= S``), and the
+    ``autograd.Function`` keeps it for the backward: its gradients equal
+    autograd through the plain version with that window.  The build
+    helpers are replaced by ones that record the launch."""
     import types
     from repro_torch.kernels import _build
-
-    def no_build(*a, **k):
-        raise AssertionError("flash_mha built or launched a kernel")
-    for name in ("load_all", "entry", "launch"):
-        monkeypatch.setattr(_build, name, no_build)
-    q = types.SimpleNamespace(shape=(1, 4096, 32, 128), is_cuda=True)
-    with pytest.raises(NotImplementedError, match="Queue A 9c"):
-        ops.flash_mha(q, q, q, window=1024)
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    calls = []
+    monkeypatch.setattr(_build, "check_tensor", lambda *a: None)
+    monkeypatch.setattr(_build, "entry", lambda *a: "flash_attention_launch")
+    monkeypatch.setattr(_build, "launch",
+                        lambda op, fn, args, dev: calls.append(args))
+    monkeypatch.setattr(FA.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    B, S, H, Hkv, D = 1, 40, 4, 2, 16
+    q, k, v, do = (_t(x) for x in _inputs(
+        3, [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)],
+        "float32"))
+    qc, kc, vc = (x.clone().as_subclass(_OnCard).requires_grad_(True)
+                  for x in (q, k, v))
+    out = ops.flash_mha(qc, kc, vc, window=window)
+    assert len(calls) == 1
+    (B_, S_, H_, Hkv_, D_, causal, win) = calls[0][4:11]
+    assert (B_, S_, H_, Hkv_, D_, causal, win) == (B, S, H, Hkv, D, 1, sent)
+    got = torch.autograd.grad(out, (qc, kc, vc), do)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    want = torch.autograd.grad(flash_mha_ref(qr, kr, vr, True, window),
+                               (qr, kr, vr), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.as_subclass(torch.Tensor), w,
+                                   rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="impl"):
-        ops.flash_mha(q, q, q, impl="pallas", window=1024)
+        ops.flash_mha(qc, kc, vc, impl="pallas", window=window)
+    with pytest.raises(ValueError, match="window"):
+        FA.flash_attention(qc, kc, vc, causal=False, window=3)

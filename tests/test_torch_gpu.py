@@ -678,3 +678,59 @@ def test_training_restart_on_the_card(cuda):
     """The reference's fault test at smoke width on the card: the steps
     after the restore equal the uninterrupted run's."""
     _chip_smoke().restart_check(torch)
+
+
+@pytest.mark.parametrize("nc", [33, 40, 64])
+def test_chunk_kernel_on_boards_past_a_warp(cuda, nc):
+    """Boards of 33, 40 and 64 cores on the chunk kernel's CTA-wide
+    instantiation against the CPU's eager loop, every field after every
+    chunk: the atomics program's lanes above 31 race lanes below 32."""
+    chunks = RC.run_chunk.launches
+    t = _lockstep(PROGRAM, nc, 97)
+    assert min(t.get_instret(c) for c in range(nc)) > 200
+    assert RC.run_chunk.launches > chunks
+
+
+def test_wide_boards_on_both_chunk_kernels(cuda):
+    """chip_smoke.py's ``wide_boards``: 40 and 64 cores on the untraced,
+    traced and fleet kernels, each equal to the eager loop after every
+    chunk."""
+    smoke = _chip_smoke()
+    smoke.wide_boards(torch)
+    smoke.wide_boards(torch, fleet=True)
+
+
+def test_windowed_flash_attention_equals_plain_version(cuda):
+    """chip_smoke.py's windowed cases in both designs (window 1, 64 at a
+    ragged S, S - 1, a wholly masked first tile, jamba's heads at S =
+    16 384 on one GQA group) and the windowed backward."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    before = FA.flash_attention.window_launches
+    _chip_smoke().check_flash_window(torch, cuda)
+    assert FA.flash_attention.window_launches > before
+
+
+def test_families_train_and_prefill_routes_on_the_card(cuda):
+    """chip_smoke.py's routing replay at jamba's smoke widths: the plain
+    route replaying the kernel route's MoE routing gives the kernel
+    route's gradients within the train limits, the planted attention
+    fault does not."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import core as M
+    smoke = _chip_smoke()
+    cfg = CONFIGS["jamba-v0.1-52b"].smoke()
+    params = M.init_params(cfg, 0, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (1, 129), device="cuda",
+                        dtype=torch.int32,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    with smoke.RouterReplay(torch, M) as rr:
+        k = smoke.grad_run(torch, cfg, params, batch, "kernel")
+        rr.replay()
+        r = smoke.grad_run(torch, cfg, params, batch, "ref")
+        rr.replay()
+        with smoke.PlantedAttention(M, smoke.PLANTED_SCALE):
+            f = smoke.grad_run(torch, cfg, params, batch, "kernel")
+    assert smoke.route_gaps(k, r)["within"]
+    assert not smoke.route_gaps(f, r)["within"]

@@ -50,6 +50,10 @@ PORT_MODULES = [
     "repro_torch.analysis.cli",
     "repro_torch.analysis.__main__",
     "repro_torch.models.convert",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun",
+    "repro_torch.distributed.sharding",
+    "repro_torch.distributed.dtensor",
 ] + [f"repro_torch.configs.{name}" for name in (
     "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
     "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",

@@ -83,6 +83,25 @@ def test_silu_rounds_like_the_reference():
         got, np.asarray(jax.nn.silu(jnp.asarray(x)), np.float32))
 
 
+def test_silu_gradient_is_finite_where_exp_overflows():
+    """Below about -88, ``exp(-x)`` overflows: the gradient is finite, the
+    reference's ``jax.grad`` of ``jax.nn.silu`` in f32 on the same inputs
+    rounded once to bf16 (within one bf16 ulp), not the NaN that autograd
+    through ``1 / (1 + inf)`` would give."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([_bf16(rng, (1024,), 40.0),
+                        np.asarray([-200, -100, -89, -88.5, 89, 100],
+                                   ml_dtypes.bfloat16)])
+    t = _t(x).requires_grad_(True)
+    y = M.silu(t)
+    y.backward(torch.ones_like(y))
+    jy, jgrad = jax.vjp(jax.nn.silu, jnp.asarray(x, jnp.float32))
+    want = np.asarray(jgrad(jnp.ones_like(jy))[0], np.float32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(t.grad).all())
+    np.testing.assert_allclose(t.grad.float().numpy(), want,
+                               rtol=BF16_ULP, atol=1e-30)
+
+
 def test_swiglu_matches():
     rng = np.random.default_rng(3)
     p = {"w_gate": _bf16(rng, (64, 128), 0.1), "w_in": _bf16(rng, (64, 128),
@@ -210,9 +229,9 @@ def test_unported_layouts_raise():
     ``forward`` (with ``aux`` and ``collect_cache=True``) and ``loss_fn``,
     the dense forward's cache collection too (their values are held
     against the reference in ``tests/test_torch_models_families*.py``).
-    The one refusal left on the models path is the CUDA flash_attention
-    kernel's sliding window shorter than the sequence (ROADMAP Queue A
-    9c), at its argument check."""
+    No refusal is left on the models path: a CUDA call with a sliding
+    window shorter than the sequence goes to the kernel's autograd
+    function with the window (the kernel takes it)."""
     import types
     from repro_torch.kernels.flash_attention import ops as flash_ops
     for name in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "xlstm-350m",
@@ -233,5 +252,14 @@ def test_unported_layouts_raise():
         assert bool(torch.isfinite(loss))
     fake_cuda = types.SimpleNamespace(shape=(1, 9000, 32, 128),
                                       is_cuda=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9c"):
-        flash_ops.flash_mha(fake_cuda, fake_cuda, fake_cuda, window=8192)
+    fake_cuda.contiguous = lambda: fake_cuda
+    calls = []
+    real = flash_ops.FlashMHA
+    flash_ops.FlashMHA = types.SimpleNamespace(
+        apply=lambda *args: calls.append(args) or "kernel")
+    try:
+        assert flash_ops.flash_mha(fake_cuda, fake_cuda, fake_cuda,
+                                   window=8192) == "kernel"
+    finally:
+        flash_ops.FlashMHA = real
+    assert calls == [(fake_cuda, fake_cuda, fake_cuda, True, 8192)]

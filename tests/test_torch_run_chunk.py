@@ -21,6 +21,7 @@ from repro_torch.core.target import cpu
 from repro_torch.kernels import _build
 from repro_torch.kernels.run_chunk import run_chunk as RC
 
+import torch_shim
 from test_cpu_differential import _ProgGen
 from test_torch_cpu_differential import CONFIGS
 from test_torch_gpu import (FUZZ_CONFIGS, amo_table_program, fuzz_program,
@@ -106,6 +107,12 @@ def test_target_refuses_an_unknown_route():
     assert TorchTarget(1, MEM, device="cpu").chunk_kernel == "kernel"
 
 
+@pytest.fixture(scope="module")
+def shim_lib(tmp_path_factory):
+    """The kernel source built for the host (its shared-memory count)."""
+    return torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
+
+
 def _refused(st, match, nc=2, **kw):
     with pytest.raises(ValueError, match=match):
         RC.run_chunk(st, nc, MEM, 64, **kw)
@@ -142,21 +149,39 @@ def test_wrapper_refuses_a_non_contiguous_field():
     _refused(st, r"regs must be .*\(not contiguous\)")
 
 
-def test_wrapper_refuses_more_lanes_than_a_warp():
+def test_wrapper_refuses_more_lanes_than_a_warp(shim_lib):
+    """Past a warp the kernel runs CTA-wide, so 33 to 1024 cores pass the
+    lane check (the CPU state then meets the device check); past a CTA's
+    thread limit, or where the board's shared memory exceeds a CTA's, the
+    wrapper refuses and names the limit."""
+    assert RC.LANES_MAX == 1024 and RC.WARP_LANES == 32
+    for n in (33, 40, 64):
+        _refused(cpu.make_state(n, MEM, device="cpu"), "needs a CUDA state",
+                 nc=n)
     n = RC.LANES_MAX + 1
     _refused(cpu.make_state(n, MEM, device="cpu"),
-             f"at most {RC.LANES_MAX} cores; got {n}", nc=n)
-    with pytest.raises(ValueError, match="at most 32 cores"):
+             f"at most {RC.LANES_MAX} cores \\(a CTA's thread limit\\); "
+             f"got {n}", nc=n)
+    with pytest.raises(ValueError, match="at most 1024 cores"):
         RC.check_state(_state(), 0, MEM, 16, 8)
+    # 1024 cores with the default TLB and fetch blocks: over 227 KB, by
+    # the source's own count (its host build)
+    with pytest.raises(ValueError, match="over the 232448 one CTA may hold"):
+        RC.check_smem("run_chunk", 1024, 16, 8, lib=shim_lib)
+    # the CTA-wide scratch: a word a warp for 9 sites, two reductions, a
+    # store word a thread, after the 8-byte-aligned register files
+    assert RC.smem_bytes(40, 16, 8, lib=shim_lib) == (
+        40 * (32 + 32) * 8 + 40 * 16 * 4 + 9 * 32 * 4 + 2 * 32 * 8 + 64 * 8)
 
 
-def test_wrapper_refuses_knobs_the_kernel_cannot_hold():
+def test_wrapper_refuses_knobs_the_kernel_cannot_hold(shim_lib):
     _refused(_state(), "block_words must be a power of two",
              block_words=12)
     _refused(_state(), "dtlb_ways must be a power of two", dtlb_ways=3)
-    assert RC.smem_bytes(4, 16, 8) == 4 * (32 + 32) * 8 + 4 * 16 * 4
-    _refused(_state(32), "bytes of shared memory", nc=32,
-             block_words=1 << 11)
+    assert RC.smem_bytes(4, 16, 8, lib=shim_lib) == \
+        4 * (32 + 32) * 8 + 4 * 16 * 4
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        RC.check_smem("run_chunk", 32, 1 << 11, 8, lib=shim_lib)
 
 
 def test_launch_arguments_follow_the_kernel_signature():

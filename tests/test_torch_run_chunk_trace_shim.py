@@ -18,8 +18,8 @@ import torch_directed_cases as DC
 import torch_trace_cases as TC
 from test_torch_cpu_differential import assert_same_as_pysim
 from test_torch_gpu import PROGRAM
-from test_torch_run_chunk_shim import (_same_state, kernel_route,  # noqa: F401
-                                       launch)
+from test_torch_run_chunk_shim import (WIDE_PROGRAM,  # noqa: F401
+                                       _same_state, kernel_route, launch)
 
 
 _IMG = DC.asm.assemble(PROGRAM)
@@ -79,3 +79,22 @@ def test_traced_chunk_kernel_source_meets_directed_regression(kernel_route,
     DC.run_in_lockstep(case, targets, compare)
     assert kernel_route.trace_launches > 0
     assert int(targets[0].st.trace_n.sum()) > 0
+
+
+def test_traced_chunk_kernel_source_records_the_eager_ring_at_40_cores(
+        kernel_route):
+    """The traced instantiation on a board of 40 cores (CTA-wide, two
+    warps), ring wrapping, no gate: ring, ``trace_n`` and every field equal
+    the eager loop's after every chunk, and the drains PySim's."""
+    nc = 40
+    targets = [TorchTarget(nc, DC.MEM, device="cpu", chunk_kernel=ck)
+               for ck in ("kernel", "ref")] + [PySim(nc, DC.MEM)]
+    TC.arm(targets, TC.SLOTS_WRAP, None)
+
+    def compare(ts, point):
+        _same_state(ts[0], ts[1], point)
+    TC.run_program(WIDE_PROGRAM, nc, 7, targets, compare)
+    n = [int(v) for v in targets[0].st.trace_n]
+    assert n == [targets[2].trace_n[c] for c in range(nc)]
+    assert sum(n) == sum(targets[0].get_instret(c) for c in range(nc))
+    assert kernel_route.trace_launches > 2 and kernel_route.launches == 0
