@@ -66,9 +66,10 @@ a sliding window, in both designs), and drives the port's paths:
   xlstm-350m through ``train``; the windowed kernel timed at jamba's
   prefill shape;
 * the dry run (phase ``dryrun``): ``python -m repro_torch.launch.dryrun``
-  on two production cells (fake tensors on the host's CPU, started with
-  the build and run beside the card's phases), with the card's measured
-  bf16 GEMM and HBM copy rates.
+  on three production cells (``meta`` tensors on the host's CPU, started
+  with the build and run beside the card's phases), qwen3-8b
+  ``train_4k``'s peak a device beside its reading under DTensor's own
+  layouts, and the card's measured bf16 GEMM and HBM copy rates.
 
 Every phase prints one JSON line; any mismatch, build failure or launch
 error ends the run with a non-zero exit code, and nothing runs on the CPU
@@ -97,6 +98,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# the timing helpers and seeded inputs the port's benchmark scripts share
+from repro_torch.bench.timing import (  # noqa: E402
+    CHUNK_CYCLES, LONG_SHAPE, LONG_TIMED_LENS, attention_inputs,
+    device_events, flash_inputs, graph_ms, loop_target, nvidia_smi_line,
+    time_ms)
+
 #: hello, 1 core, 4 MiB image, 921600-baud UART, async queue pair
 HELLO_UART = dict(ticks=6_554_780,
                   stdout=b"hello from FASE target\nanswer 42\n")
@@ -118,9 +125,6 @@ DEFAULT_SCALE = 10
 #: and instret from the reference package's pure-Python simulator
 #: (tests/test_torch_golden.py re-derives them)
 COREMARK = dict(ticks=9_402_851, instret=120_853, crc=16356)
-#: the chunk kernel's timed chunk: ``CHUNK_CYCLES`` ticks of a guest loop
-#: without system calls on the full-width target, back to back
-CHUNK_CYCLES = 64
 #: links of the one-thread pointer chase that measures a dependent load
 CHASE_STEPS = 1 << 16
 
@@ -219,12 +223,8 @@ SERVE_MIX = (("A", 70, 16), ("S", 150, 16), ("S", 140, 16), ("B", 96, 16),
 #: and the two attention implementations round their bf16 outputs apart
 #: in a few elements, which 36 layers carry into the logits
 SERVE_LOGIT_TOL = 0.25
-#: paged_attention at qwen3-8b's native context (Qwen3 model card: 32 768
-#: tokens) on 4 slots: B, H, Hkv, D, page, P; each pool 2 048 pages of
-#: 64 x 8 x 128 bf16 (268 MB).  Timed full; checked with one full, one
-#: single-token, one mid-page and one empty sequence
-LONG_SHAPE = (4, 32, 8, 128, 64, 512)
-LONG_TIMED_LENS = (32768, 32768, 32768, 32768)
+#: paged_attention at ``LONG_SHAPE`` (32 768 tokens a slot) is checked
+#: with one full, one single-token, one mid-page and one empty sequence
 LONG_CHECK_LENS = (32768, 1, 20000, 0)
 #: page_copy pairs past the one-grid limit (COPY_MAX_PAIRS + 1): the staged
 #: route, checked on a small pool
@@ -360,15 +360,6 @@ def check(cond, msg):
         fail(msg)
 
 
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0].strip()
-
-
 # ---------------------------------------------------------------------------
 # kernel vs plain version, on the card
 # ---------------------------------------------------------------------------
@@ -418,64 +409,6 @@ def compare_outputs(torch, got, want, what):
             fail(f"{what}: kernel != plain version in {name} at {bad} "
                  f"(max abs diff {worst})")
     return worst
-
-
-def time_ms(torch, fn, iters, warmup=10):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def graph_ms(torch, fn, iters):
-    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
-    graph, replayed, timed by CUDA events, divided by ``iters`` — the
-    kernels back to back without the host's launch cost."""
-    fn()                                   # warm: build, workspace, plan
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):          # capture warms a side stream
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    del graph
-    return t0.elapsed_time(t1) / iters
-
-
-#: CUPTI's overhead records as the profiler names them: spans on the host
-#: (a launch waiting for room in the device's command queue, the
-#: tracer's own buffers), not work of the device
-CUPTI_OVERHEAD = frozenset((
-    "Unknown", "Driver Compiler", "Buffer Flush", "Instrumentation",
-    "Resource", "Runtime Triggered Module Loading", "Lazy Function Loading",
-    "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"))
-
-
-def device_events(ka):
-    """The kernels, copies and memsets of a profile's ``key_averages()``:
-    its events on the CUDA device, CUPTI's overhead records left out."""
-    from torch.autograd import DeviceType
-    return [e for e in ka if e.device_type == DeviceType.CUDA and
-            e.key not in CUPTI_OVERHEAD]
 
 
 def walk_fetch_bound_ms(torch, out, lanes, block_words, active=None,
@@ -635,24 +568,6 @@ def attention_err(torch, q, kp, vp, bt, lens, window=0):
           f"the plain version by {over} beyond rtol {rtol} > atol {atol} "
           f"(max abs diff {float(diff.max())})")
     return float(diff.max())
-
-
-def attention_inputs(torch, dev, B, H, Hkv, D, page, P, dtype, seed,
-                     lens=None, pages=None):
-    """Seeded q, pools of ``pages`` (default B * P) pages and a table of
-    distinct random pages; lens random in [1, P * page] unless given."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    NP = pages or B * P
-    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
-    kp = torch.randn((NP, page, Hkv, D), generator=g, device=dev).to(dtype)
-    vp = torch.randn((NP, page, Hkv, D), generator=g, device=dev).to(dtype)
-    bt = torch.randperm(NP, generator=g, device=dev)[:B * P] \
-        .reshape(B, P).to(torch.int32)
-    if lens is None:
-        lens = torch.randint(1, P * page + 1, (B,), generator=g, device=dev)
-    lens = torch.as_tensor(lens, device=dev).to(torch.int32)
-    return q, kp, vp, bt, lens
 
 
 def check_attention(torch, dev):
@@ -1219,36 +1134,6 @@ def wide_boards(torch, fleet=False):
           else "run_chunk", "cores": list(WIDE_CORES),
           "fields_equal_after_every_chunk": True, "tolerance": 0,
           "boards": out})
-
-
-def loop_target(torch, nc, mem_bytes, **opts):
-    """A target at the full-width run's shape running a guest loop
-    without system calls (load, add, store, multiply, jump on a private
-    line per core): every chunk of it is the same work."""
-    from repro_torch.core.interface import TorchTarget
-    from repro_torch.core.target import asm
-    img = asm.assemble("""
-_start:
-    li s1, 0x20000
-    slli t0, a0, 6
-    add s1, s1, t0
-1:
-    ld t1, 0(s1)
-    addi t1, t1, 3
-    sd t1, 0(s1)
-    mul t2, t1, t1
-    j 1b
-""")
-    t = TorchTarget(nc, mem_bytes, device="cuda", **opts)
-    for seg in img.segments:
-        data = bytes(seg.data).ljust((len(seg.data) + 7) // 8 * 8, b"\0")
-        for i in range(0, len(data), 8):
-            t.mem_write_word(seg.vaddr + i,
-                             int.from_bytes(data[i:i + 8], "little"))
-    for c in range(t.nc):
-        t.reg_write(c, 10, c)
-        t.redirect(c, img.entry)
-    return t
 
 
 def state_bytes(st):
@@ -3054,16 +2939,6 @@ def serve_xlstm(torch, profile_dir):
 # ---------------------------------------------------------------------------
 # the training path
 # ---------------------------------------------------------------------------
-def flash_inputs(torch, dev, B, S, H, Hkv, D, dtype, seed):
-    """Seeded q ``(B, S, H, D)``, k and v ``(B, S, Hkv, D)`` on the card."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-
-    def draw(h):
-        return torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
-    return draw(H), draw(Hkv), draw(Hkv)
-
-
 def flash_err(torch, q, k, v, causal, window=0):
     """Largest |kernel - plain version| of flash_attention on one input
     set (``flash_mha`` on both routes, with ``window``); fails beyond
@@ -3675,10 +3550,18 @@ JAMBA_GRAD_TOKEN_SEEDS = (11, 13)
 #: dense ones, whose 5e-4 stays
 JAMBA_GRAD_LIMITS = (1.5e-3, TRAIN_GN_RTOL, 6.5e-2)
 #: the dry run's cells at production size (started with the build, they
-#: run on the host's CPU beside the card's phases, minutes each)
+#: run on the host's CPU beside the card's phases, a minute or two each);
+#: the MoE decode cell dispatches row-sharded tokens, which torch 2.11's
+#: DTensor refused until the dispatch gathered them
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
-                ("jamba-v0.1-52b", "prefill_32k", True))
+                ("jamba-v0.1-52b", "prefill_32k", True),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", False))
 DRYRUN_TIMEOUT = 900
+#: qwen3-8b train_4k's peak a device on 16 x 16 (GiB) when DTensor laid
+#: out every operator itself, weights gathered whole and the vocabulary
+#: gathered for the loss (fake tensors, torch 2.11, the card's host): the
+#: reading the phase prints its own beside
+QWEN_TRAIN_PEAK_GIB_GREEDY = 238.0
 
 
 class RouterReplay:
@@ -4001,8 +3884,8 @@ def measured_rates(torch, dev):
 
 def start_dryrun():
     """``python -m repro_torch.launch.dryrun`` on each of DRYRUN_CELLS at
-    production size, started at once in the background (fake tensors on
-    the host's CPU, no card): ``[(cell, out path, Popen, times)]``, where
+    production size, started at once in the background (``meta`` tensors
+    on the host's CPU, no card): ``[(cell, out path, Popen, times)]``, where
     a thread puts each process's wall seconds in ``times["wall"]`` when it
     ends."""
     import threading
@@ -4051,7 +3934,13 @@ def phase_dryrun(torch, dev, runs):
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
         check(cell["status"] == "OK", f"dryrun {arch} {shape}: {cell}")
         out.append({**cell, "wall_s": round(wall, 1)})
+    qwen = next(c for c in out if (c["arch"], c["shape"], c["mesh"]) ==
+                ("qwen3-8b", "train_4k", "16x16"))
     emit({"phase": "dryrun", "cells": out, "measured": rates,
+          "qwen3_train_4k_peak_gib":
+          qwen["per_device"]["peak_bytes"] / 2 ** 30,
+          "qwen3_train_4k_peak_gib_greedy_layout":
+          QWEN_TRAIN_PEAK_GIB_GREEDY,
           "data_sheet": {"bf16_flop_per_s": DR.PEAK_FLOPS,
                          "hbm_bytes_per_s": DR.HBM_BW,
                          "link_bytes_per_s": DR.LINK_BW}})
@@ -4074,7 +3963,6 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this check runs on a GPU only", file=sys.stderr)
         return 1
-    import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
     t_start = time.time()
     dev = torch.device("cuda")

@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Device and host times of the port's decode-step kernels on one NVIDIA
 GPU: ``paged_attention`` at the serving shape of ``chip_smoke.py``
 (qwen3-8b's heads, 4 slots, pages of 64, a table of 8 pages, the busiest
@@ -8,7 +7,8 @@ step's lengths of its serve run) and at 32 768 tokens a slot, and
 ``DIR`` (for instance an unpacked earlier commit, whose kernels it builds
 into ``DIR/build``), so that two trees compare inside one call::
 
-    python3 benchmarks/torch_decode_kernels.py [--src DIR] [--label NAME]
+    PYTHONPATH=src python -m repro_torch.bench.decode_kernels [--src DIR]
+        [--label NAME]
 
 It prints the card's name and power limit and one JSON line.  Times:
 ``wrapper_ms`` by CUDA events over back-to-back calls; ``device_ms`` a
@@ -17,30 +17,27 @@ launch's device time, as a CUDA graph of back-to-back calls replayed;
 it; ``graph_floor_ms`` a graph node of a 4-byte add, the floor under
 ``device_ms``; host µs (``split_us``, ``step_host_us``) the least of five
 loops of 500 calls with nothing synchronised inside a loop; the
-host split times each part of a call alone in a loop: PR 14's five
-tensor checks, the key the current wrapper checks instead, the output
-allocation, the current stream as a ``torch.cuda.Stream`` and as a raw
-handle, and the ctypes call of the entry point with its arguments built
-(the CUDA launch included).  On a tree whose wrapper plans a split
-(``paged_attention.plan``) it also times the kernel at each of several
-split counts and chunk sizes (``split_sweep``, ``rows_sweep``, device
-ms).  Exits non-zero without a GPU.
+host split times each part of a call alone in a loop: an earlier
+wrapper's five tensor checks, the key the current wrapper checks
+instead, the output allocation, the current stream as a
+``torch.cuda.Stream`` and as a raw handle, and the ctypes call of the
+entry point with its arguments built (the CUDA launch included).  On a
+tree whose wrapper plans a split (``paged_attention.plan``) it also
+times the kernel at each of several split counts and chunk sizes
+(``split_sweep``, ``rows_sweep``, device ms).  Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke as S  # noqa: E402  (its timing helpers; stdlib only)
+from . import timing as S
 
 #: B, H, Hkv, D, page, P
 SERVE_SHAPE = (4, 32, 8, 128, 64, 8)
-#: the busiest step's lengths of chip_smoke.py's serve run (PR 15)
+#: the busiest step's lengths of chip_smoke.py's serve run
 SERVE_LENS = (68, 156, 156, 44)
 SERVE_POOL_PAGES = 65
 LONG_SHAPE, LONG_LENS = S.LONG_SHAPE, S.LONG_TIMED_LENS
@@ -100,7 +97,7 @@ def host_split(torch, PA, _build, args):
     out = torch.empty_like(q)
     fn = _build.entry("paged_attention", "paged_attention_launch", PA._ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if len(PA._ARGS) == 14:                  # PR 12-15: no workspace
+    if len(PA._ARGS) == 14:                  # an earlier wrapper: no workspace
         call = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
                 lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, page,
                 bt.shape[1], 1, stream)
@@ -164,15 +161,15 @@ def plan_sweep(torch, PA, fn, field, values, iters):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+    ap.add_argument("--src", default=S.OWN_SRC,
                     help="directory holding the repro_torch package")
     ap.add_argument("--label", default="this tree")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        print("torch_decode_kernels: no CUDA device", file=sys.stderr)
+        print("decode_kernels: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.src))
+    S.use_tree(args.src)
     from repro_torch.kernels import _build
     from repro_torch.kernels.page_ops import page_ops
     from repro_torch.kernels.paged_attention import paged_attention as PA

@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Every cell of the port's dry run (``repro_torch.launch.dryrun``) at
 production size, on both production meshes: each (arch × shape × mesh)
 cell is one ``python -m repro_torch.launch.dryrun`` process, ``--jobs`` of
@@ -8,8 +7,8 @@ and wall seconds) goes to standard output, and a cell still running when
 ``--limit`` seconds have passed since the start is stopped and reported
 ``UNFINISHED``.  CPU only (``meta`` tensors); a few hundred MB a process::
 
-    python3 benchmarks/torch_dryrun_sweep.py --out DIR [--jobs 5]
-        [--limit 780] [--dense-only]
+    PYTHONPATH=src python -m repro_torch.bench.dryrun_sweep --out DIR
+        [--jobs 5] [--limit 780] [--dense-only]
 """
 from __future__ import annotations
 
@@ -21,8 +20,11 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(ROOT, "src")
+from ..configs import CONFIGS
+from ..launch import steps as st
+from .timing import OWN_SRC as SRC
+
+ROOT = os.path.dirname(SRC)
 
 
 def cells(dense_only: bool):
@@ -30,9 +32,6 @@ def cells(dense_only: bool):
     by a rough cost (layers, times 24 for a train cell's 8 microbatches of
     forward, recompute and backward, and 8 for the many small operators
     of a Mamba or xLSTM layer)."""
-    sys.path.insert(0, SRC)
-    from repro_torch.configs import CONFIGS
-    from repro_torch.launch import steps as st
     out = []
     for arch, cfg in CONFIGS.items():
         dense = cfg.arch_type == "dense"

@@ -1,14 +1,13 @@
-#!/usr/bin/env python3
 """Where one CTA of the ``paged_attention`` kernel spends its cycles, on
 one NVIDIA GPU: builds a copy of ``src/repro_torch/csrc/paged_attention.cu``
 in which thread 0 of CTA (0, 0) stores ``clock64()`` at the ends of its
 phases into a device array, launches it through the port's wrapper at
-the serving shape of ``benchmarks/torch_decode_kernels.py`` (qwen3-8b's
+the serving shape of :mod:`repro_torch.bench.decode_kernels` (qwen3-8b's
 heads, 4 slots, pages of 64, a table of 8 pages) with a few lengths and
 split counts, and prints the cycles from the start of the kernel to each
 mark::
 
-    python3 benchmarks/torch_paged_attention_timeline.py
+    PYTHONPATH=src python -m repro_torch.bench.paged_attention_timeline
 
 Marks: ``start`` before the length is read, ``len`` the length read;
 ``ids`` the range's page ids staged; ``chunkK`` chunk K of warp 0
@@ -29,9 +28,8 @@ import subprocess
 import sys
 import tempfile
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+from . import decode_kernels as TD
+from . import timing
 
 #: (name, lengths, split count): one full page a slot on one range, the
 #: serve run's busiest lengths on the planned 8 ranges, one token a slot
@@ -98,13 +96,12 @@ def instrumented(src):
 def main():
     import torch
     if not torch.cuda.is_available():
-        print("torch_paged_attention_timeline: no CUDA device",
+        print("paged_attention_timeline: no CUDA device",
               file=sys.stderr)
         return 1
-    import torch_decode_kernels as TD
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import paged_attention as PA
-    smi = TD.S.nvidia_smi_line()
+    smi = timing.nvidia_smi_line()
     print(smi, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "paged_attention_marks.cu")

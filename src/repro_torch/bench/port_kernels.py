@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Times of the port's flash_attention and chunk kernels on one NVIDIA GPU,
 for comparing two trees inside one call: ``flash_attention`` without a
 window at the train run's shape of ``chip_smoke.py`` (qwen3-8b's heads,
@@ -6,15 +5,16 @@ q (1, 4096, 32, 128), K/V 8 heads, bf16, causal), and with jamba's 8192
 window at its prefill shape (q (1, 16 384, 32, 128)) where the tree's
 kernel takes a window; the chunk kernel at the full-width run's shape
 (``FASE_ROCKET_PCIE``: 4 cores, 64 MiB, issue width 8) on a loop
-without system calls (``chip_smoke.loop_target``), and on boards of 40
+without system calls (``timing.loop_target``), and on boards of 40
 and 64 cores where the tree's kernel takes them.  With ``--src DIR`` it
 times the ``repro_torch`` package under ``DIR`` (for instance an unpacked
 earlier commit, whose kernels it builds into ``DIR/build``)::
 
-    python3 benchmarks/torch_port_kernels.py [--src DIR] [--label NAME]
+    PYTHONPATH=src python -m repro_torch.bench.port_kernels [--src DIR]
+        [--label NAME]
 
 It prints the card's name and power limit and one JSON line.  Times:
-``ms`` by CUDA events over back-to-back calls (``chip_smoke.time_ms``);
+``ms`` by CUDA events over back-to-back calls (``timing.time_ms``);
 the chunk kernel's from ``torch.profiler`` over 50 chunks of
 ``CHUNK_CYCLES`` ticks: the kernel's own device time a launch and a
 substep (what the kernel computes, without the host's work between
@@ -26,13 +26,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke as S  # noqa: E402  (its timing helpers; stdlib only)
+from . import timing as S
 
 TRAIN_SHAPE = (1, 4096, 32, 8, 128)
 WINDOW_SHAPE, WINDOW = (1, 16384, 32, 8, 128), 8192
@@ -73,15 +70,15 @@ def chunk_times(torch, tgt):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+    ap.add_argument("--src", default=S.OWN_SRC,
                     help="directory holding the repro_torch package")
     ap.add_argument("--label", default="this tree")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        print("torch_port_kernels: no CUDA device", file=sys.stderr)
+        print("port_kernels: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.src))
+    S.use_tree(args.src)
     from repro_torch.configs.fase_rocket import target_kwargs
     from repro_torch.configs.registry import FASE_ROCKET_PCIE
     from repro_torch.kernels import _build

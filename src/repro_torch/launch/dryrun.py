@@ -25,8 +25,11 @@ first one's signatures.  The second run (``compile_s``), of the whole
 cell, is counted, one device's view:
 
 * ``per_device.argument_bytes``: the local shards of every input, exactly;
-* ``per_device.peak_bytes``: the arguments plus the peak of the storage
-  the step allocates (``torch.distributed._tools.mem_tracker``);
+* ``per_device.peak_bytes``: the arguments plus ``temp_bytes``, the most
+  bytes of storage the operators a device runs hold live at once (the
+  counter below tracks each storage they allocate until it is freed; the
+  same on ``meta`` and fake tensors, where ``torch.distributed._tools.
+  mem_tracker`` reads more on ``meta`` tensors on torch 2.11);
 * ``hlo_flops_per_device``: ``torch.utils.flop_counter``'s formulas on
   the operators each device runs on its local shards (a counter that
   steps aside for DTensor operators and sees what DTensor runs locally —
@@ -37,7 +40,13 @@ cell, is counted, one device's view:
   all-to-all as an all-gather and a chunk: it is counted as the
   all-gather;
 * ``trip_mult`` is 1: the run executes every layer and microbatch, where
-  XLA counts a ``while`` body once and the reference multiplies.
+  XLA counts a ``while`` body once and the reference multiplies.  The one
+  loop it does not execute whole is the sLSTM's time loop, a Python loop
+  of ``S`` identical trips on ``(B, d)`` states (32 768 trips a layer in
+  ``prefill_32k``): it runs two trips and counts the second ``S - 1``
+  times, the reference's rule for a loop body, and holds the bytes the
+  second leaves live for the backward ``S - 2`` times more
+  (:func:`count_time_loop`).
 
 The roofline divides by one NVIDIA H100 SXM's rates from NVIDIA's data
 sheet (dense bf16 tensor cores, HBM3, and NVLink 4 at 450 GB/s each way),
@@ -47,11 +56,13 @@ measured bf16 GEMM and HBM copy rates beside them.
 Usage:
   python -m repro_torch.launch.dryrun [--arch qwen3-8b] [--shape train_4k]
       [--multi-pod] [--both-meshes] [--all] [--out results.json]
-      [--variant baseline|tp_serve|dp_only|microN]
+      [--variant baseline|tp_serve|dp_only|microN] [--tensors meta|fake]
+      [--layers N]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -77,7 +88,14 @@ def _counter():
     """A dispatch mode that counts what one device runs: it steps aside
     for DTensor operators (returns ``NotImplemented``, so DTensor runs
     them) and sees the operators DTensor runs on the local shards and the
-    collectives it issues."""
+    collectives it issues, each counted ``scale`` times (1 but inside the
+    trip :func:`count_time_loop` stands for many); and the bytes of the
+    storages those operators allocate that are live at once, at their
+    most (``peak``): one device's temporaries, with the bytes
+    :meth:`hold` adds for trips that did not run."""
+    import weakref
+
+    import torch
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
@@ -87,21 +105,146 @@ def _counter():
             super().__init__()
             self.flops = 0
             self.coll = {}
+            self.scale = 1
+            self.live = self.peak = 0
+            self.storages = set()
+            self.holds = {}
+
+        def hold(self, nbytes, keys):
+            """``nbytes`` more live from now until every storage of
+            ``keys`` (keys of ``storages``) is freed."""
+            if nbytes <= 0 or not keys:
+                return
+            group = [set(keys), nbytes]
+            for key in keys:
+                self.holds.setdefault(key, []).append(group)
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+
+        def _freed(self, key, nbytes):
+            self.storages.discard(key)
+            self.live -= nbytes
+            for group in self.holds.pop(key, ()):
+                group[0].discard(key)
+                if not group[0]:
+                    self.live -= group[1]
+
+        def _track(self, out):
+            """Every new storage among ``out``'s tensors: live from now
+            until it is freed (a finalizer on the storage)."""
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
+                    continue
+                st = t.untyped_storage()
+                key = st._cdata
+                if key in self.storages:
+                    continue
+                self.storages.add(key)
+                self.live += st.nbytes()
+                weakref.finalize(st, self._freed, key, st.nbytes())
+                self.peak = max(self.peak, self.live)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
             out = func(*args, **kwargs)
+            self._track(out)
             count = flop_registry.get(func._overloadpacket)
             if count is not None:
-                self.flops += count(*args, **kwargs, out_val=out)
+                self.flops += self.scale * count(*args, **kwargs,
+                                                 out_val=out)
             kind = _COLLECTIVES.get(func._overloadpacket.__name__)
             if kind is not None and func.namespace == "_c10d_functional":
-                self.coll[kind] = (self.coll.get(kind, 0) +
+                self.coll[kind] = (self.coll.get(kind, 0) + self.scale *
                                    out.numel() * out.element_size())
             return out
     return Local()
+
+
+def _scale_region():
+    """An identity on a loop's carry that sets a counter's ``scale``: to
+    ``fwd`` when the forward passes it, to ``bwd`` when the backward
+    does.  A trip between an entry ``(S - 1, 1)`` and an exit ``(1, S -
+    1)`` is counted ``S - 1`` times in both passes: the backward runs the
+    trip's nodes between the exit's and the entry's (autograd takes the
+    ready node created last first, and every node of the trip hangs on
+    the entry's outputs)."""
+    import torch
+
+    class Scale(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, counter, fwd, bwd, *carry):
+            ctx.counter, ctx.bwd = counter, bwd
+            if counter is not None:
+                counter.scale = fwd
+            return tuple(t.view_as(t) for t in carry)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            if ctx.counter is not None:
+                ctx.counter.scale = ctx.bwd
+            return (None, None, None, *grads)
+    return Scale
+
+
+@contextlib.contextmanager
+def count_time_loop(counter=None):
+    """The dry run's rule for the sLSTM's time loop (``models.core.
+    TIME_LOOP``), while the block runs: of ``S`` trips the first runs as
+    it is (from the zero state it differs in the backward) and the
+    second runs once and is counted ``S - 1`` times by ``counter``
+    (FLOPs and collective bytes, forward and backward); ``hs`` holds the
+    two trips' outputs and zeros for the rest.  Every trip does the same
+    work on ``(B, d)`` states, so the counts are the whole loop's.  So are
+    the live bytes: what the second trip leaves live beyond its output
+    ``h`` (which the zeros stand for) is, under autograd, the tensors it
+    saves for the backward, which each of the ``S - 2`` trips that did not
+    run would also have left; ``counter`` holds them ``S - 2`` times more,
+    and from the end of the loop the ``S - 2`` outputs ``h`` the zeros stood
+    for too (the next trip saves each), until the second trip's saved
+    tensors are freed (its backward).  Without autograd, or where a
+    checkpoint drops what is saved, a trip leaves only ``h`` and nothing
+    is held."""
+    import torch
+
+    from ..distributed import dtensor as DT
+    from ..models import core as M
+    Scale = _scale_region()
+
+    def storage(t):
+        return (t.to_local() if DT.is_dtensor(t) else t).untyped_storage()
+
+    def loop(trip, carry, S):
+        hs, kept = [], set()
+        for t in range(min(S, 2)):
+            if t == 1:
+                carry = Scale.apply(counter, S - 1, 1, *carry)
+                if counter is not None:
+                    live, before = counter.live, set(counter.storages)
+            carry = trip(t, *carry)
+            if t == 1:
+                carry = Scale.apply(counter, 1, S - 1, *carry)
+                if counter is not None and S > 2:
+                    # the trip's new storages but its carry: what it saved
+                    kept = counter.storages - before - {
+                        storage(v)._cdata for v in carry}
+                    h = storage(carry[0]).nbytes()
+                    counter.hold((S - 2) * (counter.live - live - h), kept)
+            hs.append(carry[0])
+        hs = torch.stack(hs, dim=1)
+        if S > 2:
+            B, _, d = hs.shape
+            hs = torch.cat([hs, hs.new_zeros((B, S - 2, d))], dim=1)
+            if counter is not None:
+                # the outputs the zeros stood for, saved for the backward
+                counter.hold((S - 2) * h, kept)
+        return hs, carry
+    saved, M.TIME_LOOP = M.TIME_LOOP, loop
+    try:
+        yield
+    finally:
+        M.TIME_LOOP = saved
 
 
 def _local_bytes(tree):
@@ -110,10 +253,17 @@ def _local_bytes(tree):
                for t in tree_leaves(tree))
 
 
-def _cell(cfg, shape: str, mesh, variant: str):
+def _cell(cfg, shape: str, mesh, variant: str, fake: bool = False):
     """The cell's step function and its ``meta`` inputs laid out on
-    ``mesh``, and the number of microbatches."""
+    ``mesh``, and the number of microbatches; with ``fake``, the inputs
+    as fake CPU tensors of an active ``FakeTensorMode`` instead."""
     specs = st.input_specs(cfg, shape)
+    if fake:
+        import torch
+
+        from ..training.optim import tree_map
+        specs = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                         specs)
     kind = st.SHAPES[shape]["kind"]
     policy = variant if variant in ("dp_only", "tp_only") else "fsdp_tp"
     act_spec = sh.P(sh.dp_axis(mesh), "model", None) \
@@ -154,30 +304,41 @@ def _cell(cfg, shape: str, mesh, variant: str):
     return fn, args, n_micro
 
 
-def lower(cfg, shape: str, mesh, variant: str = "baseline") -> dict:
+def lower(cfg, shape: str, mesh, variant: str = "baseline",
+          tensors: str = "meta") -> dict:
     """Run the cell's step on ``mesh`` (a DeviceMesh with the production
-    axis names over an open fake group) and count it; the report's body."""
-    from torch.distributed._tools.mem_tracker import MemTracker
+    axis names over an open fake group) and count it; the report's body.
+    ``tensors="fake"`` runs it on fake CPU tensors (``FakeTensorMode``)
+    instead of ``meta`` ones: the same counts, much slower."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from ..models.core import n_scan_steps
+    if tensors not in ("meta", "fake"):
+        raise ValueError(f"tensors={tensors!r}: 'meta' or 'fake'")
+    fake = tensors == "fake"
+    if fake:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        mode = FakeTensorMode()
+    else:
+        mode = contextlib.nullcontext()
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     kind = st.SHAPES[shape]["kind"]
     one_step = cfg.scaled(n_layers=cfg.n_layers // n_scan_steps(cfg))
-    warm_fn, warm_args, _ = _cell(one_step, shape, mesh, variant)
-    t0 = time.time()
-    with implicit_replication():
-        warm_fn(*warm_args)
-    t_lower = time.time() - t0
-    del warm_args
-    fn, args, n_micro = _cell(cfg, shape, mesh, variant)
-    arg_bytes = _local_bytes(args)
-    counter, mem = _counter(), MemTracker()
-    t0 = time.time()
-    with implicit_replication(), mem, counter:
-        fn(*args)
-    t_compile = time.time() - t0
-    temp = sum(v["Total"] for v in mem.get_tracker_snapshot("peak").values())
+    with mode:
+        warm_fn, warm_args, _ = _cell(one_step, shape, mesh, variant, fake)
+        t0 = time.time()
+        with implicit_replication(), count_time_loop():
+            warm_fn(*warm_args)
+        t_lower = time.time() - t0
+        del warm_args
+        fn, args, n_micro = _cell(cfg, shape, mesh, variant, fake)
+        arg_bytes = _local_bytes(args)
+        counter = _counter()
+        t0 = time.time()
+        with implicit_replication(), count_time_loop(counter), counter:
+            fn(*args)
+        t_compile = time.time() - t0
+    temp = counter.peak
     flops = float(counter.flops)
     coll = dict(sorted(counter.coll.items()))
     res = {
@@ -204,10 +365,15 @@ def lower(cfg, shape: str, mesh, variant: str = "baseline") -> dict:
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
-             verbose: bool = True, variant: str = "baseline") -> dict:
+             verbose: bool = True, variant: str = "baseline",
+             tensors: str = "meta", n_layers: int | None = None) -> dict:
     """variant: baseline | tp_serve (decode without FSDP param gathers) |
-    dp_only (no tensor parallelism) | microN (train grad-accum N)."""
+    dp_only (no tensor parallelism) | microN (train grad-accum N);
+    ``tensors`` as :func:`lower`'s; ``n_layers`` cuts the model's depth
+    (widths and shapes as they are)."""
     cfg = CONFIGS[arch]
+    if n_layers:
+        cfg = cfg.scaled(n_layers=n_layers)
     ok, why = st.cell_supported(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape, "status": why}
@@ -215,7 +381,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         mesh = make_production_mesh(multi_pod=multi_pod)
         res = {"arch": arch, "shape": shape,
                "mesh": "2x16x16" if multi_pod else "16x16",
-               **lower(cfg, shape, mesh, variant)}
+               **lower(cfg, shape, mesh, variant, tensors)}
     if verbose:
         r = res["roofline"]
         print(f"[{res['mesh']}] {arch:26s} {shape:12s} "
@@ -237,6 +403,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--tensors", choices=("meta", "fake"), default="meta")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every model to this many layers")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(CONFIGS)
@@ -247,8 +416,9 @@ def main(argv=None):
         for shape in shapes:
             for mp in meshes:
                 try:
-                    results.append(run_cell(arch, shape, mp,
-                                            variant=args.variant))
+                    results.append(run_cell(
+                        arch, shape, mp, variant=args.variant,
+                        tensors=args.tensors, n_layers=args.layers))
                 except Exception as e:  # noqa: BLE001 - report, keep going
                     results.append({"arch": arch, "shape": shape,
                                     "mesh": "2x16x16" if mp else "16x16",

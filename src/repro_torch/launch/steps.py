@@ -67,8 +67,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
         else:
             micro = {k: DT.microbatches(v, n_micro)
                      for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=F32),
-                            params)
+            gsum = tree_map(lambda p: DT.zeros_like(p, F32), params)
             loss_sum = torch.zeros((), dtype=F32,
                                    device=tree_leaves(params)[0].device)
             for i in range(n_micro):
@@ -77,9 +76,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
                     impl=impl, act_spec=act_spec)
                 loss_sum = loss_sum + loss
                 for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
-                    a += b.to(F32)
+                    DT.accumulate(a, b)
             loss = loss_sum / n_micro
-            grads = tree_map(lambda g: g / n_micro, gsum)
+            grads = tree_map(lambda g: DT.divided(g, n_micro), gsum)
         params, opt_state, gn = adamw_update(opt, params, grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": gn}
     return train_step

@@ -90,11 +90,18 @@ def rope_angles(positions, d, theta):
     return torch.cos(ang), torch.sin(ang)
 
 
-def rope_apply(x, cos, sin):
+def _rope(x, cos, sin):
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope_apply(x, cos, sin):
+    """RoPE of ``x`` ``(..., S, H, D)`` by angles from
+    :func:`rope_angles`; on DTensors shard by shard
+    (:func:`DT.local_rope`)."""
+    return DT.local_rope(_rope, x, cos, sin)
 
 
 def rope(x, positions, theta):
@@ -366,9 +373,13 @@ def moe(p, cfg: ModelConfig, x2d):
     assignment adds zeros into its expert's slot ``C - 1`` and gets no
     output.  Every expert runs on its ``C`` slots; a token's ``K``
     contributions are summed in bf16 in the sorted order.  ``aux`` is the
-    Switch balance loss ``E * sum(mean(probs) * share of assignments)``."""
-    probs, idx = route(p, cfg, x2d)
-    return moe_dispatch(p, cfg, x2d, probs, idx)
+    Switch balance loss ``E * sum(mean(probs) * share of assignments)``.
+    On DTensors the token rows are gathered first (:func:`DT.whole_rows`):
+    the routing sorts every assignment of the batch."""
+    rows = DT.whole_rows(x2d)
+    probs, idx = route(p, cfg, rows)
+    y, aux = moe_dispatch(p, cfg, rows, probs, idx)
+    return DT.laid_out_as(y, x2d), aux
 
 
 def route(p, cfg: ModelConfig, x2d):
@@ -380,13 +391,31 @@ def route(p, cfg: ModelConfig, x2d):
     return probs, idx
 
 
+def dispatch_plan(idx, E, C):
+    """The capacity dispatch of each token's experts ``idx`` ``(T, K)``
+    over ``E`` experts of ``C`` slots: the ``T * K`` assignments sorted by
+    expert (stable: ``order``), each one's token (``tok_s``), whether it
+    got a slot (``keep``) and its row ``e * C + slot`` of the experts'
+    buffer (``row``; a dropped one its expert's slot ``C - 1``)."""
+    T, K = idx.shape
+    dev = DT.local_device(idx)
+    e_flat = idx.reshape(-1)                                  # (T*K,)
+    tok_flat = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(e_flat, stable=True)
+    e_s, tok_s = e_flat[order], tok_flat[order]
+    start = DT.first_of_each(e_s, E)
+    pos = torch.arange(T * K, device=dev) - start[e_s]
+    keep = pos < C
+    row = e_s * C + torch.where(keep, pos, C - 1)
+    return order, tok_s, keep, row
+
+
 def moe_dispatch(p, cfg: ModelConfig, x2d, probs, idx):
     """:func:`moe` from the router's ``probs`` and each token's experts
     ``idx`` on: the gates, the balance loss, the capacity dispatch and the
     experts."""
     T, d = x2d.shape
     E, K = cfg.n_experts, cfg.top_k
-    dev = x2d.device
     gate_vals = probs.gather(1, idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(0)
@@ -394,20 +423,14 @@ def moe_dispatch(p, cfg: ModelConfig, x2d, probs, idx):
     aux = E * (me * ce).sum()
 
     C = int(cfg.capacity_factor * T * K / E) + 1
-    e_flat = idx.reshape(-1)                                  # (T*K,)
-    tok_flat = torch.arange(T, device=dev).repeat_interleave(K)
-    order = torch.argsort(e_flat, stable=True)
-    e_s, tok_s = e_flat[order], tok_flat[order]
+    order, tok_s, keep, row = dispatch_plan(idx, E, C)
     g_s = gate_vals.reshape(-1)[order]
-    start = DT.first_of_each(e_s, E)
-    pos = torch.arange(T * K, device=dev) - start[e_s]
-    keep = pos < C
-    row = e_s * C + torch.where(keep, pos, C - 1)
-    buf = x2d.new_zeros((E * C, d)).index_add(
-        0, row, x2d[tok_s] * keep[:, None].to(x2d.dtype)).view(E, C, d)
+    buf = DT.by_expert(x2d.new_zeros((E * C, d)).index_add(
+        0, row, x2d[tok_s] * keep[:, None].to(x2d.dtype)),
+        p["w_gate"]).view(E, C, d)
     h = torch.bmm(buf, p["w_gate"])
     h2 = torch.bmm(buf, p["w_in"])
-    out_buf = torch.bmm(silu(h) * h2, p["w_out"]).view(E * C, d)
+    out_buf = DT.whole(torch.bmm(silu(h) * h2, p["w_out"]).view(E * C, d))
     contrib = out_buf[row] * (g_s * keep.float())[:, None].to(x2d.dtype)
     # back to (token, k); a token's contributions in sorted (expert) order
     per_tok = torch.empty_like(contrib).index_copy(0, order, contrib)
@@ -479,8 +502,10 @@ def mamba(p, cfg: ModelConfig, x, state=None):
         # under autograd each chunk's scan is recomputed in the backward:
         # its log-step intermediates are ~18 (B, c, di, N) f32 tensors a
         # chunk, which for every chunk of seven Mamba layers would not fit
-        y_j, h = (checkpoint(_scan_chunk, *args, use_reentrant=False)
-                  if torch.is_grad_enabled() else _scan_chunk(*args))
+        y_j, h = (checkpoint(DT.local_scan, _scan_chunk, *args,
+                             use_reentrant=False)
+                  if torch.is_grad_enabled() else
+                  DT.local_scan(_scan_chunk, *args))
         ys.append(y_j)
     y = torch.cat(ys, dim=1).to(x.dtype)
     y = y + xi * p["d_skip"]
@@ -488,9 +513,33 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     return out, (h, new_conv)
 
 
+def _mlstm_chunk(qj, kj, vj, fj, ij, C, mask):
+    """One chunk of :func:`mlstm` from state ``C`` ``(B, H, D, D)``: the
+    outputs ``(B, c, H, D)`` and the state after the chunk."""
+    logf = torch.log(fj.clamp(min=1e-9))                      # (B,c,H)
+    cum = torch.cumsum(logf, dim=1)
+    total = cum[:, -1:]
+    # intra-chunk causal gated attention; pairwise log-decay
+    cum_h = cum.transpose(1, 2)                               # (B,H,c)
+    dec = torch.exp((cum_h[:, :, :, None] - cum_h[:, :, None, :])
+                    .clamp(max=0.0))
+    w = dec * ij.transpose(1, 2)[:, :, None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", qj, kj) * w
+    s = torch.where(mask, s, 0.0)
+    intra = torch.einsum("bhqk,bkhd->bqhd", s, vj)
+    # inter-chunk: q_t * decay(0..t) @ C
+    inter = torch.einsum("bqhd,bhde->bqhe",
+                         qj * torch.exp(cum)[..., None], C)
+    wk = ij * torch.exp(total - cum)                          # decay t..end
+    C = C * torch.exp(total)[:, 0, :, None, None] + \
+        torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
+    return intra + inter, C
+
+
 def mlstm(p, cfg: ModelConfig, x, state=None):
     """The reference's chunked gated linear attention.  ``state`` ``C``
-    ``(B, H, D, D)`` f32 for decode; returns ``(out, C)``."""
+    ``(B, H, D, D)`` f32 for decode; returns ``(out, C)``.  On DTensors
+    each chunk runs shard by shard (:func:`DT.local_chunk`)."""
     B, S, d = x.shape
     H = cfg.n_heads
     D = d // H
@@ -504,33 +553,25 @@ def mlstm(p, cfg: ModelConfig, x, state=None):
     c = S // nchunk
     qc, kc, vc = (t.float().reshape(B, nchunk, c, H, D) for t in (q, k, v))
     fc, ic = f.reshape(B, nchunk, c, H), i.reshape(B, nchunk, c, H)
-    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    mask = torch.ones((c, c), dtype=torch.bool,
+                      device=DT.local_device(x)).tril()
     C = x.new_zeros((B, H, D, D), dtype=F32) if state is None else \
         state.float()
     ys = []
     for j in range(nchunk):
-        qj, kj, vj, fj, ij = qc[:, j], kc[:, j], vc[:, j], fc[:, j], ic[:, j]
-        logf = torch.log(fj.clamp(min=1e-9))                  # (B,c,H)
-        cum = torch.cumsum(logf, dim=1)
-        total = cum[:, -1:]
-        # intra-chunk causal gated attention; pairwise log-decay
-        cum_h = cum.transpose(1, 2)                           # (B,H,c)
-        dec = torch.exp((cum_h[:, :, :, None] - cum_h[:, :, None, :])
-                        .clamp(max=0.0))
-        w = dec * ij.transpose(1, 2)[:, :, None, :]
-        s = torch.einsum("bqhd,bkhd->bhqk", qj, kj) * w
-        s = torch.where(mask, s, 0.0)
-        intra = torch.einsum("bhqk,bkhd->bqhd", s, vj)
-        # inter-chunk: q_t * decay(0..t) @ C
-        inter = torch.einsum("bqhd,bhde->bqhe",
-                             qj * torch.exp(cum)[..., None], C)
-        wk = ij * torch.exp(total - cum)                      # decay t..end
-        C = C * torch.exp(total)[:, 0, :, None, None] + \
-            torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
-        ys.append(intra + inter)
+        y_j, C = DT.local_chunk(_mlstm_chunk, qc[:, j], kc[:, j], vc[:, j],
+                                fc[:, j], ic[:, j], C, mask)
+        ys.append(y_j)
     y = DT.heads(torch.cat(ys, dim=1), B, S, H * D).to(x.dtype)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
     return y @ p["wo"], C
+
+
+#: the time loop of :func:`slstm`: ``TIME_LOOP(trip, (h, c), S)`` returns
+#: ``(hs (B, S, d), (h, c))``.  None runs every trip; the dry run sets its
+#: own, which runs a representative two and counts them for all ``S``
+#: (:func:`repro_torch.launch.dryrun.count_time_loop`)
+TIME_LOOP = None
 
 
 def slstm(p, cfg: ModelConfig, x, state=None):
@@ -548,18 +589,24 @@ def slstm(p, cfg: ModelConfig, x, state=None):
         c = x.new_zeros((B, d), dtype=F32)
     else:
         h, c = state
-    hs = []
-    for t in range(S):
+
+    def trip(t, h, c):
         rec = h @ p["r"]
         f = torch.sigmoid(fi[:, t] + rec)
         i = torch.sigmoid(ii[:, t] + rec)
         z = torch.tanh(zi[:, t] + rec)
         o = torch.sigmoid(oi[:, t] + rec)
         c = f * c + i * z
-        h = o * torch.tanh(c)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return y @ p["w_out"], (h, c)
+        return o * torch.tanh(c), c
+    if TIME_LOOP is None:
+        hs = []
+        for t in range(S):
+            h, c = trip(t, h, c)
+            hs.append(h)
+        y = torch.stack(hs, dim=1)
+    else:
+        y, (h, c) = TIME_LOOP(trip, (h, c), S)
+    return y.to(x.dtype) @ p["w_out"], (h, c)
 
 
 # ---------------------------------------------------------------------------
@@ -567,8 +614,11 @@ def slstm(p, cfg: ModelConfig, x, state=None):
 # ---------------------------------------------------------------------------
 def _apply_sublayer(name, p, cfg, x, cos, sin, impl):
     """``(x + f(rmsnorm(x)), aux, cache)`` — the reference's
-    ``_apply_sublayer``; ``cache`` is ``None`` for ``mlp`` and ``moe``."""
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    ``_apply_sublayer``; ``cache`` is ``None`` for ``mlp`` and ``moe``.
+    On DTensors the sublayer's input and output are laid out as
+    Megatron's tensor parallelism lays them (:func:`DT.tp_in`,
+    :func:`DT.summed`), in the backward too."""
+    h = DT.tp_in(rmsnorm(x, p["norm"], cfg.norm_eps))
     aux, cache = None, None
     if name == "attn":
         o, k, v = attention(p, cfg, h, cos, sin, impl)
@@ -587,7 +637,7 @@ def _apply_sublayer(name, p, cfg, x, cos, sin, impl):
         o, cache = slstm(p, cfg, h)
     else:
         raise ValueError(name)
-    return x + o, aux, cache
+    return x + DT.summed(o), aux, cache
 
 
 def _step(cfg, layout, layer, x, cos, sin, impl):
@@ -601,7 +651,7 @@ def _step(cfg, layout, layer, x, cos, sin, impl):
     x = DT.whole_seq(x)
     aux = x.new_zeros((), dtype=F32)
     caches = []
-    for name, p in zip(layout, layer):
+    for name, p in zip(layout, DT.for_use(layer)):
         x, a, c = _apply_sublayer(name, p, cfg, x, cos, sin, impl)
         if a is not None:
             aux = aux + a
@@ -614,7 +664,7 @@ def _unstack(blocks):
     """Per-step views of the stacked block parameters.  ``unbind`` (not
     one index per step) so that the backward writes each stacked
     gradient once, not once per step."""
-    per = [{n: t.unbind(0) for n, t in sub.items()} for sub in blocks]
+    per = [{n: DT.unbind(t) for n, t in sub.items()} for sub in blocks]
     steps = len(next(iter(per[0].values())))
     return [[{n: ts[i] for n, ts in sub.items()} for sub in per]
             for i in range(steps)]
@@ -672,7 +722,7 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = x @ head
+    logits = DT.head_logits(x, head)
     if collect_cache:
         return logits, _stack_caches(per_step), aux
     return logits, aux
@@ -686,9 +736,7 @@ def loss_fn(cfg: ModelConfig, params, batch, impl="kernel", act_spec=None):
                           act_spec=act_spec)
     logits = logits.float()
     labels = batch["labels"].long()
-    logits = DT.whole_vocab(logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    logz, gold = DT.logz_and_gold(logits, labels)
     mask = (labels >= 0).to(F32)
     nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
     return nll + 0.01 * aux
@@ -790,8 +838,9 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
     blocks = params["blocks"]
     for i in range(n_scan_steps(cfg)):
         j = dict.fromkeys(_STATEFUL, 0)
-        for name, sub in zip(layout, blocks):
-            p = {n: w[i] for n, w in sub.items()}
+        step = DT.for_use([{n: w[i] for n, w in sub.items()}
+                           for sub in blocks])
+        for name, p in zip(layout, step):
             h = rmsnorm(x, p["norm"], cfg.norm_eps)
             if name == "attn":
                 a = j["attn"]
@@ -835,7 +884,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
                 raise ValueError(name)
             if name in j:
                 j[name] += 1
-            x = x + o
+            x = x + DT.summed(o)
     seq_lens += 1
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")

@@ -62,8 +62,7 @@ def init_opt_state(params):
 
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(sum(DT.sum_squares(x) for x in tree_leaves(tree)))
 
 
 @torch.no_grad()
@@ -76,8 +75,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     step = state["step"].to(F32)
     b1c = 1 - torch.pow(cfg.b1, step)
     b2c = 1 - torch.pow(cfg.b2, step)
+    scale, b1c, b2c = (DT.local_value(t) for t in (scale, b1c, b2c))
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
+        g = DT.laid_out_as(g, p)
         for ps, gs, ms, vs in zip(DT.slices(p, CHUNK),
                                   DT.slices(g, CHUNK, view=False),
                                   DT.slices(m, CHUNK), DT.slices(v, CHUNK)):

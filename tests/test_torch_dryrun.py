@@ -210,7 +210,6 @@ def test_one_step_warm_run_counts_what_a_whole_warm_run_counts(small_shapes,
     """The counted run after the one-scan-step warm run (``lower``) sees
     exactly what it sees after a warm run of the whole cell: no sharding
     propagation on global shapes leaks into the count."""
-    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
     cfg = CONFIGS[arch].smoke()
     with fake_world(4):
@@ -219,11 +218,34 @@ def test_one_step_warm_run_counts_what_a_whole_warm_run_counts(small_shapes,
         res = DR.lower(cfg, "train_4k", mesh, "micro2")
         fn, args, _ = DR._cell(cfg, "train_4k", mesh, "micro2")
         for _ in range(2):
-            counter, mem = DR._counter(), MemTracker()
-            with implicit_replication(), mem, counter:
+            counter = DR._counter()
+            with implicit_replication(), counter:
                 fn(*args)
     assert res["hlo_flops_per_device"] == counter.flops > 0
     assert res["collective_bytes_per_device"] == dict(
         sorted(counter.coll.items()))
+    assert res["per_device"]["temp_bytes"] == counter.peak > 0
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_temp_bytes_are_what_mem_tracker_reads_on_fake_tensors(small_shapes,
+                                                               shape):
+    """The dry run's own count of the live storages (``temp_bytes``)
+    against ``torch.distributed._tools.mem_tracker`` over the same step
+    on fake tensors, where it reads each storage as it is allocated and
+    freed: the same peak a device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = CONFIGS["qwen3-8b"].smoke()
+    with fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                               "model"))
+        res = DR.lower(cfg, shape, mesh, tensors="fake")
+        with FakeTensorMode():
+            fn, args, _ = DR._cell(cfg, shape, mesh, "baseline", fake=True)
+            mem = MemTracker()
+            with implicit_replication(), mem:
+                fn(*args)
     assert res["per_device"]["temp_bytes"] == sum(
-        v["Total"] for v in mem.get_tracker_snapshot("peak").values())
+        v["Total"] for v in mem.get_tracker_snapshot("peak").values()) > 0

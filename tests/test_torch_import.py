@@ -54,6 +54,13 @@ PORT_MODULES = [
     "repro_torch.launch.dryrun",
     "repro_torch.distributed.sharding",
     "repro_torch.distributed.dtensor",
+    "repro_torch.bench",
+    "repro_torch.bench.__main__",
+    "repro_torch.bench.timing",
+    "repro_torch.bench.decode_kernels",
+    "repro_torch.bench.paged_attention_timeline",
+    "repro_torch.bench.port_kernels",
+    "repro_torch.bench.dryrun_sweep",
 ] + [f"repro_torch.configs.{name}" for name in (
     "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
     "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",
@@ -82,6 +89,23 @@ def test_port_sources_have_no_jax_or_reference_imports():
     root = Path(SRC) / "repro_torch"
     files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
     assert len(files) > 20
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_port_sources_start_no_interpreter_that_imports_jax_or_reference():
+    """No import of JAX or of the JAX package anywhere in a line either:
+    not in a string run by ``python -c``, nor through ``import_module``
+    (a child interpreter escapes the import test above)."""
+    import re
+    pat = re.compile(r"\b(import|from)\s+(jax|jaxlib|repro)([\s.,;'\"]|$)"
+                     r"|import_module\(\s*['\"](jax|jaxlib|repro)['\".]",
+                     re.M)
+    root = Path(SRC) / "repro_torch"
+    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
+    assert len(files) > 20
+    assert pat.search('"import jax",') and pat.search("from repro.launch")
+    assert not pat.search("from repro_torch.launch import dryrun")
     for f in files:
         assert not pat.search(f.read_text()), f
 
