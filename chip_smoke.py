@@ -22,7 +22,16 @@ a sliding window, in both designs), and drives the port's paths:
   constants pinned from the pure-Python reference simulator; then
   CoreMark (``coremark 1``, 1 core, UART) against its pins; boards of 40
   and 64 cores (the chunk kernels' CTA-wide instantiation, untraced,
-  traced and fleet) against the eager loop after every chunk;
+  traced and fleet) against the eager loop after every chunk, and boards
+  of 500 and 1 025 cores (the cluster instantiation: a thread-block
+  cluster of 2 and 3 CTAs of 384 cores; 500 also traced, and a fleet of
+  2 x 500; 512 cores and a fleet of 2 x 288 through the wrappers'
+  ``cta_lanes=32``, clusters of 16 and 9 one-warp CTAs) against the eager
+  route on the card after every chunk;
+* the paper's FASE panels (phase ``panels``): the eight twins of
+  ``repro_torch.bench`` at ``--quick`` on the card, each file's modelled
+  numbers equal to the same panel's run on the port's PySim (run one
+  after another in the background from launch), with the wall of each;
 * telemetry (phase ``telemetry``): hello@UART and bc@PCIe with both
   out-of-band bridges armed on both interpreter routes, the ring included
   in the fields compared after every chunk; bc@PCIe on the chunk kernel's
@@ -85,6 +94,8 @@ a train step, and writes their tables to ``--out`` (default
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -172,6 +183,10 @@ REPLACES = {
     "run_chunk_fleet": "src/repro/core/target/cpu.py:1180",
     # no pallas_call: the commit-trace ring of the reference's substep
     "run_chunk_trace": "src/repro/core/target/cpu.py:1021",
+    # the same loops on a board past one CTA (a thread-block cluster)
+    "run_chunk_cluster": "src/repro/core/target/cpu.py:1089",
+    "run_chunk_trace_cluster": "src/repro/core/target/cpu.py:1021",
+    "run_chunk_fleet_cluster": "src/repro/core/target/cpu.py:1180",
     "paged_attention":
     "src/repro/kernels/paged_attention/paged_attention.py:89",
     # the same pallas_call; the ring of the reference's windowed decode
@@ -191,6 +206,9 @@ SOURCES = {
     "run_chunk": "src/repro_torch/csrc/run_chunk.cu",
     "run_chunk_fleet": "src/repro_torch/csrc/run_chunk.cu",
     "run_chunk_trace": "src/repro_torch/csrc/run_chunk.cu",
+    "run_chunk_cluster": "src/repro_torch/csrc/run_chunk.cu",
+    "run_chunk_trace_cluster": "src/repro_torch/csrc/run_chunk.cu",
+    "run_chunk_fleet_cluster": "src/repro_torch/csrc/run_chunk.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "paged_attention_window": "src/repro_torch/csrc/paged_attention.cu",
     "page_set": "src/repro_torch/csrc/page_ops.cu",
@@ -342,8 +360,11 @@ TRACE_SLOTS = 4096
 #: a lossless capture's ring (telemetry/replay.py's default)
 CAPTURE_SLOTS = 1 << 15
 
-PHASES = ("kernel", "chunk", "full", "coremark", "telemetry", "fleet",
-          "serve", "train", "families", "dryrun")
+PHASES = ("kernel", "chunk", "full", "coremark", "panels", "telemetry",
+          "fleet", "serve", "train", "families", "dryrun")
+#: seconds the panels' PySim runs may take, all eight (they run beside
+#: the phases before them)
+PANELS_TIMEOUT = 600
 
 
 def emit(obj):
@@ -522,29 +543,46 @@ def phase_kernel(torch, dev):
             "flash_attention_window": check_flash_window(torch, dev)}
 
 
+def past_largest_cluster():
+    """``(cores, message)``: one core past the largest cluster the card
+    schedules at the registry's knobs, and what the refusal must name."""
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    lanes = RC.default_cta_lanes(16, 8)
+    most = RC.max_cluster(lanes, 16, 8)
+    n = most * lanes + 1
+    return n, (f"{n} cores need a cluster of {most + 1} CTAs of cta_lanes "
+               f"{lanes} cores, and the device schedules at most {most} a "
+               f"cluster: at most {most * lanes} cores")
+
+
 def check_run_chunk_wrapper(torch, dev):
     """The chunk kernel's wrapper refuses what the kernel does not take:
-    a CPU state, a field of another dtype, more cores than a CTA has
-    threads, block words beyond shared memory."""
+    a CPU state, a field of another dtype, more cores than the largest
+    cluster the card schedules (the limit named), block words beyond
+    shared memory."""
     from repro_torch.core.target import cpu
     from repro_torch.kernels.run_chunk import run_chunk as RC
     st = cpu.make_state(2, 1 << 20, device=dev)
     bad_dtype = cpu.make_state(2, 1 << 20, device=dev)
     bad_dtype.priv = bad_dtype.priv.long()
-    wide = cpu.make_state(RC.LANES_MAX + 1, 1 << 20, device=dev)
-    for call in (lambda: RC.run_chunk(cpu.make_state(2, 1 << 20,
-                                                     device="cpu"),
-                                      2, 1 << 20, 64),
-                 lambda: RC.run_chunk(bad_dtype, 2, 1 << 20, 64),
-                 lambda: RC.run_chunk(wide, RC.LANES_MAX + 1, 1 << 20, 64),
-                 lambda: RC.run_chunk(st, 2, 1 << 20, 64,
-                                      block_words=1 << 16)):
+    n_past, limit = past_largest_cluster()
+    wide = cpu.make_state(n_past, 1 << 20, device=dev)
+    for call, says in (
+            (lambda: RC.run_chunk(cpu.make_state(2, 1 << 20, device="cpu"),
+                                  2, 1 << 20, 64), "CUDA state"),
+            (lambda: RC.run_chunk(bad_dtype, 2, 1 << 20, 64), "priv"),
+            (lambda: RC.run_chunk(wide, n_past, 1 << 20, 64), limit),
+            (lambda: RC.run_chunk(st, 2, 1 << 20, 64, block_words=1 << 16),
+             "shared memory")):
         try:
             call()
-        except ValueError:
+        except ValueError as e:
+            check(says in str(e), f"run_chunk refused with {e!r}, not "
+                  f"naming {says!r}")
             continue
         fail("the run_chunk wrapper accepted an input it must refuse")
-    emit({"phase": "wrapper_checks", "kernel": "run_chunk", "refused": 4})
+    emit({"phase": "wrapper_checks", "kernel": "run_chunk", "refused": 4,
+          "past_largest_cluster": limit})
 
 
 def attention_err(torch, q, kp, vp, bt, lens, window=0):
@@ -969,8 +1007,11 @@ def phase_chunk(torch):
           "chunks": n_hello + n_bc, "fields_equal_after_every_chunk": True,
           "tolerance": 0, "walk_fetch_block_launches_eager": walks,
           "seconds": round(time.time() - t0, 1)})
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    RC.run_chunk.cluster_launches = RC.run_chunk.cluster_trace_launches = 0
     wide_boards(torch)
-    return walks
+    return walks, (RC.run_chunk.cluster_launches,
+                   RC.run_chunk.cluster_trace_launches)
 
 
 #: boards past one warp (the chunk kernels' CTA-wide instantiation): the
@@ -1134,6 +1175,279 @@ def wide_boards(torch, fleet=False):
           else "run_chunk", "cores": list(WIDE_CORES),
           "fields_equal_after_every_chunk": True, "tolerance": 0,
           "boards": out})
+    cluster_boards(torch, fleet)
+
+
+#: boards past one CTA (the chunk kernels' cluster instantiation: 384
+#: cores a CTA at the registry's knobs, so 2 and 3 CTAs), against the
+#: eager route on the card after every chunk; 500 cores also traced, and
+#: as a fleet of two boards
+CLUSTER_CORES = (500, 1025)
+#: the atomics program of WIDE_PROGRAM cut for wide boards: core c works
+#: on cell c % 64 (AMOs, LR/SC) and on byte (c // 64) % 8 of word c % 64
+#: of a byte area, so cores 64 apart -- across the CTAs of the cluster
+#: too -- race on one word in every tick while a substep still commits 64
+#: cores (the eager route pays ~9 ms a substep on the card); two trips
+CLUSTER_PROGRAM = """
+_start:
+    la s0, counter
+    andi t0, a0, 63
+    slli t0, t0, 3
+    add s0, s0, t0
+    la s2, bytes_area
+    add s2, s2, t0
+    srli t2, a0, 6
+    andi t2, t2, 7
+    add s3, s2, t2
+    li t1, 2
+loop:
+    amoadd.d t2, t1, (s0)
+    amoadd.w t3, t1, (s0)
+    lr.d t4, (s0)
+    addi t4, t4, 1
+    sc.d t5, t4, (s0)
+    amomax.d t6, a0, (s0)
+    amominu.w s1, t1, (s0)
+    sb t1, 0(s3)
+    lb s4, 0(s3)
+    lhu s5, 0(s2)
+    mul s6, t1, t3
+    divu s7, s6, t1
+    rem s8, s6, t1
+    mulh s9, s6, t3
+    addi t1, t1, -1
+    bnez t1, loop
+    li a7, 93
+    ecall
+.data
+counter: .zero 512
+bytes_area: .zero 512
+"""
+#: ticks a chunk of the cluster boards (about twenty chunks a run)
+CLUSTER_CHUNK = 13
+#: boards on clusters of one-warp CTAs, through the wrappers' own
+#: ``cta_lanes`` argument at 32: 512 cores on 16 CTAs (the most the
+#: source launches, a non-portable cluster) on ``run_chunk``, and 288
+#: cores on 9 CTAs (one past the portable 8) a board of a 2-board fleet
+WARP_CTA_CORES = 512
+WARP_CTA_FLEET_CORES = 288
+#: the eager route's states after every chunk, by core count
+_CLUSTER_EAGER = {}
+
+
+def cluster_eager(torch, img, nc):
+    """``(states, substeps, seconds)`` of ``img`` on ``nc`` cores on the
+    eager route on the card (ring armed): the state after every chunk of
+    ``CLUSTER_CHUNK`` ticks; run once a core count."""
+    from repro_torch.core.interface import TorchTarget
+    if nc not in _CLUSTER_EAGER:
+        t0 = time.time()
+        eager = TorchTarget(nc, WIDE_MEM, device="cuda", chunk_kernel="ref")
+        eager.trace_arm(TRACE_SLOTS)
+        load_wide(eager, img, nc)
+        states = []
+        wide_run(torch, [eager], nc,
+                 lambda: eager.run(max_cycles=CLUSTER_CHUNK),
+                 lambda i: states.append({
+                     k: v.to("cpu", copy=True)
+                     for k, v in state_fields(eager.st).items()}))
+        _CLUSTER_EAGER[nc] = (states, eager.substeps, time.time() - t0)
+    return _CLUSTER_EAGER[nc]
+
+
+def warp_cta_board(torch, img, fleet):
+    """``WARP_CTA_CORES`` cores on ``run_chunk``, or with ``fleet`` two
+    boards of ``WARP_CTA_FLEET_CORES`` on ``run_chunk_fleet``, called
+    with ``cta_lanes=32`` (clusters of 16 and 9 one-warp CTAs, past the
+    portable size), every field equal to the eager route on the card
+    after every chunk, one cluster launch a chunk."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    nc = WARP_CTA_FLEET_CORES if fleet else WARP_CTA_CORES
+    t0 = time.time()
+    want, subs, eager_s = cluster_eager(torch, img, nc)
+    if fleet:
+        ft = FleetTarget(2, nc, WIDE_MEM, device="cuda")
+        targets = [ft.view(d) for d in range(2)]
+        wrapper = RC.run_chunk_fleet
+
+        def step():
+            RC.run_chunk_fleet(ft.sts, nc, WIDE_MEM, [CLUSTER_CHUNK] * 2,
+                               ft.issue_width, ft.block_words,
+                               ft.block_cache, ft.dtlb_ways,
+                               cta_lanes=RC.WARP_LANES)
+    else:
+        t = TorchTarget(nc, WIDE_MEM, device="cuda")
+        targets = [t]
+        wrapper = RC.run_chunk
+
+        def step():
+            RC.run_chunk(t.st, nc, WIDE_MEM, CLUSTER_CHUNK, t.issue_width,
+                         t.block_words, t.block_cache, t.dtlb_ways,
+                         cta_lanes=RC.WARP_LANES)
+    for v in targets:
+        load_wide(v, img, nc)
+    before = wrapper.cluster_launches
+
+    def cmp_chunk(i):
+        for d, v in enumerate(targets):
+            got = {k: x.cpu() for k, x in state_fields(v.st).items()
+                   if not k.startswith("trace")}
+            compare_states(torch, got, {k: want[i][k] for k in got},
+                           f"{wrapper.__name__} at cta_lanes 32, {nc} "
+                           f"cores, board {d}, chunk {i}")
+    n = wide_run(torch, targets, nc, step, cmp_chunk)
+    check(n == len(want) and wrapper.cluster_launches - before == n,
+          f"{wrapper.__name__} at cta_lanes 32, {nc} cores: {n} chunks, "
+          f"eager {len(want)}")
+    return {"chunks": {"fleet" if fleet else "untraced": n},
+            "eager_substeps": subs,
+            "instret": sum(int(x) for x in want[-1]["instret"]),
+            "cta_lanes": RC.WARP_LANES, "ctas": -(-nc // RC.WARP_LANES),
+            "eager_card_s": round(eager_s, 1),
+            "seconds": round(time.time() - t0, 1)}
+
+
+def cluster_boards(torch, fleet=False):
+    """Boards of ``CLUSTER_CORES`` cores on the chunk kernels' cluster
+    instantiation -- one launch a chunk, counted in
+    ``cluster_launches`` -- or with ``fleet`` two boards of 500 cores on
+    the fleet kernel (one cluster a board, one launch a global chunk),
+    each held field for field against the eager route on the card
+    (``chunk_kernel="ref"``, ring armed) after every chunk; then
+    :func:`warp_cta_board`."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.core.target import asm
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    img = asm.assemble(CLUSTER_PROGRAM)
+    out = {}
+    for nc in CLUSTER_CORES[:1] if fleet else CLUSTER_CORES:
+        t0 = time.time()
+        want, subs, eager_s = cluster_eager(torch, img, nc)
+        runs = {}
+        if fleet:
+            ft = FleetTarget(2, nc, WIDE_MEM, device="cuda")
+            views = [ft.view(d) for d in range(2)]
+            for v in views:
+                load_wide(v, img, nc)
+            before = RC.run_chunk_fleet.cluster_launches
+
+            def cmp_fleet(i):
+                for v in views:
+                    got = {k: x.cpu() for k, x in state_fields(v.st).items()
+                           if not k.startswith("trace")}
+                    compare_states(torch, got, {k: want[i][k] for k in got},
+                                   f"fleet cluster, {nc} cores, board "
+                                   f"{v.d}, chunk {i}")
+            n = wide_run(torch, views, nc,
+                         lambda: ft.run_global([CLUSTER_CHUNK] * 2), cmp_fleet)
+            check(n == len(want) and
+                  RC.run_chunk_fleet.cluster_launches - before == n,
+                  f"fleet cluster at {nc} cores: {n} global chunks")
+            runs["fleet"] = n
+        else:
+            for traced in (False, True)[:2 if nc == CLUSTER_CORES[0] else 1]:
+                t = TorchTarget(nc, WIDE_MEM, device="cuda")
+                if traced:
+                    t.trace_arm(TRACE_SLOTS)
+                load_wide(t, img, nc)
+                counter = "cluster_trace_launches" if traced else \
+                    "cluster_launches"
+                before = getattr(RC.run_chunk, counter)
+
+                def cmp_chunk(i, t=t, traced=traced):
+                    got = {k: x.cpu() for k, x in state_fields(t.st).items()
+                           if traced or not k.startswith("trace")}
+                    compare_states(torch, got, {k: want[i][k] for k in got},
+                                   f"run_chunk cluster "
+                                   f"{'traced ' if traced else ''}, {nc} "
+                                   f"cores, chunk {i}")
+                n = wide_run(torch, [t], nc,
+                             lambda t=t: t.run(max_cycles=CLUSTER_CHUNK),
+                             cmp_chunk)
+                check(n == len(want) and t.substeps == subs and
+                      getattr(RC.run_chunk, counter) - before == n,
+                      f"run_chunk cluster at {nc} cores (traced={traced}): "
+                      f"{n} chunks, {t.substeps} substeps, eager {subs}")
+                runs["traced" if traced else "untraced"] = n
+        out[nc] = {"chunks": runs, "eager_substeps": subs,
+                   "instret": sum(int(x) for x in want[-1]["instret"]),
+                   "ctas": -(-nc // RC.default_cta_lanes(16, 8)),
+                   "eager_card_s": round(eager_s, 1),
+                   "seconds": round(time.time() - t0, 1)}
+    out[f"{WARP_CTA_FLEET_CORES if fleet else WARP_CTA_CORES}"
+        f"@cta_lanes=32"] = warp_cta_board(torch, img, fleet)
+    emit({"phase": "cluster_boards", "kernel": "run_chunk_fleet" if fleet
+          else "run_chunk", "fields_equal_after_every_chunk": True,
+          "tolerance": 0, "boards": out})
+
+
+def time_cluster(torch):
+    """The three cluster instantiations at 1 025 cores (three CTAs of 384)
+    on the guest loop of ``loop_target``, each against its plain version
+    from the same state: ``run_chunk`` and its traced instantiation on
+    one board, ``run_chunk_fleet`` on two.  ms by CUDA events over
+    back-to-back chunks of ``CHUNK_CYCLES`` ticks; plain ms one chunk of
+    the eager route on the card (host clock ending in a synchronise);
+    bound the state's bytes read and written once at the HBM rate."""
+    from repro_torch.core.fleet.vmap import FleetTarget
+    from repro_torch.core.target import cpu
+    nc = CLUSTER_CORES[-1]
+    t = loop_target(torch, nc, WIDE_MEM)
+    t.run(max_cycles=CHUNK_CYCLES)                   # past the start-up
+    ft = FleetTarget(2, nc, WIDE_MEM, device="cuda")
+    for d in range(2):
+        for name, v in state_fields(t.st).items():
+            getattr(ft.view(d).st, name).copy_(v)
+    out = {}
+    for name in ("run_chunk_cluster", "run_chunk_trace_cluster",
+                 "run_chunk_fleet_cluster"):
+        fleet, traced = "fleet" in name, "trace" in name
+        if traced:
+            t.trace_arm(TRACE_SLOTS)
+
+        def fields():
+            st = ft.sts if fleet else t.st
+            return {k: v.clone() for k, v in state_fields(st).items()}
+
+        def chunk(route):
+            if fleet:
+                return cpu.run_chunk_fleet(
+                    ft.sts, nc, WIDE_MEM, [CHUNK_CYCLES] * 2, ft.issue_width,
+                    ft.block_words, ft.block_cache, ft.fetch_kernel,
+                    ft.dtlb_ways, route)
+            return cpu.run_chunk_fast(
+                t.st, nc, WIDE_MEM, CHUNK_CYCLES, t.issue_width,
+                t.block_words, t.block_cache, t.fetch_kernel, traced, None,
+                dtlb_ways=t.dtlb_ways, chunk_kernel=route)
+        snap = fields()
+        sub_k = chunk("kernel")
+        got = fields()
+        st = ft.sts if fleet else t.st
+        for k, v in snap.items():
+            getattr(st, k).copy_(v)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sub_r = chunk("ref")
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        check(sub_k == sub_r, f"{name}: substeps {sub_k} != {sub_r}")
+        compare_states(torch, got, state_fields(st), f"{name} timed chunk")
+        ms = time_ms(torch, lambda: chunk("kernel"), 10, warmup=2)
+        nbytes = 2 * sum(v.numel() * v.element_size() for k, v in
+                         state_fields(st).items() if k != "mem")
+        subs = sub_k[0] if fleet else sub_k
+        out[name] = dict(shape=dict(L=nc, D=2 if fleet else 1,
+                                    chunk_cycles=CHUNK_CYCLES,
+                                    substeps=subs),
+                         ms=ms, us_per_substep=ms * 1e3 / subs,
+                         plain_ms=plain_ms,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         max_abs_err=0.0)
+    emit({"phase": "cluster_timing", **out})
+    return out
 
 
 def state_bytes(st):
@@ -2175,13 +2489,14 @@ def time_run_chunk_fleet(torch, latency):
     nbytes = 2 * sum(v.numel() * v.element_size() for k, v in
                      state_fields(ft.sts).items() if k != "mem")
     refused = 0
-    wide = cpu.make_fleet_state(2, RC.LANES_MAX + 1, 1 << 20, device="cuda")
+    n_past, limit = past_largest_cluster()
+    wide = cpu.make_fleet_state(2, n_past, 1 << 20, device="cuda")
     bad = cpu.make_fleet_state(2, 2, 1 << 20, device="cuda")
     bad.ticks = bad.ticks[:1]
     for call in (lambda: RC.run_chunk_fleet(
                      cpu.make_fleet_state(2, 2, 1 << 20, device="cpu"), 2,
                      1 << 20, [64, 64]),
-                 lambda: RC.run_chunk_fleet(wide, RC.LANES_MAX + 1, 1 << 20,
+                 lambda: RC.run_chunk_fleet(wide, n_past, 1 << 20,
                                             [64, 64]),
                  lambda: RC.run_chunk_fleet(bad, 2, 1 << 20, [64, 64]),
                  lambda: RC.run_chunk_fleet(ft.sts, ft.n_cores,
@@ -2204,15 +2519,20 @@ def time_run_chunk_fleet(torch, latency):
 
 
 def phase_fleet(torch, latency):
+    """Returns the fleet kernel's launches on the full-width paths, its
+    timing, and its cluster launches (the boards past one CTA)."""
+    from repro_torch.kernels.run_chunk import run_chunk as RC
     t0 = time.time()
     sync_in_lockstep(torch)
+    RC.run_chunk_fleet.cluster_launches = 0
     wide_boards(torch, fleet=True)
+    cluster_launches = RC.run_chunk_fleet.cluster_launches
     fleet_pins(torch)
     launches = fleet_full_width(torch)
     timing = time_run_chunk_fleet(torch, latency)
     emit({"phase": "run_chunk_fleet_timing", **timing})
     emit({"phase": "fleet", "seconds": round(time.time() - t0, 1)})
-    return launches, timing
+    return launches, timing, cluster_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3867,6 +4187,83 @@ def phase_families(torch, dev, errs):
     return window_launches, t
 
 
+def start_panels():
+    """Each FASE panel of ``repro_torch.bench.PANELS`` at ``--quick`` on
+    the port's PySim, one after another in the background on the host
+    (``python -m repro_torch.bench.<name> --quick --target pysim --out
+    DIR``; one at a time, so they take one of the host's cores from the
+    card's phases): ``[(name, DIR, times)]``, a thread putting each run's
+    exit code and wall seconds in ``times["rc"]`` and ``times["wall"]``,
+    and its process in ``times["proc"]`` while it runs."""
+    import threading
+    from repro_torch.bench import PANELS
+    runs = [(name, tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"), {})
+            for name in PANELS]
+
+    def serial():
+        for name, out, times in runs:
+            start = time.time()
+            with open(os.path.join(out, "log"), "w") as log:
+                times["proc"] = subprocess.Popen(
+                    [sys.executable, "-m", f"repro_torch.bench.{name}",
+                     "--quick", "--target", "pysim", "--out", out],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ,
+                             PYTHONPATH=os.path.join(ROOT, "src")))
+                times["rc"] = times["proc"].wait()
+            times["wall"] = time.time() - start
+    threading.Thread(target=serial, daemon=True).start()
+    return runs
+
+
+def phase_panels(torch, runs):
+    """The paper's eight FASE panels at ``--quick`` on the card
+    (``TorchTarget`` on the CUDA device, through each panel's own
+    ``run``), each file's modelled numbers equal to the same panel's PySim
+    run started by ``start_panels`` (tolerance 0: every field but the wall
+    seconds); the wall of each beside PySim's."""
+    import importlib
+    from repro_torch.bench import panels
+    t_phase = time.time()
+    out = {}
+    deadline = time.time() + PANELS_TIMEOUT
+    for name, sim_dir, times in runs:
+        while "wall" not in times and time.time() < deadline:
+            time.sleep(0.2)
+        with open(os.path.join(sim_dir, "log")) as f:
+            log = f.read()
+        check(times.get("rc") == 0, f"panel {name} on PySim: rc "
+              f"{times.get('rc')} (wall {times.get('wall')})\n{log[-3000:]}")
+        card_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_card_")
+        twin = importlib.import_module(f"repro_torch.bench.{name}")
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):   # its row lines
+            twin.run(quick=True, target="card", out_dir=card_dir)
+        wall = time.time() - t0
+        files = sorted(f for f in os.listdir(card_dir)
+                       if f.startswith("torch_"))
+        check(files and files == sorted(f for f in os.listdir(sim_dir)
+                                        if f.startswith("torch_")),
+              f"panel {name}: files {files}")
+        for f in files:
+            with open(os.path.join(card_dir, f)) as fh:
+                card = json.load(fh)
+            with open(os.path.join(sim_dir, f)) as fh:
+                sim = json.load(fh)
+            diff = panels.differences(card, sim)
+            check(not diff, f"panel {name}, {f}: the card's modelled "
+                  f"numbers differ from PySim's: {diff}")
+            check(card["target"] == "card" and card["card"],
+                  f"panel {name}: {f} names no card")
+        out[name] = {"files": files, "card_wall_s": round(wall, 3),
+                     "pysim_wall_s": round(times["wall"], 3)}
+        shutil.rmtree(card_dir, ignore_errors=True)
+        shutil.rmtree(sim_dir, ignore_errors=True)
+    emit({"phase": "panels", "quick": True, "modelled_equal_to_pysim": True,
+          "tolerance": 0, "panels": out,
+          "seconds": round(time.time() - t_phase, 1)})
+
+
 def measured_rates(torch, dev):
     """The card's bf16 GEMM rate (8192^3, CUDA events) and HBM copy rate
     (a 2 GiB device-to-device copy: read and write counted), beside the
@@ -3974,16 +4371,19 @@ def main():
 
     phase_build()
     dry = start_dryrun() if "dryrun" in args.only else []
+    sims = start_panels() if "panels" in args.only else []
     try:
-        return run_phases(torch, dev, args, smi, t_start, dry)
+        return run_phases(torch, dev, args, smi, t_start, dry, sims)
     finally:
-        for _, _, proc, _ in dry:         # stop what a failed run left
+        procs = [proc for _, _, proc, _ in dry] + \
+            [times["proc"] for _, _, times in sims if "proc" in times]
+        for proc in procs:                # stop what a failed run left
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
 
-def run_phases(torch, dev, args, smi, t_start, dry):
+def run_phases(torch, dev, args, smi, t_start, dry, sims):
     """Every phase of ``args.only`` in order; returns the exit code."""
     errs = dict.fromkeys(REPLACES, 0.0)
     kernels = []
@@ -3993,8 +4393,25 @@ def run_phases(torch, dev, args, smi, t_start, dry):
         from repro_torch.configs.registry import FASE_ROCKET_PCIE
         latency = phase_latency(torch, dev, FASE_ROCKET_PCIE["mem_bytes"] // 8)
     walk_launches = None
+    cluster_timing = None
     if "chunk" in args.only:
-        walk_launches = phase_chunk(torch)
+        walk_launches, cluster_launches = phase_chunk(torch)
+        timing = cluster_timing = time_cluster(torch)
+        for name, n in zip(("run_chunk_cluster", "run_chunk_trace_cluster"),
+                           cluster_launches):
+            t = timing[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": n,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "us_per_substep": t["us_per_substep"], "shape": t["shape"],
+                "note": "the cluster instantiation of run_chunk "
+                        "(run_chunk_kernel<TRACE, true, true>): a board "
+                        "past one CTA; launches are the cluster_boards "
+                        "runs' (500 and 1025 cores, and 512 at "
+                        "cta_lanes 32), one a chunk"})
     if "full" in args.only:
         launches, t, c = phase_full(torch, args.scale,
                                     errs["walk_fetch_block"], latency,
@@ -4026,6 +4443,8 @@ def run_phases(torch, dev, args, smi, t_start, dry):
                     "run_chunk"})
     if "coremark" in args.only:
         phase_coremark(torch)
+    if "panels" in args.only:
+        phase_panels(torch, sims)
     if "telemetry" in args.only:
         launches, c = phase_telemetry(torch, args.scale, latency)
         kernels.append({
@@ -4047,7 +4466,7 @@ def run_phases(torch, dev, args, smi, t_start, dry):
                     "reference's substep; launches are the full-width armed "
                     "run's, one a chunk"})
     if "fleet" in args.only:
-        launches, c = phase_fleet(torch, latency)
+        launches, c, cluster_launches = phase_fleet(torch, latency)
         kernels.append({
             "name": "run_chunk_fleet", "route": "cuda",
             "source": SOURCES["run_chunk_fleet"],
@@ -4061,6 +4480,21 @@ def run_phases(torch, dev, args, smi, t_start, dry):
             "note": "no pallas_call: the reference's flat-fleet loop, one "
                     "CTA a board; launches are the full-width gang's and "
                     "run_synchronous's, one a global chunk"})
+        t = (cluster_timing or time_cluster(torch))["run_chunk_fleet_cluster"]
+        kernels.append({
+            "name": "run_chunk_fleet_cluster", "route": "cuda",
+            "source": SOURCES["run_chunk_fleet_cluster"],
+            "replaces": REPLACES["run_chunk_fleet_cluster"],
+            "launches": cluster_launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "us_per_substep": t["us_per_substep"],
+            "shape": t["shape"],
+            "note": "the cluster instantiation of the fleet kernel "
+                    "(run_chunk_fleet_kernel<true, true>): one cluster a "
+                    "board past one CTA; launches are the 2 x 500-core "
+                    "fleet's and the 2 x 288-core one's at cta_lanes 32, "
+                    "one a global chunk"})
     if "serve" in args.only:
         launches, timing = phase_serve(torch, errs,
                                        args.out if args.profile else None)

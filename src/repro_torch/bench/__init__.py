@@ -13,9 +13,15 @@ from __future__ import annotations
 #: the runnable scripts, by module name, in the order
 #: ``python -m repro_torch.bench`` lists them
 SCRIPTS = ("decode_kernels", "paged_attention_timeline", "port_kernels",
-           "dryrun_sweep")
+           "dryrun_sweep",
+           # the paper's FASE panels (twins of the reference's benchmarks)
+           "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
+           "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
+           "arg_prefetch")
+#: the FASE panels of :data:`SCRIPTS`, in the paper's order
+PANELS = SCRIPTS[4:]
 #: modules of this package that are not scripts
-EXCLUDED = frozenset(("__main__", "timing"))
+EXCLUDED = frozenset(("__main__", "timing", "panels"))
 
 
 def audit() -> None:

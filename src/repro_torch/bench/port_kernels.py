@@ -5,8 +5,10 @@ q (1, 4096, 32, 128), K/V 8 heads, bf16, causal), and with jamba's 8192
 window at its prefill shape (q (1, 16 384, 32, 128)) where the tree's
 kernel takes a window; the chunk kernel at the full-width run's shape
 (``FASE_ROCKET_PCIE``: 4 cores, 64 MiB, issue width 8) on a loop
-without system calls (``timing.loop_target``), and on boards of 40
-and 64 cores where the tree's kernel takes them.  With ``--src DIR`` it
+without system calls (``timing.loop_target``), and on boards of 40,
+64 and 384 cores (one CTA) and of 500, 1 025, 3 072 and 6 144 cores (a
+cluster of 2, 3, 8 and 16 CTAs of 384) where the tree's kernel takes
+them.  With ``--src DIR`` it
 times the ``repro_torch`` package under ``DIR`` (for instance an unpacked
 earlier commit, whose kernels it builds into ``DIR/build``)::
 
@@ -33,7 +35,7 @@ from . import timing as S
 
 TRAIN_SHAPE = (1, 4096, 32, 8, 128)
 WINDOW_SHAPE, WINDOW = (1, 16384, 32, 8, 128), 8192
-WIDE = (40, 64)
+WIDE = (40, 64, 384, 500, 1025, 3072, 6144)
 CHUNKS = 50
 
 
@@ -111,8 +113,11 @@ def main():
         try:
             tgt = S.loop_target(torch, nc, 1 << 21, **opts)
             res[f"chunk_{nc}"] = chunk_times(torch, tgt)
-        except ValueError as e:                  # a tree of one warp
-            res[f"chunk_{nc}"] = f"refused: {e}"[:120]
+        except ValueError as e:   # a tree of one warp, or of one CTA
+            res[f"chunk_{nc}"] = f"refused: {e}"[:160]
+        except RuntimeError as e:               # a launch the card refused
+            res[f"chunk_{nc}"] = f"failed: {e}"[:160]
+        tgt = None
     print(json.dumps(res), flush=True)
     return 0
 

@@ -26,7 +26,7 @@
 // memory -- with the same rule: the lowest conflicting lane still bounds
 // the prefix, so the commit order stays the eager loop's.  The shared
 // memory a board needs (its register files, TLB and fetch slots) must fit
-// one CTA's 227 KB; the wrapper refuses a board that does not.  Architectural state lives in registers
+// one CTA's 227 KB.  Architectural state lives in registers
 // (the register file in shared memory, indexed by rs1/rs2/rd) and is
 // loaded once and written back once per launch.  The fetch-block cache and
 // the data TLB are rebuilt empty in shared memory at every launch: the
@@ -38,6 +38,26 @@
 // substep's reads come after a further __syncwarp, which orders the stores
 // before them.  Loads of the image go through the coherent path (see
 // page_walk.cuh).
+//
+// A board past one CTA (more than cta_lanes cores, the launch's argument:
+// by default the most whole warps whose shared memory fits 227 KB, 384 at
+// 8 TLB ways and 16-word blocks) runs on a thread-block cluster of
+// ceil(n / cta_lanes) CTAs of cta_lanes threads (chunk_body<TRACE, true,
+// true>): core l is thread l % cta_lanes of cluster rank l / cta_lanes, and
+// each CTA keeps its own cores' register files, TLB and fetch slots in its
+// own shared memory.  Each CTA-wide step gains a second level: the CTA's
+// summary of a site (any, lowest lane, u64 minimum, maximum) is written by
+// thread r into a slot of rank r through distributed shared memory, and
+// after one cluster barrier every thread reads the ranks' slots locally.
+// The conflict test and the kills read the committing lanes' ballot words
+// and store words from the rank that owns them.  Every barrier of the
+// board is then barrier.cluster.arrive.release / wait.acquire: the CTAs
+// sit on different SMs with their own L1s, and a lane's commit to the
+// image reaches another CTA's next read only through that pair.  The
+// lowest conflicting lane across the cluster still bounds the prefix, so
+// the commit order stays the eager loop's.  A cluster holds at most
+// CLUSTER_MAX = 16 CTAs (8 on every card, 16 where the card schedules a
+// non-portable cluster of that size: run_chunk_max_cluster asks it).
 //
 // The fleet.  run_chunk_fleet_launch runs one global chunk of D boards
 // (src/repro/core/target/cpu.py:1180-1255, run_chunk_fleet; its plain
@@ -52,7 +72,10 @@
 // issue_width substeps as the flat loop tests it, leaves its board as the
 // flat loop does.  A CTA whose budget is 0 returns before it reads or writes
 // any state: the board is untouched, bit for bit.  A board of more than 32
-// cores runs on the CTA-wide instantiation, as in run_chunk.
+// cores runs on the CTA-wide instantiation, as in run_chunk, and a board
+// past cta_lanes on a cluster: the grid is then D clusters, cluster d board
+// d, and every rank of a board of budget 0 returns before its first
+// cluster barrier.
 //
 // The commit-trace ring (src/repro/core/target/cpu.py:1021-1060, the
 // `if trace_on:` block of _exec_substep).  chunk_body is a template on
@@ -85,6 +108,10 @@ namespace {
 
 constexpr int LANES_MAX = 1024;      // one CTA's threads
 constexpr int WARP_LANES = 32;       // above this, the CTA-wide steps
+constexpr int CLUSTER_PORTABLE = 8;  // CTAs a cluster on every sm_90 card
+constexpr int CLUSTER_MAX = 16;      // with the non-portable size allowed
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of one CTA
+constexpr unsigned NO_LANE = 0xffffffffu;  // a cluster site: no lane holds
 constexpr unsigned FULL = 0xffffffffu;
 constexpr u64 RES_INVALID = ~0ull;
 constexpr u64 M32 = 0xFFFFFFFFull;
@@ -239,6 +266,58 @@ __device__ __forceinline__ u64 alu32(u64 f3, bool is_sub, bool is_sra,
   return sx(v & M32, 32);
 }
 
+// ---- the cluster of a board past one CTA -----------------------------------
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ int cl_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cl_ranks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return (int)r;
+}
+// every thread of the cluster; release / acquire order each CTA's global
+// and shared stores before any other CTA's accesses after the barrier
+__device__ __forceinline__ void cl_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n\t"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// `p`, an address in this CTA's shared memory, in rank `r`'s
+template <typename T>
+__device__ __forceinline__ T* cl_map(T* p, int r) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(a) : "l"(p), "r"(r));
+  return (T*)a;
+}
+#elif !defined(__CUDACC__)  // g++ under the CPU emulation of tests/cuda_shim
+inline int cl_rank() { return (int)cuda_shim::cluster_rank(); }
+inline int cl_ranks() { return (int)cuda_shim::cluster_ranks(); }
+inline void cl_sync() { cuda_shim::cluster_sync(); }
+template <typename T>
+inline T* cl_map(T* p, int r) {
+  return cuda_shim::map_shared_rank(p, (unsigned)r);
+}
+#else  // nvcc's host pass: declarations only
+__device__ int cl_rank();
+__device__ int cl_ranks();
+__device__ void cl_sync();
+template <typename T>
+__device__ T* cl_map(T* p, int r);
+#endif
+
+// rank `r`'s copy of the shared array `p`: through distributed shared
+// memory on a cluster, `p` itself on one CTA (a cluster of one rank)
+template <bool CLUSTER, typename T>
+__device__ __forceinline__ T* at_rank(T* p, int r) {
+  if constexpr (CLUSTER)
+    return cl_map(p, r);
+  else
+    return p;
+}
+
 __device__ __forceinline__ u64 warp_umin(u64 v) {
   for (int o = 16; o > 0; o >>= 1) v = umin(v, __shfl_xor_sync(FULL, v, o));
   return v;
@@ -249,7 +328,10 @@ __device__ __forceinline__ u64 warp_umin(u64 v) {
 // site, one u64 a warp for each of the two reductions, and each thread's
 // store word (what the conflict test and the kills compare).  A site is used
 // once a substep; the substep's closing __syncthreads separates its reads
-// from the next substep's writes.
+// from the next substep's writes.  On a cluster the scratch also holds each
+// rank's summary of the two reductions and of each site (one slot a rank,
+// written by that rank), and the barriers between a site's uses are the
+// cluster's.
 enum Site { S_GO, S_GATE, S_ACTIVE, S_COMMITS0, S_CONFS, S_COMMITS, S_DEFS,
             S_CAND, S_RUNNABLE, SITES };
 
@@ -258,6 +340,11 @@ struct Cross {
   u64* red;          // [2][32]: the minimum's, then the maximum's
   u64* stw;          // [threads]
   int warps;
+  u64* cred;         // cluster: [2][CLUSTER_MAX], each rank's reductions
+  unsigned* cw;      // cluster: [SITES][CLUSTER_MAX], each rank's summaries
+  int rank;          // cluster: this CTA's rank, the ranks, its first lane
+  int ranks;
+  int base;
 };
 
 __host__ __device__ constexpr size_t align8(size_t b) {
@@ -266,6 +353,30 @@ __host__ __device__ constexpr size_t align8(size_t b) {
 
 __host__ __device__ constexpr size_t cross_bytes(int threads) {
   return (size_t)SITES * 32 * 4 + 2 * 32 * 8 + (size_t)threads * 8;
+}
+
+__host__ __device__ constexpr size_t cluster_slot_bytes() {
+  return (size_t)2 * CLUSTER_MAX * 8 + (size_t)SITES * CLUSTER_MAX * 4;
+}
+
+// Cluster: this CTA's summary `v` of site `s` goes to slot [s][rank] of
+// every rank (thread r writes rank r's); after the cluster barrier the
+// ranks' slots of the site, read locally.  The barriers of the substep
+// separate a slot's reads from its next write.
+__device__ __forceinline__ const unsigned* cl_gather(const Cross& x, int s,
+                                                     unsigned v) {
+  if ((int)threadIdx.x < x.ranks)
+    cl_map(x.cw, (int)threadIdx.x)[s * CLUSTER_MAX + x.rank] = v;
+  cl_sync();
+  return x.cw + s * CLUSTER_MAX;
+}
+
+__device__ __forceinline__ const u64* cl_gather64(const Cross& x, int s,
+                                                  u64 v) {
+  if ((int)threadIdx.x < x.ranks)
+    cl_map(x.cred, (int)threadIdx.x)[s * CLUSTER_MAX + x.rank] = v;
+  cl_sync();
+  return x.cred + s * CLUSTER_MAX;
 }
 
 // this warp's ballot of `pred` into site `s`, after the CTA has written its
@@ -279,64 +390,110 @@ __device__ __forceinline__ const unsigned* cta_ballot(const Cross& x, int s,
   return w;
 }
 
+template <bool CLUSTER>
 __device__ __forceinline__ bool cta_any(const Cross& x, int s, bool pred) {
   const unsigned* w = cta_ballot(x, s, pred);
   unsigned a = 0;
   for (int i = 0; i < x.warps; ++i) a |= w[i];
+  if constexpr (CLUSTER) {
+    const unsigned* c = cl_gather(x, s, a);
+    for (int r = 0; r < x.ranks; ++r) a |= c[r];
+  }
   return a != 0;
 }
 
 // the lowest lane whose `pred` holds, or `none`
+template <bool CLUSTER>
 __device__ __forceinline__ int cta_lowest(const Cross& x, int s, bool pred,
                                           int none) {
   const unsigned* w = cta_ballot(x, s, pred);
-  for (int i = 0; i < x.warps; ++i)
-    if (w[i]) return i * 32 + __ffs(w[i]) - 1;
-  return none;
+  if constexpr (CLUSTER) {
+    unsigned low = NO_LANE;
+    for (int i = 0; i < x.warps; ++i)
+      if (w[i]) {
+        low = (unsigned)(x.base + i * 32 + __ffs(w[i]) - 1);
+        break;
+      }
+    const unsigned* c = cl_gather(x, s, low);
+    for (int r = 0; r < x.ranks; ++r) low = c[r] < low ? c[r] : low;
+    return low == NO_LANE ? none : (int)low;
+  } else {
+    for (int i = 0; i < x.warps; ++i)
+      if (w[i]) return i * 32 + __ffs(w[i]) - 1;
+    return none;
+  }
 }
 
+template <bool CLUSTER>
 __device__ __forceinline__ u64 cta_umin(const Cross& x, u64 v) {
   v = warp_umin(v);
   if ((threadIdx.x & 31) == 0) x.red[threadIdx.x >> 5] = v;
   __syncthreads();
   u64 r = ~0ull;
   for (int i = 0; i < x.warps; ++i) r = umin(r, x.red[i]);
+  if constexpr (CLUSTER) {
+    const u64* c = cl_gather64(x, 0, r);
+    for (int k = 0; k < x.ranks; ++k) r = umin(r, c[k]);
+  }
   return r;
 }
 
+template <bool CLUSTER>
 __device__ __forceinline__ unsigned cta_max(const Cross& x, unsigned v) {
   v = __reduce_max_sync(FULL, v);
   if ((threadIdx.x & 31) == 0) x.red[32 + (threadIdx.x >> 5)] = v;
   __syncthreads();
   unsigned r = 0;
   for (int i = 0; i < x.warps; ++i) r = max(r, (unsigned)x.red[32 + i]);
+  if constexpr (CLUSTER) {
+    const u64* c = cl_gather64(x, 1, r);
+    for (int k = 0; k < x.ranks; ++k) r = max(r, (unsigned)c[k]);
+  }
   return r;
 }
 
-// any lane's `pred`: a ballot of the warp, or across the CTA at site `s`
-template <bool MULTI>
+// any lane's `pred`: a ballot of the warp, or across the CTA (or cluster)
+// at site `s`
+template <bool MULTI, bool CLUSTER>
 __device__ __forceinline__ bool team_any(const Cross& x, int s, bool pred) {
-  if constexpr (MULTI) return cta_any(x, s, pred);
+  if constexpr (MULTI) return cta_any<CLUSTER>(x, s, pred);
   else return __ballot_sync(FULL, pred) != 0;
 }
 
 // orders every lane's memory accesses before the next step's
-template <bool MULTI>
+template <bool MULTI, bool CLUSTER>
 __device__ __forceinline__ void team_sync() {
-  if constexpr (MULTI) __syncthreads();
+  if constexpr (CLUSTER) cl_sync();
+  else if constexpr (MULTI) __syncthreads();
   else __syncwarp();
 }
 
 // The chunk loop of one target (one board of a fleet), run by the calling
-// CTA: one warp, or with MULTI ceil(nc / 32) warps; with TRACE it records
-// the commit-trace ring.
-template <bool TRACE, bool MULTI>
+// CTA: one warp, or with MULTI ceil(nc / 32) warps, or with CLUSTER (and
+// MULTI) the CTAs of the calling cluster; with TRACE it records the
+// commit-trace ring.
+template <bool TRACE, bool MULTI, bool CLUSTER>
 __device__ __forceinline__ void chunk_body(const Params& p) {
+#ifdef __CUDACC__
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x;
-  const int wl = MULTI ? (lane & 31) : lane;     // lane within its warp
-  const int wbase = MULTI ? lane - wl : 0;       // its warp's first lane
+#else  // each emulated CTA of a cluster has its own (tests/cuda_shim)
+  unsigned char* const smem = cuda_shim::cta_smem();
+#endif
+  static_assert(MULTI || !CLUSTER, "a cluster runs the CTA-wide steps");
+  // `tid` indexes the CTA's shared memory, `lane` the board's cores: on a
+  // cluster, rank r holds lanes r * blockDim.x to (r + 1) * blockDim.x - 1
+  const int tid = threadIdx.x;
+  Cross x{};
+  if constexpr (CLUSTER) {
+    x.rank = cl_rank();
+    x.ranks = cl_ranks();
+    x.base = x.rank * (int)blockDim.x;
+  }
+  const int lane = CLUSTER ? x.base + tid : tid;
+  const int wl = MULTI ? (tid & 31) : tid;       // lane within its warp
+  const int wbase = MULTI ? tid - wl : 0;        // its warp's first thread
   const int nc = p.nc;
+  const int nl = CLUSTER ? (int)blockDim.x : nc; // cores in shared memory
   const bool on = lane < nc;
   const u64 mask = p.mask;
   const int bw = p.block_words;
@@ -346,24 +503,27 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   // shared memory: the register file, the data TLB (tag, ppn, perms and
   // backing PTE word per way), then the fetch blocks' slots
   u64* const regs_sh = (u64*)smem;
-  u64* const tlb_vpn = regs_sh + nc * 32;
-  u64* const tlb_ppn = tlb_vpn + nc * ways;
-  u64* const tlb_perm = tlb_ppn + nc * ways;
-  u64* const tlb_ptw = tlb_perm + nc * ways;
-  unsigned* const slots_sh = (unsigned*)(tlb_ptw + nc * ways);
-  u64* const R = regs_sh + lane * 32;
-  u64* const TV = tlb_vpn + lane * ways;
-  u64* const TP = tlb_ppn + lane * ways;
-  u64* const TM = tlb_perm + lane * ways;
-  u64* const TW = tlb_ptw + lane * ways;
-  Cross x{};
+  u64* const tlb_vpn = regs_sh + nl * 32;
+  u64* const tlb_ppn = tlb_vpn + nl * ways;
+  u64* const tlb_perm = tlb_ppn + nl * ways;
+  u64* const tlb_ptw = tlb_perm + nl * ways;
+  unsigned* const slots_sh = (unsigned*)(tlb_ptw + nl * ways);
+  u64* const R = regs_sh + tid * 32;
+  u64* const TV = tlb_vpn + tid * ways;
+  u64* const TP = tlb_ppn + tid * ways;
+  u64* const TM = tlb_perm + tid * ways;
+  u64* const TW = tlb_ptw + tid * ways;
   if constexpr (MULTI) {
     unsigned char* const c = smem + align8((unsigned char*)(slots_sh +
-                                                   nc * bw) - smem);
+                                                   nl * bw) - smem);
     x.words = (unsigned*)c;
     x.red = (u64*)(c + SITES * 32 * 4);
     x.stw = x.red + 2 * 32;
     x.warps = (int)(blockDim.x >> 5);
+    if constexpr (CLUSTER) {
+      x.cred = x.stw + blockDim.x;
+      x.cw = (unsigned*)(x.cred + 2 * CLUSTER_MAX);
+    }
   }
 
   // ---- state in: once per launch ------------------------------------------
@@ -403,8 +563,8 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   }
   u64 ticks = *p.ticks;
   const bool active = on && priv != 3;       // priv is not written here
-  const bool any_active = team_any<MULTI>(x, S_ACTIVE, active);
-  team_sync<MULTI>();
+  const bool any_active = team_any<MULTI, CLUSTER>(x, S_ACTIVE, active);
+  team_sync<MULTI, CLUSTER>();
 
   long long cycles = 0;
   int exec_from = 0;
@@ -412,11 +572,12 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   long long trips = 0;
   while (true) {
     // the loop predicate of cpu.py:631-632, tested every issue_width
-    const bool go = (cycles < p.limit && !team_any<MULTI>(x, S_GO, pending) &&
+    const bool go = (cycles < p.limit &&
+                     !team_any<MULTI, CLUSTER>(x, S_GO, pending) &&
                      any_active) || exec_from > 0;
     if (!go) break;
     for (int it = 0; it < p.issue_width; ++it) {
-      const bool gate = !team_any<MULTI>(x, S_GATE, pending) &&
+      const bool gate = !team_any<MULTI, CLUSTER>(x, S_GATE, pending) &&
                         cycles < p.limit;
       const u64 budget_left = (u64)(p.limit - cycles);
       const bool cont = exec_from > 0;
@@ -441,7 +602,7 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
         // slot 0 is gathered on a fault too, from pa 0 (the plain version)
         inst = pw::fetch_slot(mem, fw.pa, 0, mask);
       } else if (hit) {
-        inst = slots_sh[lane * bw + ((off >> 2) & (u64)(bw - 1))];
+        inst = slots_sh[tid * bw + ((off >> 2) & (u64)(bw - 1))];
       }
       const bool ifault = fw.fault;
       const u64 ipa = hit ? fb_pbase + off : fw.pa;
@@ -599,21 +760,30 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       // lambdas with the CTA-wide ones cost the one-warp kernel 6
       // registers and 4 % of its time a substep on an H100)
       if constexpr (MULTI) {
-        x.stw[lane] = stw;               // published by the ballot's barrier
+        x.stw[tid] = stw;      // published by the ballot's barrier
         const unsigned* cw = cta_ballot(x, S_COMMITS0, commit0);
+        if constexpr (CLUSTER)
+          cl_sync();     // every rank's words and store words, cluster-wide
+        const int me = CLUSTER ? x.rank : 0;
         if (cand)
-          for (int w = 0; w <= (lane >> 5); ++w)
-            for (unsigned m = cw[w]; m; m &= m - 1) {
-              const int i = w * 32 + __ffs(m) - 1;
-              if (i >= lane) break;
-              const u64 si = x.stw[i];
-              conf = conf || si == r_inst || si == r_data ||
-                     si == fw.words[0] || si == fw.words[1] ||
-                     si == fw.words[2] || si == dw.words[0] ||
-                     si == dw.words[1] || si == dw.words[2] ||
-                     (commit0 && si == stw) || si == res_word;
-            }
-        first_conf = cta_lowest(x, S_CONFS, conf, LANES_MAX);
+          for (int r = 0; r <= me; ++r) {
+            const unsigned* rw = at_rank<CLUSTER>(cw, r);
+            const u64* rs = at_rank<CLUSTER>(x.stw, r);
+            const int last = r < me ? x.warps - 1 : tid >> 5;
+            for (int w = 0; w <= last; ++w)
+              for (unsigned m = rw[w]; m; m &= m - 1) {
+                const int il = w * 32 + __ffs(m) - 1;
+                if (r == me && il >= tid) break;
+                const u64 si = rs[il];
+                conf = conf || si == r_inst || si == r_data ||
+                       si == fw.words[0] || si == fw.words[1] ||
+                       si == fw.words[2] || si == dw.words[0] ||
+                       si == dw.words[1] || si == dw.words[2] ||
+                       (commit0 && si == stw) || si == res_word;
+              }
+          }
+        first_conf = cta_lowest<CLUSTER>(x, S_CONFS, conf,
+                                         CLUSTER ? 1 << 30 : LANES_MAX);
       } else {
         const unsigned commits0 = __ballot_sync(FULL, commit0);
         for (unsigned m = commits0; m; m &= m - 1) {
@@ -640,7 +810,8 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
         commits = __ballot_sync(FULL, commit);
 
       // ---- phase 2: the prefix commits -------------------------------------
-      team_sync<MULTI>();
+      // (on a cluster this barrier also publishes the S_COMMITS words)
+      team_sync<MULTI, CLUSTER>();
       if (commit) {
         const u64 sval = (is_store || is_sc) ? b : amo_new;
         const u64 wmask = sizemask << dshift;
@@ -665,18 +836,23 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       bool inv = false;
       bool kill = false;
       if constexpr (MULTI) {
-        for (int w = 0; w < x.warps; ++w)
-          for (unsigned m = kwords[w]; m; m &= m - 1) {
-            const int i = w * 32 + __ffs(m) - 1;
-            const u64 si = x.stw[i];
-            inv = inv || (i != lane && si == sra(own, 3));
-            const long long sb = (long long)(si << 3);
-            kill = kill || (sb + 8 > (long long)fb_pbase &&
-                            sb < (long long)(fb_pbase + fb_nbytes));
-            if (on)
-              for (int w2 = 0; w2 < ways; ++w2)
-                if (TW[w2] == si) TV[w2] = pw::NO_WORD;
-          }
+        for (int r = 0; r < (CLUSTER ? x.ranks : 1); ++r) {
+          const unsigned* rw = at_rank<CLUSTER>(kwords, r);
+          const u64* rs = at_rank<CLUSTER>(x.stw, r);
+          for (int w = 0; w < x.warps; ++w)
+            for (unsigned m = rw[w]; m; m &= m - 1) {
+              const int il = w * 32 + __ffs(m) - 1;
+              const int i = CLUSTER ? r * (int)blockDim.x + il : il;
+              const u64 si = rs[il];
+              inv = inv || (i != lane && si == sra(own, 3));
+              const long long sb = (long long)(si << 3);
+              kill = kill || (sb + 8 > (long long)fb_pbase &&
+                              sb < (long long)(fb_pbase + fb_nbytes));
+              if (on)
+                for (int w2 = 0; w2 < ways; ++w2)
+                  if (TW[w2] == si) TV[w2] = pw::NO_WORD;
+            }
+        }
       } else {
         for (unsigned m = commits; m; m &= m - 1) {
           const int i = __ffs(m) - 1;
@@ -728,22 +904,22 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
       unsigned defs;      // nonzero iff some lane deferred
       int first_def = 0;  // MULTI: the lowest deferred lane
       if constexpr (MULTI) {
-        first_def = cta_lowest(x, S_DEFS, deferred, -1);
+        first_def = cta_lowest<CLUSTER>(x, S_DEFS, deferred, -1);
         defs = first_def >= 0;
       } else {
         defs = __ballot_sync(FULL, deferred);
       }
-      const bool started = team_any<MULTI>(x, S_CAND, cand) || cont;
+      const bool started = team_any<MULTI, CLUSTER>(x, S_CAND, cand) || cont;
       const bool tick_done = started && !defs;
       const bool skip = gate && !cont &&
-                        !team_any<MULTI>(x, S_RUNNABLE, runnable) &&
+                        !team_any<MULTI, CLUSTER>(x, S_RUNNABLE, runnable) &&
                         any_active;
       const u64 wait = stall - ticks;
       u64 dticks = tick_done ? 1 : 0;
       if (skip) {         // uniform: every lane of the CTA takes this branch
         const u64 gap = active ? wait : ~0ull;
         if constexpr (MULTI)
-          dticks = umin(cta_umin(x, gap), budget_left);
+          dticks = umin(cta_umin<CLUSTER>(x, gap), budget_left);
         else
           dticks = umin(warp_umin(gap), budget_left);
       }
@@ -797,10 +973,10 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
         chain += (fw.words[k] != pw::NO_WORD) + (dw.words[k] != pw::NO_WORD);
       chain += miss;
       if constexpr (MULTI)
-        trips += cta_max(x, (unsigned)chain);
+        trips += cta_max<CLUSTER>(x, (unsigned)chain);
       else
         trips += __reduce_max_sync(FULL, (unsigned)chain);
-      team_sync<MULTI>();    // the commits land before the next reads
+      team_sync<MULTI, CLUSTER>();  // the commits land before the next reads
     }
     substeps += p.issue_width;
   }
@@ -830,22 +1006,25 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
     p.out[0] = substeps;
     p.out[1] = trips;
   }
+  // no rank leaves while another may still reach into its shared memory
+  if constexpr (CLUSTER) cl_sync();
 }
 
-template <bool TRACE, bool MULTI>
+template <bool TRACE, bool MULTI, bool CLUSTER = false>
 __global__ void __launch_bounds__(MULTI ? LANES_MAX : WARP_LANES, 1)
     run_chunk_kernel(Params p) {
-  chunk_body<TRACE, MULTI>(p);
+  chunk_body<TRACE, MULTI, CLUSTER>(p);
 }
 
-// CTA d runs board d: `p` points at board 0's slice of every stacked field
-// and at the image of board 0 (`words` u64 words a board), `budgets` holds
-// the boards' limits, `p.out` is (D, 2).
-template <bool MULTI>
+// CTA d (with CLUSTER, cluster d) runs board d: `p` points at board 0's
+// slice of every stacked field and at the image of board 0 (`words` u64
+// words a board), `budgets` holds the boards' limits, `p.out` is (D, 2).
+template <bool MULTI, bool CLUSTER = false>
 __global__ void __launch_bounds__(MULTI ? LANES_MAX : WARP_LANES, 1)
     run_chunk_fleet_kernel(Params p, const long long* budgets,
                            long long words) {
-  const int d = blockIdx.x;
+  int d = blockIdx.x;
+  if constexpr (CLUSTER) d /= cl_ranks();
   const long long limit = budgets[d];
   p.out += 2 * d;
   if (limit == 0) {               // the board stays untouched, bit for bit
@@ -872,7 +1051,7 @@ __global__ void __launch_bounds__(MULTI ? LANES_MAX : WARP_LANES, 1)
   p.fetch_hits += c;
   p.fetch_walks += c;
   p.tlb_walks += c;
-  chunk_body<false, MULTI>(p);
+  chunk_body<false, MULTI, CLUSTER>(p);
 }
 
 // One thread follows `steps` links of `next` from `start` (the measure of
@@ -932,6 +1111,59 @@ Params make_params(void* mem, void* regs, void* pc, void* priv,
 // threads of a CTA for a board of `lanes` cores: whole warps
 int cta_threads(int lanes) { return (lanes + 31) / 32 * 32; }
 
+// shared memory of `lanes` cores' register files, TLB and fetch slots
+size_t board_bytes(int lanes, int block_words, int ways) {
+  return (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
+         (size_t)lanes * block_words * 4;
+}
+
+// shared memory of `lanes` cores in one CTA: past 32, the CTA-wide scratch
+size_t cta_smem(int lanes, int block_words, int ways) {
+  const size_t b = board_bytes(lanes, block_words, ways);
+  if (lanes <= WARP_LANES) return b;
+  return align8(b) + cross_bytes(cta_threads(lanes));
+}
+
+// shared memory of one rank of a cluster of `cta_lanes` threads a CTA
+size_t cluster_smem(int cta_lanes, int block_words, int ways) {
+  return align8(board_bytes(cta_lanes, block_words, ways)) +
+         cross_bytes(cta_lanes) + cluster_slot_bytes();
+}
+
+// the dynamic shared memory a kernel may take, and past 8 CTAs a cluster
+// the non-portable size
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem, int ranks) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (ranks > CLUSTER_PORTABLE)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return cudaSuccess;
+}
+
+// a grid of `clusters` clusters of `ranks` CTAs of `threads` threads
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int clusters, int ranks, int threads, size_t smem,
+                void* stream) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)(clusters * ranks));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 template <bool TRACE, bool MULTI>
 int launch_chunk(const Params& p, size_t smem, void* stream) {
   if (smem > 48 * 1024) {
@@ -951,8 +1183,26 @@ int launch_chunk(const Params& p, size_t smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// a board past one CTA: one cluster of ceil(nc / cta_lanes) ranks
 template <bool TRACE>
-int launch_chunk(const Params& p, size_t smem, void* stream) {
+int launch_cluster(const Params& p, int cta_lanes, int block_words,
+                   int ways, void* stream) {
+  const int ranks = (p.nc + cta_lanes - 1) / cta_lanes;
+  const size_t smem = cluster_smem(cta_lanes, block_words, ways);
+  cudaError_t e = prepare(run_chunk_kernel<TRACE, true, true>, smem, ranks);
+  if (e != cudaSuccess) return (int)e;
+  ClusterLaunch l(1, ranks, cta_lanes, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, run_chunk_kernel<TRACE, true, true>, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool TRACE>
+int launch_chunk(const Params& p, int cta_lanes, int block_words, int ways,
+                 void* stream) {
+  if (p.nc > WARP_LANES && p.nc > cta_lanes)
+    return launch_cluster<TRACE>(p, cta_lanes, block_words, ways, stream);
+  const size_t smem = cta_smem(p.nc, block_words, ways);
   return p.nc > WARP_LANES ? launch_chunk<TRACE, true>(p, smem, stream)
                            : launch_chunk<TRACE, false>(p, smem, stream);
 }
@@ -978,27 +1228,90 @@ int launch_fleet(const Params& p, int boards, const long long* budgets,
   return (int)cudaGetLastError();
 }
 
+// boards past one CTA: one cluster a board
+int launch_fleet_cluster(const Params& p, int boards,
+                         const long long* budgets, long long words,
+                         int cta_lanes, int block_words, int ways,
+                         void* stream) {
+  const int ranks = (p.nc + cta_lanes - 1) / cta_lanes;
+  const size_t smem = cluster_smem(cta_lanes, block_words, ways);
+  cudaError_t e = prepare(run_chunk_fleet_kernel<true, true>, smem, ranks);
+  if (e != cudaSuccess) return (int)e;
+  ClusterLaunch l(boards, ranks, cta_lanes, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, run_chunk_fleet_kernel<true, true>, p,
+                         budgets, words);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the launch's cores a CTA: a multiple of 32, at most LANES_MAX, whose
+// cluster rank fits SMEM_MAX
+bool cta_lanes_ok(int cta_lanes, int block_words, int ways) {
+  return cta_lanes >= WARP_LANES && cta_lanes <= LANES_MAX &&
+         cta_lanes % WARP_LANES == 0 &&
+         cluster_smem(cta_lanes, block_words, ways) <= SMEM_MAX;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory a launch needs for `lanes` cores: the register files, the
-// data TLB, the fetch slots and, past 32 cores, the CTA-wide scratch.
+// Shared memory a launch needs for `lanes` cores in one CTA: the register
+// files, the data TLB, the fetch slots and, past 32 cores, the CTA-wide
+// scratch.
 size_t run_chunk_smem_bytes(int lanes, int block_words, int ways) {
-  const size_t b = (size_t)lanes * (32 + 4 * (size_t)ways) * 8 +
-                   (size_t)lanes * block_words * 4;
-  if (lanes <= WARP_LANES) return b;
-  return align8(b) + cross_bytes(cta_threads(lanes));
+  return cta_smem(lanes, block_words, ways);
 }
 
-// Runs one chunk on `stream` (one CTA of ceil(lanes / 32) warps) and returns
-// cudaGetLastError() (0 on success); does not synchronise and allocates
-// nothing.  Pointers are the CpuState fields in STATE_FIELDS order, then
-// the commit-trace ring, trace_n and trace_armed.  trace_on picks the
-// traced instantiation, which records the ring (`slots` rows a core) under
-// the gate trig_kind (TRIG_*) with its values trig_a / trig_b; the
-// untraced one never touches the ring.
+// Shared memory of each CTA of a cluster of `cta_lanes` threads a CTA:
+// its cores' register files, TLB and fetch slots, the CTA-wide scratch and
+// the ranks' summary slots.
+size_t run_chunk_cluster_smem_bytes(int cta_lanes, int block_words,
+                                    int ways) {
+  return cluster_smem(cta_lanes, block_words, ways);
+}
+
+// The default cores a CTA of a cluster: the most whole warps, at most
+// LANES_MAX, whose cluster rank fits SMEM_MAX (0 if not one warp does).
+int run_chunk_cta_lanes(int block_words, int ways) {
+  for (int n = LANES_MAX; n >= WARP_LANES; n -= WARP_LANES)
+    if (cta_lanes_ok(n, block_words, ways)) return n;
+  return 0;
+}
+
+// The most CTAs of `cta_lanes` threads a cluster that the current device
+// schedules: the largest of CLUSTER_MAX, 8, 4 and 2 it finds room for,
+// else 1; a negative CUDA error code on failure.
+int run_chunk_max_cluster(int cta_lanes, int block_words, int ways) {
+  if (!cta_lanes_ok(cta_lanes, block_words, ways))
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(cta_lanes, block_words, ways);
+  for (int ranks = CLUSTER_MAX; ranks >= 2; ranks /= 2) {
+    cudaError_t e = prepare(run_chunk_kernel<false, true, true>, smem, ranks);
+    if (e != cudaSuccess) return -(int)e;
+    ClusterLaunch l(1, ranks, cta_lanes, smem, nullptr);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(
+        &clusters, run_chunk_kernel<false, true, true>, &l.cfg);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    if (clusters >= 1) return ranks;
+  }
+  return 1;
+}
+
+// Runs one chunk on `stream` and returns cudaGetLastError() (0 on
+// success), or the error of a launch the device refused; does not
+// synchronise and allocates nothing.  A board of at most 32 cores is one
+// warp, of at most `cta_lanes` one CTA, and past that a cluster of
+// ceil(lanes / cta_lanes) CTAs of cta_lanes threads (at most CLUSTER_MAX).
+// Pointers are the CpuState fields in STATE_FIELDS order, then the
+// commit-trace ring, trace_n and trace_armed.  trace_on picks the traced
+// instantiation, which records the ring (`slots` rows a core) under the
+// gate trig_kind (TRIG_*) with its values trig_a / trig_b; the untraced
+// one never touches the ring.
 int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
                      void* pending, void* stall_until, void* satp,
                      void* mcause, void* mepc, void* mtval, void* res,
@@ -1007,11 +1320,14 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
                      void* tlb_walks, void* out, u64 mask,
                      long long limit, int lanes, int issue_width,
                      int block_words, int block_cache, int ways,
-                     void* tracebuf, void* trace_n, void* trace_armed,
-                     long long slots, int trace_on, int trig_kind,
-                     int trig_disarm, u64 trig_a, u64 trig_b,
+                     int cta_lanes, void* tracebuf, void* trace_n,
+                     void* trace_armed, long long slots, int trace_on,
+                     int trig_kind, int trig_disarm, u64 trig_a, u64 trig_b,
                      void* stream) {
-  if (lanes <= 0 || lanes > LANES_MAX) return (int)cudaErrorInvalidValue;
+  if (lanes <= 0 || (lanes > WARP_LANES &&
+                     (!cta_lanes_ok(cta_lanes, block_words, ways) ||
+                      lanes > CLUSTER_MAX * cta_lanes)))
+    return (int)cudaErrorInvalidValue;
   if (trace_on && (slots <= 0 || trig_kind < TRIG_NONE ||
                    trig_kind > TRIG_INST))
     return (int)cudaErrorInvalidValue;
@@ -1020,8 +1336,8 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
       res, ticks, uticks, instret, stall_ticks, fetch_hits, fetch_walks,
       tlb_walks, out, mask, limit, lanes, issue_width, block_words,
       block_cache, ways);
-  const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
-  if (!trace_on) return launch_chunk<false>(p, smem, stream);
+  if (!trace_on)
+    return launch_chunk<false>(p, cta_lanes, block_words, ways, stream);
   p.tracebuf = (u64*)tracebuf;
   p.trace_n = (u64*)trace_n;
   p.trace_armed = (unsigned char*)trace_armed;
@@ -1030,15 +1346,15 @@ int run_chunk_launch(void* mem, void* regs, void* pc, void* priv,
   p.trig_disarm = trig_disarm;
   p.trig_a = trig_a;
   p.trig_b = trig_b;
-  return launch_chunk<true>(p, smem, stream);
+  return launch_chunk<true>(p, cta_lanes, block_words, ways, stream);
 }
 
-// Runs one global chunk of `boards` boards on `stream` (one CTA a board) and
-// returns cudaGetLastError(); does not synchronise and
-// allocates nothing.  Pointers are the stacked CpuState fields in
-// STATE_FIELDS order ((D, lanes, ...) contiguous, ticks (D,)), the image
-// (D * words,), budgets (D,) and out (D, 2): substeps issued and dependent
-// round trips, per board.
+// Runs one global chunk of `boards` boards on `stream` (one CTA a board,
+// or past `cta_lanes` cores one cluster a board) and returns
+// cudaGetLastError(); does not synchronise and allocates nothing.
+// Pointers are the stacked CpuState fields in STATE_FIELDS order ((D,
+// lanes, ...) contiguous, ticks (D,)), the image (D * words,), budgets (D,)
+// and out (D, 2): substeps issued and dependent round trips, per board.
 int run_chunk_fleet_launch(void* mem, void* regs, void* pc, void* priv,
                            void* pending, void* stall_until, void* satp,
                            void* mcause, void* mepc, void* mtval, void* res,
@@ -1048,16 +1364,21 @@ int run_chunk_fleet_launch(void* mem, void* regs, void* pc, void* priv,
                            const void* budgets, void* out, u64 mask,
                            long long words, int lanes, int boards,
                            int issue_width, int block_words, int block_cache,
-                           int ways, void* stream) {
-  if (lanes <= 0 || lanes > LANES_MAX || boards <= 0)
+                           int ways, int cta_lanes, void* stream) {
+  if (lanes <= 0 || boards <= 0 ||
+      (lanes > WARP_LANES && (!cta_lanes_ok(cta_lanes, block_words, ways) ||
+                              lanes > CLUSTER_MAX * cta_lanes)))
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(
       mem, regs, pc, priv, pending, stall_until, satp, mcause, mepc, mtval,
       res, ticks, uticks, instret, stall_ticks, fetch_hits, fetch_walks,
       tlb_walks, out, mask, 0, lanes, issue_width, block_words, block_cache,
       ways);
-  const size_t smem = run_chunk_smem_bytes(lanes, block_words, ways);
   const long long* lim = (const long long*)budgets;
+  if (lanes > WARP_LANES && lanes > cta_lanes)
+    return launch_fleet_cluster(p, boards, lim, words, cta_lanes,
+                                block_words, ways, stream);
+  const size_t smem = cta_smem(lanes, block_words, ways);
   return lanes > WARP_LANES
              ? launch_fleet<true>(p, boards, lim, words, smem, stream)
              : launch_fleet<false>(p, boards, lim, words, smem, stream);

@@ -74,7 +74,8 @@ def test_port_bench_package_passes_its_own_audit():
     bench.audit()
     assert set(bench.SCRIPTS) == {"decode_kernels", "dryrun_sweep",
                                   "paged_attention_timeline",
-                                  "port_kernels"}
+                                  "port_kernels", *bench.PANELS}
+    assert len(bench.PANELS) == 8 and "panels" in bench.EXCLUDED
 
 
 def test_port_bench_runner_lists_every_script():
@@ -89,10 +90,16 @@ def test_port_bench_runner_lists_every_script():
 
 @pytest.mark.parametrize("name", ["decode_kernels", "dryrun_sweep",
                                   "paged_attention_timeline",
-                                  "port_kernels"])
+                                  "port_kernels", "htp_vs_direct",
+                                  "stall_breakdown", "gapbs_accuracy",
+                                  "coremark_accuracy", "baud_sweep",
+                                  "hfutex_bench", "scale_sweep",
+                                  "arg_prefetch"])
 def test_each_script_runs_as_a_module_of_the_port(name):
     """``python -m repro_torch.bench.<name>``: ``--help`` where the script
-    takes flags, else the refusal without a card (exit 1, no result)."""
+    takes flags, else the refusal without a card (exit 1, no result).
+    The FASE panels take ``--quick``, ``--target card|pysim``, ``--out``
+    and ``--against``."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -104,9 +111,32 @@ def test_each_script_runs_as_a_module_of_the_port(name):
         text=True, timeout=120)
     if flags:
         assert out.returncode == 0 and "usage:" in out.stdout, out.stderr
+        if name in bench_panels():
+            assert "--target {card,pysim}" in out.stdout
+            assert "--against" in out.stdout
     else:
         assert out.returncode == 1 and "no CUDA device" in out.stderr
         assert out.stdout == ""
+
+
+def bench_panels():
+    from repro_torch import bench
+    return bench.PANELS
+
+
+def test_a_panel_on_the_card_refuses_without_one(tmp_path):
+    """A FASE panel runs on the card by default: with no CUDA device it
+    exits 1, names ``--target pysim`` and writes nothing."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.htp_vs_direct", "--quick",
+         "--out", str(tmp_path)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 1 and "--target pysim" in out.stderr
+    assert out.stdout == "" and list(tmp_path.iterdir()) == []
 
 
 def test_dryrun_sweep_lists_every_cell_of_both_meshes():

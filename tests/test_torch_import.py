@@ -61,7 +61,11 @@ PORT_MODULES = [
     "repro_torch.bench.paged_attention_timeline",
     "repro_torch.bench.port_kernels",
     "repro_torch.bench.dryrun_sweep",
-] + [f"repro_torch.configs.{name}" for name in (
+    "repro_torch.bench.panels",
+] + [f"repro_torch.bench.{name}" for name in (
+    "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
+    "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
+    "arg_prefetch")] + [f"repro_torch.configs.{name}" for name in (
     "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
     "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",
     "phi35_moe_42b", "qwen3_8b", "xlstm_350m")]

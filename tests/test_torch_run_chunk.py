@@ -150,28 +150,47 @@ def test_wrapper_refuses_a_non_contiguous_field():
 
 
 def test_wrapper_refuses_more_lanes_than_a_warp(shim_lib):
-    """Past a warp the kernel runs CTA-wide, so 33 to 1024 cores pass the
-    lane check (the CPU state then meets the device check); past a CTA's
-    thread limit, or where the board's shared memory exceeds a CTA's, the
-    wrapper refuses and names the limit."""
+    """Past a warp the kernel runs CTA-wide, and past ``cta_lanes`` (384
+    at the registry's knobs) on a thread-block cluster, so 33 to 1025
+    cores pass the checks (the CPU state then meets the device check);
+    past the largest cluster the device schedules (16 CTAs of 384 cores
+    here, the host build's answer) the wrapper refuses and names the
+    limit, ``cta_lanes`` and the cluster size."""
     assert RC.LANES_MAX == 1024 and RC.WARP_LANES == 32
-    for n in (33, 40, 64):
+    for n in (33, 40, 64, 500, 1025):
         _refused(cpu.make_state(n, MEM, device="cpu"), "needs a CUDA state",
                  nc=n)
-    n = RC.LANES_MAX + 1
-    _refused(cpu.make_state(n, MEM, device="cpu"),
-             f"at most {RC.LANES_MAX} cores \\(a CTA's thread limit\\); "
-             f"got {n}", nc=n)
-    with pytest.raises(ValueError, match="at most 1024 cores"):
+    assert RC.default_cta_lanes(16, 8, lib=shim_lib) == 384
+    assert RC.max_cluster(384, 16, 8, lib=shim_lib) == RC.CLUSTER_MAX == 16
+    for n, want in ((32, (384, 1)), (384, (384, 1)), (385, (384, 2)),
+                    (1025, (384, 3)), (3072, (384, 8)), (6144, (384, 16)),
+                    (40, (32, 2))):
+        lanes = 32 if n == 40 else None
+        assert RC.layout("run_chunk", n, 16, 8, lanes, lib=shim_lib) == want
+    n = 16 * 384 + 1
+    with pytest.raises(ValueError, match=f"{n} cores need a cluster of 17 "
+                       f"CTAs of cta_lanes 384 cores, and the device "
+                       f"schedules at most 16 a cluster: at most 6144 "
+                       f"cores"):
+        RC.layout("run_chunk", n, 16, 8, lib=shim_lib)
+    with pytest.raises(ValueError, match="cta_lanes 32 cores, .* at most 512 "
+                       "cores"):
+        RC.layout("run_chunk_fleet", 513, 16, 8, 32, lib=shim_lib)
+    with pytest.raises(ValueError, match="at least one"):
         RC.check_state(_state(), 0, MEM, 16, 8)
-    # 1024 cores with the default TLB and fetch blocks: over 227 KB, by
-    # the source's own count (its host build)
-    with pytest.raises(ValueError, match="over the 232448 one CTA may hold"):
-        RC.check_smem("run_chunk", 1024, 16, 8, lib=shim_lib)
+    # 1024 cores with the default TLB and fetch blocks no longer fit one
+    # CTA's 227 KB (by the source's own count, its host build): a cluster
+    # of three 384-core CTAs takes them, each within the limit
+    assert RC.smem_bytes(1024, 16, 8, lib=shim_lib) > RC.SMEM_MAX
+    assert RC.cluster_smem_bytes(384, 16, 8, lib=shim_lib) <= RC.SMEM_MAX \
+        < RC.cluster_smem_bytes(416, 16, 8, lib=shim_lib)
     # the CTA-wide scratch: a word a warp for 9 sites, two reductions, a
-    # store word a thread, after the 8-byte-aligned register files
+    # store word a thread, after the 8-byte-aligned register files; on a
+    # cluster also each rank's two reductions and 9 site summaries
     assert RC.smem_bytes(40, 16, 8, lib=shim_lib) == (
         40 * (32 + 32) * 8 + 40 * 16 * 4 + 9 * 32 * 4 + 2 * 32 * 8 + 64 * 8)
+    assert RC.cluster_smem_bytes(64, 16, 8, lib=shim_lib) == \
+        RC.smem_bytes(64, 16, 8, lib=shim_lib) + 2 * 16 * 8 + 9 * 16 * 4
 
 
 def test_wrapper_refuses_knobs_the_kernel_cannot_hold(shim_lib):
@@ -181,7 +200,12 @@ def test_wrapper_refuses_knobs_the_kernel_cannot_hold(shim_lib):
     assert RC.smem_bytes(4, 16, 8, lib=shim_lib) == \
         4 * (32 + 32) * 8 + 4 * 16 * 4
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        RC.check_smem("run_chunk", 32, 1 << 11, 8, lib=shim_lib)
+        RC.layout("run_chunk", 32, 1 << 11, 8, lib=shim_lib)
+    assert RC.layout("run_chunk", 4, 1 << 11, 8, lib=shim_lib) == (0, 1)
+    for lanes in (0, 48, 416):
+        with pytest.raises(ValueError, match="cta_lanes must be whole "
+                           "warps from 32 up to 384"):
+            RC.layout("run_chunk", 500, 16, 8, lanes, lib=shim_lib)
 
 
 def test_launch_arguments_follow_the_kernel_signature():
@@ -192,24 +216,25 @@ def test_launch_arguments_follow_the_kernel_signature():
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     assert params == ["mem", *(f for f, _, _ in RC.FIELDS), "out", "mask",
                       "limit", "lanes", "issue_width", "block_words",
-                      "block_cache", "ways", "tracebuf", "trace_n",
+                      "block_cache", "ways", "cta_lanes", "tracebuf",
+                      "trace_n",
                       "trace_armed", "slots", "trace_on", "trig_kind",
                       "trig_disarm", "trig_a", "trig_b", "stream"]
     st = _state()
     out = torch.zeros((2,), dtype=torch.int64)
-    args = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0)
+    args = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 384, 0)
     assert len(args) == len(RC._ARGS) == len(params)
     assert args[0] == st.mem.data_ptr() == st.mem_store.data_ptr()
     assert args[1 + [f for f, _, _ in RC.FIELDS].index("priv")] == \
         st.priv.data_ptr()
-    assert args[-18:-9] == (out.data_ptr(), MEM - 1, 99, 2, 8, 16, 1, 8,
+    assert args[-19:-9] == (out.data_ptr(), MEM - 1, 99, 2, 8, 16, 1, 8, 384,
                             st.tracebuf.data_ptr())
     assert args[-6:] == (0, 0, 0, 0, 0, 0)         # untraced: no gate
-    traced = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0, True,
-                            ("pc", 0x1000, (1 << 64) - 4))
+    traced = RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 384, 0,
+                            True, ("pc", 0x1000, (1 << 64) - 4))
     assert traced[-6:] == (1, RC.TRIGGER_KINDS["pc"], 1, 0x1000,
                            (1 << 64) - 4, 0)
-    assert RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 0, True,
+    assert RC.launch_args(st, out, 2, MEM, 99, 8, 16, True, 8, 384, 0, True,
                           ("instret", 7))[-6:] == (1, 2, 0, 7, 0, 0)
     # the C side sizes shared memory as the wrapper does
     assert "lanes * (32 + 4 * (size_t)ways) * 8" in src

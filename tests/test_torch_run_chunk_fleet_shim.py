@@ -29,32 +29,43 @@ D = 3
 
 
 @pytest.fixture(scope="module")
-def launch(tmp_path_factory):
-    lib = torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
-    return torch_shim.entry(lib, "run_chunk_fleet_launch", RC.FLEET_ARGS)
+def shim_lib(tmp_path_factory):
+    return torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
+
+
+@pytest.fixture(scope="module")
+def fleet_launch(shim_lib):
+    return torch_shim.entry(shim_lib, "run_chunk_fleet_launch",
+                            RC.FLEET_ARGS)
 
 
 @pytest.fixture
-def kernel_route(monkeypatch, launch):
+def kernel_route(monkeypatch, shim_lib, fleet_launch):
     """CPU stacks on ``chunk_kernel="kernel"`` run the compiled source;
-    returns the stand-in wrapper, whose ``launches`` counts them."""
+    returns the stand-in wrapper, whose ``launches`` counts them and whose
+    ``cta_lanes`` (None: the source's default) picks the cores a CTA."""
     def run_chunk_fleet(sts, n_cores, mem_bytes, budgets, issue_width=8,
                         block_words=16, block_cache=True, dtlb_ways=8):
         RC.check_state(sts, n_cores, mem_bytes, block_words, dtlb_ways,
                        sts.pc.shape[0])
+        cta_lanes, ranks = RC.layout("run_chunk_fleet", n_cores,
+                                     block_words, dtlb_ways,
+                                     run_chunk_fleet.cta_lanes, lib=shim_lib)
         out = torch.full((sts.pc.shape[0], 2), -1, dtype=torch.int64)
         limits = torch.tensor(budgets, dtype=torch.int64)
-        assert launch(*RC.fleet_launch_args(
+        assert fleet_launch(*RC.fleet_launch_args(
             sts, limits, out, n_cores, mem_bytes, issue_width, block_words,
-            block_cache, dtlb_ways, None)) == 0
+            block_cache, dtlb_ways, cta_lanes, None)) == 0
         run_chunk_fleet.launches += 1
+        run_chunk_fleet.cluster_launches += ranks > 1
         return out[:, 0].tolist()
 
     def chunk_route(st, chunk_kernel="kernel"):
         assert chunk_kernel in cpu.CHUNK_IMPLS
         return chunk_kernel
 
-    run_chunk_fleet.launches = 0
+    run_chunk_fleet.launches = run_chunk_fleet.cluster_launches = 0
+    run_chunk_fleet.cta_lanes = None
     monkeypatch.setattr(RC, "run_chunk_fleet", run_chunk_fleet)
     monkeypatch.setattr(cpu, "chunk_route", chunk_route)
     return run_chunk_fleet

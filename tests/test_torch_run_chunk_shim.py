@@ -28,30 +28,40 @@ from test_torch_gpu import PROGRAM, amo_table_program
 
 
 @pytest.fixture(scope="module")
-def launch(tmp_path_factory):
-    lib = torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
-    return torch_shim.entry(lib, "run_chunk_launch", RC._ARGS)
+def shim_lib(tmp_path_factory):
+    return torch_shim.build("run_chunk", tmp_path_factory.mktemp("shim"))
+
+
+@pytest.fixture(scope="module")
+def launch(shim_lib):
+    return torch_shim.entry(shim_lib, "run_chunk_launch", RC._ARGS)
 
 
 @pytest.fixture
-def kernel_route(monkeypatch, launch):
+def kernel_route(monkeypatch, shim_lib, launch):
     """CPU targets on ``chunk_kernel="kernel"`` run the compiled source;
-    returns the stand-in wrapper, whose ``launches`` counts them."""
+    returns the stand-in wrapper, whose ``launches`` counts them and whose
+    ``cta_lanes`` (None: the source's default) picks the cores a CTA."""
     def run_chunk(st, n_cores, mem_bytes, max_cycles, issue_width=8,
                   block_words=16, block_cache=True, dtlb_ways=8,
                   trace_on=False, trigger=None):
         RC.check_state(st, n_cores, mem_bytes, block_words, dtlb_ways)
         if trace_on:
             RC.check_trace(st, n_cores)
+        cta_lanes, ranks = RC.layout("run_chunk", n_cores, block_words,
+                                     dtlb_ways, run_chunk.cta_lanes,
+                                     lib=shim_lib)
         out = torch.zeros((2,), dtype=torch.int64)
         assert launch(*RC.launch_args(
             st, out, n_cores, mem_bytes, max_cycles, issue_width,
-            block_words, block_cache, dtlb_ways, None, trace_on,
+            block_words, block_cache, dtlb_ways, cta_lanes, None, trace_on,
             trigger)) == 0
         if trace_on:
             run_chunk.trace_launches += 1
+            run_chunk.cluster_trace_launches += ranks > 1
         else:
             run_chunk.launches += 1
+            run_chunk.cluster_launches += ranks > 1
         return int(out[0])
 
     def chunk_route(st, chunk_kernel="kernel"):
@@ -59,6 +69,8 @@ def kernel_route(monkeypatch, launch):
         return chunk_kernel
 
     run_chunk.launches = run_chunk.trace_launches = 0
+    run_chunk.cluster_launches = run_chunk.cluster_trace_launches = 0
+    run_chunk.cta_lanes = None
     monkeypatch.setattr(RC, "run_chunk", run_chunk)
     monkeypatch.setattr(cpu, "chunk_route", chunk_route)
     return run_chunk

@@ -19,7 +19,8 @@ import torch_trace_cases as TC
 from test_torch_cpu_differential import assert_same_as_pysim
 from test_torch_gpu import PROGRAM
 from test_torch_run_chunk_shim import (WIDE_PROGRAM,  # noqa: F401
-                                       _same_state, kernel_route, launch)
+                                       _same_state, kernel_route, launch,
+                                       shim_lib)
 
 
 _IMG = DC.asm.assemble(PROGRAM)
