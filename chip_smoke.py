@@ -46,12 +46,18 @@ a sliding window, in both designs), and drives the port's paths:
   per global chunk) in lockstep with its eager flat form, every board's
   state equal after every global chunk and every board of budget 0
   untouched; the 2-board gang pin over the switch fabric on both fleet
-  forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``, the
-  makespans of ``results/fleet_scale.json`` and the PCIe migration row of
-  ``results/migration.json``; then the full width — ``FASE_FLEET_NET``'s
-  4-board gang (4 cores, 64 MiB a board) and ``FASE_FLEET_VMAP``'s
-  run_synchronous of four bc jobs, one launch a global chunk — against
-  constants pinned from the pure-Python simulator;
+  forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``; then the
+  full width — ``FASE_FLEET_NET``'s 4-board gang (4 cores, 64 MiB a
+  board) and ``FASE_FLEET_VMAP``'s run_synchronous of four bc jobs, one
+  launch a global chunk — against constants pinned from the pure-Python
+  simulator;
+* the fleet panels (phase ``fleet_panels``): the twins of the
+  reference's fleet_scale, net_scale, stall_attribution and migration at
+  full size, every board a ``TorchTarget`` on the card, each file's
+  modelled numbers equal to the checked-in ``results/<name>.json`` and to
+  the same panel's PySim run (the makespans of
+  ``results/fleet_scale.json`` and its PCIe migration row pinned), with
+  the wall of each beside PySim's;
 * the serving path: ``ServeEngine`` over qwen3-8b at full width (36
   layers, d_model 4096, seeded random bf16 weights on the card), 4 decode
   slots, ``max_seq`` 512, eight requests (``SERVE_MIX``), once timed on the
@@ -78,7 +84,14 @@ a sliding window, in both designs), and drives the port's paths:
   on three production cells (``meta`` tensors on the host's CPU, started
   with the build and run beside the card's phases), qwen3-8b
   ``train_4k``'s peak a device beside its reading under DTensor's own
-  layouts, and the card's measured bf16 GEMM and HBM copy rates.
+  layouts, and the card's measured bf16 GEMM and HBM copy rates;
+* the LM-side twins (phase ``lm_panels``): serving_traffic's poll sweep
+  at the reference's size on the card against the same twin's host run,
+  its co-residency panel at full size against
+  ``results/serving_coresidency.json``, the sweep at full width
+  (qwen3-8b whole) on the kernel route against the plain route, the
+  roofline over the dry run's cells, hillclimb's quick pair (run on the
+  host in the background), and the three LM examples at a short argv.
 
 Every phase prints one JSON line; any mismatch, build failure or launch
 error ends the run with a non-zero exit code, and nothing runs on the CPU
@@ -361,9 +374,10 @@ TRACE_SLOTS = 4096
 CAPTURE_SLOTS = 1 << 15
 
 PHASES = ("kernel", "chunk", "full", "coremark", "panels", "telemetry",
-          "fleet", "serve", "train", "families", "dryrun")
-#: seconds the panels' PySim runs may take, all eight (they run beside
-#: the phases before them)
+          "fleet", "fleet_panels", "serve", "train", "families", "dryrun",
+          "lm_panels")
+#: seconds a phase waits for the host's share of its panels (they run
+#: one after another in the background from launch)
 PANELS_TIMEOUT = 600
 
 
@@ -2202,10 +2216,10 @@ def sync_in_lockstep(torch):
 
 def fleet_pins(torch):
     """The pins of the fleet layer on the card: the gang pin on both
-    fleet forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``,
+    fleet forms, hello@UART and bc@PCIe through ``target="fleet-vmap"``.
     results/fleet_scale.json's makespans and results/migration.json's
-    PCIe row on TorchTarget boards."""
-    from repro_torch.core.fleet import Job
+    PCIe row on TorchTarget boards are the ``fleet_panels`` phase's, from
+    the panels' own runs."""
     from repro_torch.core.workloads import graphgen
     from repro_torch.kernels.run_chunk import run_chunk as RC
     from repro_torch.run import run_workload
@@ -2248,58 +2262,7 @@ def fleet_pins(torch):
                                          launches=RC.run_chunk_fleet
                                          .launches)
     check(out["hello_fleet_vmap"]["ticks"] == HELLO_UART["ticks"], "hello")
-    # results/fleet_scale.json's scale panel on TorchTarget boards
-    from repro_torch.configs.fase_rocket import FASE_FLEET, fleet_kwargs
-    g = graphgen.rmat(5, 8, weights=True)
-    t0 = time.time()
-    scale = {}
-    kw = fleet_kwargs(FASE_FLEET)
-    for k in ("links", "n_devices", "link", "placement"):
-        kw.pop(k, None)
-    for (link, n), want in FLEET_SCALE.items():
-        fr = fleet_of(n, False, 1, 1 << 23, link=link,
-                      placement="round_robin", **kw)
-        fr.submit(Job("bc", ["g.bin", "1", "1"], files={"g.bin": g}),
-                  replicas=8)
-        rep = fr.run()
-        check(rep.makespan_ticks == want, f"fleet_scale {link} N={n}: "
-              f"{rep.makespan_ticks} != {want}")
-        scale[f"{link}_{n}"] = rep.makespan_ticks
-    out["fleet_scale"] = dict(makespans=scale,
-                              seconds=round(time.time() - t0, 1))
-    # results/migration.json's PCIe row, migrating between two boards
-    t0 = time.time()
-
-    def job():
-        return Job("bc", ["g.bin", "1", "48"], files={"g.bin": g})
-    base = fleet_of(1, False, 1, 1 << 23, links=["pcie"])
-    b = base.run_job(base.devices[0], job())
-    fr = fleet_of(2, False, 1, 1 << 23, links=["pcie", "pcie"])
-    h = fr.start_job(job(), fr.devices[0])
-    pause_at_instret(fr, h, int(b.report.instret[0] * 0.7))
-    mig = fr.migrate(h, fr.devices[1])
-    res = fr.finish_job(h)
-    got = dict(baseline=b.report.ticks, migrated=res.report.ticks,
-               pages=mig.pages_shipped, src_bytes=mig.src_bytes,
-               dst_bytes=mig.dst_bytes)
-    check(got == MIGRATION_PCIE, f"migration {got} != {MIGRATION_PCIE}")
-    check(h.device is fr.devices[1], "the job did not move")
-    out["migration_pcie"] = dict(**got, seconds=round(time.time() - t0, 1))
     emit({"phase": "fleet_pins", **out})
-
-
-def pause_at_instret(fr, handle, target_instret):
-    """benchmarks/migration.py's pause: advance the job in slices until
-    it has retired ``target_instret`` instructions, each slice bounded by
-    the instructions still missing."""
-    rt = handle.runtime
-    while True:
-        cur = rt.target.get_instret(0)
-        if cur >= target_instret:
-            return
-        paused = fr.step_job(handle, pause_ticks=rt.target.get_ticks() +
-                             (target_instret - cur))
-        check(paused is None, "the job finished before the pause point")
 
 
 def fleet_profiled(torch, drive):
@@ -2625,7 +2588,7 @@ def router_flips(torch, kcalls, rcalls):
 
 def lockstep(torch, cfg, params, ref_params=None, ref_device="cuda",
              max_steps=None, resync=False, routing=None, run=None,
-             strict=True):
+             strict=True, engine=None):
     """The kernel route and the plain route, one decode step each in
     turn, on the same schedule.  After every step, on the slots that
     carried a request: the logits agree within SERVE_LOGIT_TOL, and where
@@ -2645,13 +2608,18 @@ def lockstep(torch, cfg, params, ref_params=None, ref_device="cuda",
     probabilities agreed between the routes within ``ROUTER_TIE`` (a near
     tie of its top-k), and fails otherwise.  ``run`` names the run in its
     line; ``strict=False`` returns the failures (``stats["failures"]``)
-    where it would fail.  Returns the kernel engine, the comparison's
-    numbers, the attention inputs (block table, lengths) of the step with
-    the most valid KV rows while every slot was busy, and the longest
-    PageS and PageCP lists of a step's command batch."""
-    ek = new_engine(torch, cfg, params, "kernel")
-    er = new_engine(torch, cfg, params if ref_params is None else ref_params,
-                    "ref", device=ref_device)
+    where it would fail.  ``engine(impl, params, device)`` makes each
+    route's engine with its requests submitted (default: ``new_engine``,
+    ``SERVE_MIX`` on ``SERVE_SLOTS`` slots).  Returns the kernel engine,
+    the comparison's numbers, the attention inputs (block table, lengths)
+    of the step with the most valid KV rows while every slot was busy,
+    and the longest PageS and PageCP lists of a step's command batch."""
+    if engine is None:
+        def engine(impl, p, device):
+            return new_engine(torch, cfg, p, impl, device=device)
+    ek = engine("kernel", params, "cuda")
+    er = engine("ref", params if ref_params is None else ref_params,
+                ref_device)
     most = {"page_set": 0, "page_copy": 0}
     stats = {"steps": 0, "max_logit_abs_err": 0.0, "max_abs_logit": 0.0,
              "used_tokens": 0, "near_ties": [], "page_set_steps": 0,
@@ -2689,9 +2657,9 @@ def lockstep(torch, cfg, params, ref_params=None, ref_device="cuda",
         if not torch.equal(er._stop_mask.cpu(), ek._stop_mask.cpu()):
             bad.append(f"step {ek.steps}: the routes' stop masks differ")
             break                        # the schedules part here
-        lens = ek.state["seq_lens"].clamp(max=SERVE_MAX_SEQ)
+        lens = ek.state["seq_lens"].clamp(max=ek.max_seq)
         n = int(lens[rows.to(lens.device)].sum())
-        if len(ek.step_slots) == SERVE_SLOTS and n > best:
+        if len(ek.step_slots) == ek.slots and n > best:
             best = n
             busiest = (ek.state["block_tables"].clone(), lens.clone())
         if routing is not None:
@@ -4187,26 +4155,40 @@ def phase_families(torch, dev, errs):
     return window_launches, t
 
 
-def start_panels():
-    """Each FASE panel of ``repro_torch.bench.PANELS`` at ``--quick`` on
-    the port's PySim, one after another in the background on the host
-    (``python -m repro_torch.bench.<name> --quick --target pysim --out
-    DIR``; one at a time, so they take one of the host's cores from the
-    card's phases): ``[(name, DIR, times)]``, a thread putting each run's
-    exit code and wall seconds in ``times["rc"]`` and ``times["wall"]``,
-    and its process in ``times["proc"]`` while it runs."""
+def start_background(only):
+    """The host's share of the panels, one process after another in the
+    background (they take one of the host's cores from the card's
+    phases): with ``panels``, each of ``repro_torch.bench.PANELS`` at
+    ``--quick`` on the port's PySim; with ``fleet_panels``, each of
+    ``FLEET_PANELS`` at full size on PySim; with ``lm_panels``,
+    ``serving_traffic`` on the host (the smoke sweep's engine on the CPU,
+    co-residency at full size on PySim) and ``hillclimb --quick`` (its
+    dry-run cells at production size on ``meta`` tensors).  Each is
+    ``python -m repro_torch.bench.<name> ... --out DIR``.  Returns ``{name:
+    (DIR, times)}``; a thread puts each run's exit code and wall seconds
+    in ``times["rc"]`` and ``times["wall"]``, and its process in
+    ``times["proc"]`` while it runs."""
     import threading
-    from repro_torch.bench import PANELS
-    runs = [(name, tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"), {})
-            for name in PANELS]
+    from repro_torch.bench import FLEET_PANELS, PANELS
+    jobs = []
+    if "panels" in only:
+        jobs += [(name, ["--quick", "--target", "pysim"]) for name in PANELS]
+    if "fleet_panels" in only:
+        jobs += [(name, ["--target", "pysim"]) for name in FLEET_PANELS]
+    if "lm_panels" in only:
+        jobs += [("serving_traffic", ["--target", "pysim"]),
+                 ("hillclimb", ["--quick"])]
+    runs = {name: (tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"), {})
+            for name, _ in jobs}
 
     def serial():
-        for name, out, times in runs:
+        for name, argv in jobs:
+            out, times = runs[name]
             start = time.time()
             with open(os.path.join(out, "log"), "w") as log:
                 times["proc"] = subprocess.Popen(
                     [sys.executable, "-m", f"repro_torch.bench.{name}",
-                     "--quick", "--target", "pysim", "--out", out],
+                     *argv, "--out", out],
                     cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
                     env=dict(os.environ,
                              PYTHONPATH=os.path.join(ROOT, "src")))
@@ -4216,47 +4198,66 @@ def start_panels():
     return runs
 
 
+def background_result(runs, name, deadline):
+    """``name``'s background run once it has ended (by ``deadline``),
+    checked to have exited 0: its output directory and its wall seconds."""
+    out, times = runs[name]
+    while "wall" not in times and time.time() < deadline:
+        time.sleep(0.2)
+    with open(os.path.join(out, "log")) as f:
+        log = f.read()
+    check(times.get("rc") == 0, f"{name} on the host: rc {times.get('rc')}"
+          f" (wall {times.get('wall')})\n{log[-3000:]}")
+    return out, times["wall"]
+
+
+def same_files(name, card_dir, sim_dir):
+    """Every ``torch_*.json`` of ``card_dir`` against the file of the same
+    name in ``sim_dir``: the same files, the same modelled numbers
+    (tolerance 0), and each of the card's names the card.  Returns the
+    card's and the host's results by file."""
+    from repro_torch.bench import panels
+    files = sorted(f for f in os.listdir(card_dir) if f.startswith("torch_"))
+    check(files and files == sorted(f for f in os.listdir(sim_dir)
+                                    if f.startswith("torch_")),
+          f"panel {name}: files {files}")
+    out = {}
+    for f in files:
+        with open(os.path.join(card_dir, f)) as fh:
+            card = json.load(fh)
+        with open(os.path.join(sim_dir, f)) as fh:
+            sim = json.load(fh)
+        diff = panels.differences(card, sim)
+        check(not diff, f"panel {name}, {f}: the card's modelled numbers "
+              f"differ from the host's: {diff}")
+        check(card["target"] == "card" and card["card"],
+              f"panel {name}: {f} names no card")
+        out[f] = card["result"], sim["result"]
+    return out
+
+
 def phase_panels(torch, runs):
     """The paper's eight FASE panels at ``--quick`` on the card
     (``TorchTarget`` on the CUDA device, through each panel's own
     ``run``), each file's modelled numbers equal to the same panel's PySim
-    run started by ``start_panels`` (tolerance 0: every field but the wall
-    seconds); the wall of each beside PySim's."""
+    run started by ``start_background`` (tolerance 0: every field but the
+    wall seconds); the wall of each beside PySim's."""
     import importlib
-    from repro_torch.bench import panels
+    from repro_torch.bench import PANELS
     t_phase = time.time()
     out = {}
     deadline = time.time() + PANELS_TIMEOUT
-    for name, sim_dir, times in runs:
-        while "wall" not in times and time.time() < deadline:
-            time.sleep(0.2)
-        with open(os.path.join(sim_dir, "log")) as f:
-            log = f.read()
-        check(times.get("rc") == 0, f"panel {name} on PySim: rc "
-              f"{times.get('rc')} (wall {times.get('wall')})\n{log[-3000:]}")
+    for name in PANELS:
+        sim_dir, sim_wall = background_result(runs, name, deadline)
         card_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_card_")
         twin = importlib.import_module(f"repro_torch.bench.{name}")
         t0 = time.time()
         with contextlib.redirect_stdout(io.StringIO()):   # its row lines
             twin.run(quick=True, target="card", out_dir=card_dir)
         wall = time.time() - t0
-        files = sorted(f for f in os.listdir(card_dir)
-                       if f.startswith("torch_"))
-        check(files and files == sorted(f for f in os.listdir(sim_dir)
-                                        if f.startswith("torch_")),
-              f"panel {name}: files {files}")
-        for f in files:
-            with open(os.path.join(card_dir, f)) as fh:
-                card = json.load(fh)
-            with open(os.path.join(sim_dir, f)) as fh:
-                sim = json.load(fh)
-            diff = panels.differences(card, sim)
-            check(not diff, f"panel {name}, {f}: the card's modelled "
-                  f"numbers differ from PySim's: {diff}")
-            check(card["target"] == "card" and card["card"],
-                  f"panel {name}: {f} names no card")
-        out[name] = {"files": files, "card_wall_s": round(wall, 3),
-                     "pysim_wall_s": round(times["wall"], 3)}
+        files = same_files(name, card_dir, sim_dir)
+        out[name] = {"files": sorted(files), "card_wall_s": round(wall, 3),
+                     "pysim_wall_s": round(sim_wall, 3)}
         shutil.rmtree(card_dir, ignore_errors=True)
         shutil.rmtree(sim_dir, ignore_errors=True)
     emit({"phase": "panels", "quick": True, "modelled_equal_to_pysim": True,
@@ -4264,19 +4265,400 @@ def phase_panels(torch, runs):
           "seconds": round(time.time() - t_phase, 1)})
 
 
-def measured_rates(torch, dev):
-    """The card's bf16 GEMM rate (8192^3, CUDA events) and HBM copy rate
-    (a 2 GiB device-to-device copy: read and write counted), beside the
-    data-sheet figures the dry run's roofline uses."""
-    n = 8192
-    a = torch.randn((n, n), device=dev).to(torch.bfloat16)
-    b = torch.randn((n, n), device=dev).to(torch.bfloat16)
-    gemm_ms = time_ms(torch, lambda: a @ b, 20, warmup=5)
-    src = torch.empty(1 << 30, dtype=torch.int16, device=dev)
-    dst = torch.empty_like(src)
-    copy_ms = time_ms(torch, lambda: dst.copy_(src), 20, warmup=3)
-    return {"bf16_gemm_flop_per_s": 2 * n ** 3 / (gemm_ms / 1e3),
-            "hbm_copy_bytes_per_s": 2 * src.numel() * 2 / (copy_ms / 1e3)}
+def serve_counters():
+    """The serving path's kernels and their launch counters."""
+    from repro_torch.kernels.page_ops import page_ops
+    from repro_torch.kernels.paged_attention import paged_attention
+    return {"paged_attention": paged_attention.paged_attention,
+            "page_set": page_ops.page_set, "page_copy": page_ops.page_copy}
+
+
+def counted(counters, fn):
+    """``fn()`` with every counter of ``counters`` (name -> the kernel's
+    wrapper, or ``(wrapper, attribute)``) set to 0 just before it;
+    returns its result and the counts read just after."""
+    def ref(c):
+        return c if isinstance(c, tuple) else (c, "launches")
+    for c in counters.values():
+        setattr(*ref(c), 0)
+    out = fn()
+    return out, {name: getattr(*ref(c)) for name, c in counters.items()}
+
+
+def phase_fleet_panels(torch, runs):
+    """The four fleet panels (``repro_torch.bench.FLEET_PANELS``) at full
+    size on the card, every board a ``TorchTarget`` on the CUDA device
+    (one ``run_chunk`` launch a chunk; migration's serving panel runs the
+    smoke engine on the card): each file's modelled numbers equal to the
+    checked-in ``results/<name>.json`` (the reference's full-size runs)
+    and to the same panel's PySim run (``start_background``), tolerance
+    0; results/fleet_scale.json's makespans (``FLEET_SCALE``) and
+    results/migration.json's PCIe row (``MIGRATION_PCIE``) pinned; the
+    card's wall of each beside PySim's.  Returns the launches of each
+    kernel on these paths."""
+    import importlib
+    from repro_torch.bench import FLEET_PANELS, panels
+    from repro_torch.core.interface import TorchTarget
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    t_phase = time.time()
+    counters = {"run_chunk": RC.run_chunk,
+                "run_chunk_trace": (RC.run_chunk, "trace_launches"),
+                "run_chunk_fleet": RC.run_chunk_fleet, **serve_counters()}
+    real, boards = panels.make_target, []
+
+    def make_target(target, n_cores, mem):
+        t = real(target, n_cores, mem)
+        check(target == "card" and isinstance(t, TorchTarget) and
+              t.device.type == "cuda", f"a {type(t).__name__} board on "
+              f"{target}")
+        boards.append(n_cores)
+        return t
+    out, launches, results = {}, {}, {}
+    deadline = time.time() + PANELS_TIMEOUT
+    panels.make_target = make_target
+    try:
+        for name in FLEET_PANELS:
+            twin = importlib.import_module(f"repro_torch.bench.{name}")
+            card_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_card_")
+            boards.clear()
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                result, n = counted(counters, lambda: twin.run(
+                    quick=False, target="card", out_dir=card_dir))
+            wall = time.time() - t0
+            with open(os.path.join(ROOT, "results", f"{name}.json")) as f:
+                want = json.load(f)
+            diff = panels.differences(result, want)
+            check(not diff and not want["quick"], f"fleet panel {name}: the"
+                  f" card's modelled numbers differ from results/{name}"
+                  f".json: {diff}")
+            sim_dir, sim_wall = background_result(runs, name, deadline)
+            _, sim = same_files(name, card_dir, sim_dir)[f"torch_{name}.json"]
+            check(n["run_chunk"] > 0 and n["run_chunk_fleet"] == 0,
+                  f"fleet panel {name}: launches {n}")
+            results[name] = result
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+            out[name] = {"card_wall_s": round(wall, 3),
+                         "card_rows_wall_s":
+                         round(sum(panels.walls(result)), 3),
+                         "pysim_rows_wall_s":
+                         round(sum(panels.walls(sim)), 3),
+                         "pysim_process_s": round(sim_wall, 3),
+                         "boards": len(boards), "launches": n}
+            shutil.rmtree(card_dir, ignore_errors=True)
+            shutil.rmtree(sim_dir, ignore_errors=True)
+    finally:
+        panels.make_target = real
+    scale = {(r["link"], r["n_devices"]): r["makespan_ticks"]
+             for r in results["fleet_scale"]["scale"]}
+    check(scale == FLEET_SCALE, f"fleet_scale {scale} != {FLEET_SCALE}")
+    row = next(r for r in results["migration"]["migration"]
+               if r["link"] == "pcie")
+    got = dict(baseline=row["baseline_ticks"], migrated=row["migrated_ticks"],
+               pages=row["full"]["pages"], src_bytes=row["full"]["src_bytes"],
+               dst_bytes=row["full"]["dst_bytes"])
+    check(got == MIGRATION_PCIE, f"migration {got} != {MIGRATION_PCIE}")
+    check(all(r["output_identical"] for r in results["migration"]
+              ["migration"]), "a migrated job's output differs")
+    emit({"phase": "fleet_panels", "quick": False,
+          "modelled_equal_to_results": True, "tolerance": 0,
+          "fleet_scale_pins": {f"{k}_{n}": v for (k, n), v in scale.items()},
+          "migration_pcie_pin": got, "panels": out, "launches": launches,
+          "seconds": round(time.time() - t_phase, 1)})
+    return launches
+
+
+#: the LM examples the ``lm_panels`` phase runs on the card, with their
+#: short argv
+#: torch_quickstart.py on the card against the same example on the host,
+#: from the same weights: each step's loss within QUICKSTART_LOSS_ATOL and
+#: grad norm within QUICKSTART_GN_RTOL (relative), the tolerances the
+#: port's train runs are held to against the reference's
+#: (tests/test_torch_training.py TRAIN_LOSS_ATOL, GRAD_REL_L2).  Labels
+#: shifted by one token move the losses by 2e-2 (a planted fault in the
+#: quickstart, against tests/test_torch_examples_lm.py)
+QUICKSTART_LOSS_ATOL, QUICKSTART_GN_RTOL = 5e-3, 5e-2
+LM_EXAMPLES = (("torch_quickstart.py", ["--steps", "5", "--decode", "8"]),
+               ("torch_serve_paged.py", []),
+               ("torch_train_lm.py", ["20"]))
+
+
+def run_example(script, argv):
+    """``examples/<script>`` run in this process as ``__main__`` with
+    ``argv`` (the card by default): its globals and what it printed."""
+    import runpy
+    saved = sys.argv
+    sys.argv = [script, *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            g = runpy.run_path(os.path.join(ROOT, "examples", script),
+                               run_name="__main__")
+    finally:
+        sys.argv = saved
+    return g, buf.getvalue()
+
+
+def quickstart_steps(printed):
+    """The losses and grad norms that ``torch_quickstart.py`` printed."""
+    rows = [x for x in printed.splitlines() if x.startswith("step ")]
+    return ([float(x.split("loss=")[1].split()[0]) for x in rows],
+            [float(x.split("gnorm=")[1]) for x in rows])
+
+
+def host_drawn_params(M):
+    """``M.init_params`` drawn on the host and moved to the device asked
+    for: the card's and the host's runs of an example start from the
+    same weights.  Returns it and the real one."""
+    from repro_torch.training.optim import tree_map
+    draw = M.init_params
+
+    def init_params(cfg, seed=0, device="cuda"):
+        return tree_map(lambda t: t.to(device), draw(cfg, seed, "cpu"))
+    return init_params, draw
+
+
+def lm_examples(torch):
+    """The three LM examples at a short argv on the card: quickstart's
+    losses and grad norms against the same example on the host (both from
+    weights drawn on the host) within QUICKSTART_LOSS_ATOL and
+    QUICKSTART_GN_RTOL, its greedy streams whole; serve_paged's schedule,
+    page statistics and traffic the reference example's (its tokens are
+    the port's own); train_lm's run with its injected failure replayed.
+    Returns each one's line and the launches of each kernel."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import core as M
+    counters = {"flash_attention": FA.flash_attention, **serve_counters()}
+    out, launches = {}, dict.fromkeys(counters, 0)
+    for script, argv in LM_EXAMPLES:
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+        argv = argv + (["--ckpt-dir", ckdir] if "train" in script else [])
+        if "quickstart" in script:
+            M.init_params, draw = host_drawn_params(M)
+        t0 = time.time()
+        try:
+            (g, printed), n = counted(counters,
+                                      lambda: run_example(script, argv))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            if "quickstart" in script:
+                host_g, host_printed = run_example(
+                    script, argv + ["--device", "cpu"])
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+            if "quickstart" in script:
+                M.init_params = draw
+        line = {"wall_s": round(wall, 3), "launches": n,
+                "printed": printed.strip().splitlines()[-2:]}
+        if "quickstart" in script:
+            losses, gnorms = quickstart_steps(printed)
+            host_losses, host_gnorms = quickstart_steps(host_printed)
+            check(len(losses) == 5 and all(map(math.isfinite, losses)) and
+                  len(g["out"]) == 8 and n["flash_attention"] > 0 and
+                  n["paged_attention"] > 0,
+                  f"{script}: losses {losses}, launches {n}")
+            check(len(host_losses) == 5 and all(
+                abs(a - b) <= QUICKSTART_LOSS_ATOL and
+                abs(u - v) <= QUICKSTART_GN_RTOL * abs(v)
+                for a, b, u, v in zip(losses, host_losses, gnorms,
+                                      host_gnorms)),
+                f"{script} on the card against the host: losses {losses} "
+                f"vs {host_losses}, grad norms {gnorms} vs {host_gnorms}")
+            line.update(losses=losses, host_losses=host_losses,
+                        grad_norms=gnorms, host_grad_norms=host_gnorms,
+                        greedy_equal_to_host=bool(
+                            (np.stack(g["out"], 1) ==
+                             np.stack(host_g["out"], 1)).all()))
+        elif "serve" in script:
+            eng = g["eng"]
+            check(eng.steps == 150 and eng.kv.stats == {
+                "alloc": 14, "cow": 0, "prefix_hits": 4, "freed": 14} and
+                eng.traffic.h2d_bytes == 11_344 and
+                eng.traffic.d2h_bytes == 2_700 and
+                len(g["done"]) == 6 and n["paged_attention"] ==
+                150 * g["cfg"].n_layers and n["page_set"] > 0,
+                f"{script}: steps {eng.steps}, kv {eng.kv.stats}, traffic "
+                f"{eng.traffic}, launches {n}")
+        else:
+            losses = g["losses"]
+            check(len(losses) == 30 and all(map(math.isfinite, losses)) and
+                  n["flash_attention"] > 0,
+                  f"{script}: {len(losses)} losses, launches {n}")
+        out[script] = line
+        for k, v in n.items():
+            launches[k] += v
+    return out, launches
+
+
+#: the counts of a serving_traffic row that a stream's length reaches: a
+#: greedy near tie may move these between the card and the host, and
+#: nothing else
+STREAM_COUNTS = {"steps", "d2h", "finished"}
+
+
+def sweep_engine(cfg, poll):
+    """The ``serving_traffic`` sweep's engine at ``poll``, for
+    ``lockstep``."""
+    from repro_torch.bench import serving_traffic as ST
+    return lambda impl, params, device: ST.new_engine(cfg, params, poll,
+                                                      device, impl)
+
+
+def phase_lm_panels(torch, runs, dry_cells, rates):
+    """The LM-side twins and examples on the card:
+
+    * ``serving_traffic`` at the reference's size (the smoke sweep, and
+      co-residency at full size on a 2-core ``TorchTarget``): the modelled
+      numbers equal to the same twin's host run (``start_background``:
+      the sweep's engine on the CPU with the same weights, co-residency on
+      PySim) and co-residency's to the checked-in
+      ``results/serving_coresidency.json``, tolerance 0; each poll's
+      engine on the card against the same engine on the CPU by
+      ``lockstep``'s rule, and a row apart from the host's only in its
+      ``STREAM_COUNTS`` and only where that poll's lockstep found a near
+      tie;
+    * the sweep at full width (qwen3-8b whole; each sweep runs its first
+      poll's engine once untimed before its rows): its rows, and each poll's
+      engine on the kernel route against the plain route by ``lockstep``;
+    * ``roofline`` over the ``dryrun`` phase's cells and the card's
+      measured rates; ``hillclimb --quick`` (run on the host in the
+      background): every variant ``OK``, its direction read from its
+      counts;
+    * the three LM examples at a short argv.
+
+    Returns the launches of each kernel on these paths."""
+    from repro_torch.bench import panels, roofline, serving_traffic as ST
+    from repro_torch.configs import CONFIGS
+    t_phase = time.time()
+    deadline = time.time() + PANELS_TIMEOUT
+    counters = serve_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    card_dir = tempfile.mkdtemp(prefix="chip_smoke_serving_traffic_card_")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows, n = counted(counters, lambda: ST.run(
+            quick=False, target="card", out_dir=card_dir))
+    wall = time.time() - t0
+    add(n)
+    # each row's steps, and the untimed warm-up run's (the first poll's
+    # engine: the first row's steps)
+    check(n["paged_attention"] == (sum(r["steps"] for r in rows) +
+                                   rows[0]["steps"]) *
+          CONFIGS["qwen3-8b"].smoke().n_layers and n["page_set"] > 0,
+          f"serving_traffic launches {n}")
+    sim_dir, sim_wall = background_result(runs, "serving_traffic", deadline)
+    files = {}
+    for f in ("torch_serving_traffic.json",
+              "torch_serving_coresidency.json"):
+        with open(os.path.join(card_dir, f)) as fh:
+            files[f] = json.load(fh)
+        check(files[f]["card"], f"{f} names no card")
+    with open(os.path.join(ROOT, "results", "serving_coresidency.json")) as fh:
+        co_want = json.load(fh)
+    diff = panels.differences(files["torch_serving_coresidency.json"],
+                              co_want)
+    check(not diff, f"co_residency on the card against results/serving_"
+          f"coresidency.json: {diff}")
+    with open(os.path.join(sim_dir, "torch_serving_traffic.json")) as fh:
+        host_sweep = json.load(fh)["result"]
+    sweep_diff = panels.differences(files["torch_serving_traffic.json"],
+                                    host_sweep)
+    with open(os.path.join(sim_dir, "torch_serving_coresidency.json")) as fh:
+        check(not panels.differences(files["torch_serving_coresidency.json"],
+                                     json.load(fh)),
+              "co_residency on the card differs from PySim's")
+    # the card's bf16 against the host's, step by step: a greedy near tie
+    # (a differing token within lockstep's tolerance) may move the counts,
+    # nothing else may
+    cfg, params = ST.model("smoke", "card")
+    near_tie = {}
+    for poll in ST.POLLS:
+        _, stats, _, _ = lockstep(
+            torch, cfg, params, ref_params=panels.lm_params(cfg, "cpu"),
+            ref_device="cpu", run=f"serving_traffic poll {poll} card vs cpu",
+            engine=sweep_engine(cfg, poll))
+        near_tie[poll] = stats["near_ties"]
+    host_rows = {r["poll_every"]: panels.modelled(r) for r in host_sweep}
+    for row in panels.modelled(files["torch_serving_traffic.json"]):
+        poll = row["poll_every"]
+        moved = {k for k in row if row[k] != host_rows[poll].get(k)}
+        check(not moved or (near_tie[poll] and moved <= STREAM_COUNTS),
+              f"the sweep's poll {poll} row differs between the card and "
+              f"the host in {sorted(moved)} (near ties in its lockstep: "
+              f"{near_tie[poll]}): {sweep_diff}")
+    # the sweep at full width: the kernel route's rows, then each poll's
+    # engine on both routes in lockstep
+    cfg, params = ST.model("qwen3-8b", "card")
+    full_rows, n = counted(counters, lambda: ST.sweep(cfg, params, "card"))
+    add(n)
+    check(n["paged_attention"] == (sum(r["steps"] for r in full_rows) +
+                                   full_rows[0]["steps"]) * cfg.n_layers,
+          f"serving_traffic at full width: launches {n}")
+    panels.save_json(ST.file_name("qwen3-8b"), full_rows, "card", False,
+                     card_dir)
+    full_vs_plain = {}
+    for poll in ST.POLLS:
+        ek, stats, _, _ = lockstep(torch, cfg, params,
+                                   run=f"serving_traffic qwen3-8b poll "
+                                       f"{poll}",
+                                   engine=sweep_engine(cfg, poll))
+        row = next(r for r in full_rows if r["poll_every"] == poll)
+        full_vs_plain[poll] = {"steps": stats["steps"],
+                               "max_logit_abs_err":
+                               stats["max_logit_abs_err"],
+                               "near_ties": len(stats["near_ties"])}
+        check(stats["steps"] == row["steps"] and ek.traffic.d2h_bytes ==
+              row["d2h"], f"qwen3-8b poll {poll}: the lockstep run differs "
+              f"from the timed sweep")
+    del params, ek
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry run's readings
+    table = roofline.run(target="card", out_dir=card_dir, cells=dry_cells,
+                         measured=rates)
+    check(len(table) == len(dry_cells) and all(
+        r["model_flops"] > 0 and r["useful_flop_frac"] > 0 and
+        0 < r["roofline_frac"] <= 1 for r in table),
+        f"roofline over the dry run's cells: {table}")
+    hc_dir, hc_wall = background_result(runs, "hillclimb", deadline)
+    with open(os.path.join(hc_dir, "torch_hillclimb.json")) as fh:
+        climb = json.load(fh)["result"]
+    check([r["variant"] for r in climb] == ["baseline", "tp_serve"] and
+          all(r["status"] == "OK" for r in climb) and
+          climb[1]["vs_baseline"]["moved"] in ("down", "up", "same"),
+          f"hillclimb --quick: {climb}")
+    examples, n = lm_examples(torch)
+    add(n)
+    emit({"phase": "lm_panels",
+          "serving_traffic": {
+              "rows": files["torch_serving_traffic.json"]["result"],
+              "card_wall_s": round(wall, 3),
+              "host_rows_wall_s": round(sum(panels.walls(host_sweep)), 3),
+              "host_process_s": round(sim_wall, 3),
+              "modelled_equal_to_host": not sweep_diff,
+              "card_vs_cpu_near_ties": near_tie},
+          "co_residency_equal_to_results": True, "tolerance": 0,
+          "serving_traffic_full_width": {
+              "arch": cfg.name, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "rows": full_rows,
+              "kernel_vs_plain": full_vs_plain},
+          "roofline": [{k: r.get(k) for k in (
+              "arch", "shape", "mesh", "model_flops", "useful_flop_frac",
+              "roofline_frac", "roofline_measured")} for r in table],
+          "hillclimb_quick": {"wall_s": round(hc_wall, 1),
+                              "vs_baseline": climb[1]["vs_baseline"]},
+          "examples": examples, "launches": launches,
+          "seconds": round(time.time() - t_phase, 1)})
+    shutil.rmtree(card_dir, ignore_errors=True)
+    shutil.rmtree(sim_dir, ignore_errors=True)
+    shutil.rmtree(hc_dir, ignore_errors=True)
+    return launches
 
 
 def start_dryrun():
@@ -4311,7 +4693,9 @@ def start_dryrun():
 def phase_dryrun(torch, dev, runs):
     """The dry-run cells started by ``start_dryrun`` (they ran beside the
     card's phases), each report read back and ``OK``; the card's measured
-    rates beside the data sheet's the roofline divides by."""
+    rates beside the data sheet's the roofline divides by.  Returns the
+    cells' reports and the rates."""
+    from repro_torch.bench.roofline import measured_rates
     from repro_torch.launch import dryrun as DR
     rates = measured_rates(torch, dev)
     out = []
@@ -4341,6 +4725,7 @@ def phase_dryrun(torch, dev, runs):
           "data_sheet": {"bf16_flop_per_s": DR.PEAK_FLOPS,
                          "hbm_bytes_per_s": DR.HBM_BW,
                          "link_bytes_per_s": DR.LINK_BW}})
+    return out, rates
 
 
 def main():
@@ -4371,22 +4756,24 @@ def main():
 
     phase_build()
     dry = start_dryrun() if "dryrun" in args.only else []
-    sims = start_panels() if "panels" in args.only else []
+    host = start_background(args.only)
     try:
-        return run_phases(torch, dev, args, smi, t_start, dry, sims)
+        return run_phases(torch, dev, args, smi, t_start, dry, host)
     finally:
         procs = [proc for _, _, proc, _ in dry] + \
-            [times["proc"] for _, _, times in sims if "proc" in times]
+            [times["proc"] for _, times in host.values() if "proc" in times]
         for proc in procs:                # stop what a failed run left
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
 
-def run_phases(torch, dev, args, smi, t_start, dry, sims):
+def run_phases(torch, dev, args, smi, t_start, dry, host):
     """Every phase of ``args.only`` in order; returns the exit code."""
     errs = dict.fromkeys(REPLACES, 0.0)
     kernels = []
+    # each kernel's launches on the paths after its own, by phase
+    more = {}
     if "kernel" in args.only:
         errs = phase_kernel(torch, dev)
     if {"kernel", "full", "telemetry", "fleet"} & set(args.only):
@@ -4444,7 +4831,7 @@ def run_phases(torch, dev, args, smi, t_start, dry, sims):
     if "coremark" in args.only:
         phase_coremark(torch)
     if "panels" in args.only:
-        phase_panels(torch, sims)
+        phase_panels(torch, host)
     if "telemetry" in args.only:
         launches, c = phase_telemetry(torch, args.scale, latency)
         kernels.append({
@@ -4495,6 +4882,8 @@ def run_phases(torch, dev, args, smi, t_start, dry, sims):
                     "board past one CTA; launches are the 2 x 500-core "
                     "fleet's and the 2 x 288-core one's at cta_lanes 32, "
                     "one a global chunk"})
+    if "fleet_panels" in args.only:
+        more["fleet_panels"] = phase_fleet_panels(torch, host)
     if "serve" in args.only:
         launches, timing = phase_serve(torch, errs,
                                        args.out if args.profile else None)
@@ -4557,8 +4946,16 @@ def run_phases(torch, dev, args, smi, t_start, dry, sims):
                     "reference's _online_attn mask): jamba's attention at "
                     "its prefill run's S = 2 x window; launches are the "
                     "jamba prefill's"})
-    if "dryrun" in args.only:
-        phase_dryrun(torch, dev, dry)
+    dry_cells, rates = phase_dryrun(torch, dev, dry) \
+        if "dryrun" in args.only else ([], None)
+    if "lm_panels" in args.only:
+        more["lm_panels"] = phase_lm_panels(torch, host, dry_cells, rates)
+    for k in kernels:                 # the launches on the new paths too
+        by_path = {phase: n[k["name"]] for phase, n in more.items()
+                   if n.get(k["name"])}
+        if by_path:
+            k["launches_by_path"] = {"own": k["launches"], **by_path}
+            k["launches"] += sum(by_path.values())
     if set(args.only) != set(PHASES):
         emit({"phase": "partial", "ran": list(args.only),
               "seconds": round(time.time() - t_start, 1)})

@@ -17,9 +17,19 @@ SCRIPTS = ("decode_kernels", "paged_attention_timeline", "port_kernels",
            # the paper's FASE panels (twins of the reference's benchmarks)
            "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
            "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
-           "arg_prefetch")
-#: the FASE panels of :data:`SCRIPTS`, in the paper's order
-PANELS = SCRIPTS[4:]
+           "arg_prefetch",
+           # the fleet panels (twins of the reference's multi-board ones)
+           "fleet_scale", "net_scale", "stall_attribution", "migration",
+           # the LM-side twins
+           "serving_traffic", "roofline", "hillclimb")
+#: the paper's eight FASE panels of :data:`SCRIPTS`, in its order
+PANELS = SCRIPTS[4:12]
+#: the fleet panels of :data:`SCRIPTS`: their boards are targets of the
+#: panel's kind behind one ``FleetRuntime``
+FLEET_PANELS = SCRIPTS[12:16]
+#: the LM-side twins of :data:`SCRIPTS`: the serving engine's poll sweep
+#: and co-residency, and two readings of the port's dry run
+LM_PANELS = SCRIPTS[16:]
 #: modules of this package that are not scripts
 EXCLUDED = frozenset(("__main__", "timing", "panels"))
 

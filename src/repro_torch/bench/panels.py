@@ -30,8 +30,14 @@ RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: the targets a panel runs on: the CUDA device, the port's PySim, and
 #: ``TorchTarget`` on the host (tests)
 TARGETS = ("card", "pysim", "cpu")
-#: the keys of a row that are wall time, not modelled numbers
-WALL_KEYS = ("wall", "wall_s", "oracle_wall_s")
+#: the keys of a row that are measured, not modelled numbers: a row's
+#: wall seconds, the serving engine's host seconds a part of its steps
+#: (scheduling, enqueueing the device work, polling), a dry-run cell's
+#: seconds on the host, the card's measured rates and the roofline
+#: terms at those rates
+WALL_KEYS = ("wall", "wall_s", "oracle_wall_s", "host_schedule_s",
+             "host_enqueue_s", "host_poll_s", "lower_s", "compile_s",
+             "measured", "roofline_measured")
 
 
 def target_kwargs(target: str) -> dict:
@@ -40,7 +46,7 @@ def target_kwargs(target: str) -> dict:
         raise ValueError(f"target must be one of {TARGETS}, got {target!r}")
     if target == "pysim":
         return dict(target="pysim")
-    return dict(target="torch", device="cuda" if target == "card" else "cpu")
+    return dict(target="torch", device=torch_device(target))
 
 
 def make_target(target: str, n_cores: int, mem: int):
@@ -54,6 +60,42 @@ def make_target(target: str, n_cores: int, mem: int):
                                         if k == "device"})
 
 
+def torch_device(target: str) -> str:
+    """Where ``target`` runs the port's tensors (an engine, a model):
+    the CUDA device for ``card``, the host otherwise."""
+    if target not in TARGETS:
+        raise ValueError(f"target must be one of {TARGETS}, got {target!r}")
+    return "cuda" if target == "card" else "cpu"
+
+
+def timed(target: str, fn):
+    """``fn()`` and its wall seconds, the clock stopped after the card is
+    done on ``card``."""
+    t0 = time.time()
+    out = fn()
+    if target == "card":
+        import torch
+        torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+#: the largest model :func:`lm_params` draws on the host
+CPU_DRAW_PARAMS = 50_000_000
+
+
+def lm_params(cfg, device):
+    """Seeded parameters of ``cfg`` (``init_params(cfg, 0)``) on
+    ``device``.  A model of up to ``CPU_DRAW_PARAMS`` parameters is drawn
+    on the host and moved, so the card and the CPU decode with the same
+    weights; a larger one is drawn on ``device`` itself."""
+    from ..models import core as M
+    from ..training.optim import tree_map
+    if cfg.param_count() > CPU_DRAW_PARAMS:
+        return M.init_params(cfg, 0, device=device)
+    params = M.init_params(cfg, 0, device="cpu")
+    return tree_map(lambda t: t.to(device), params)
+
+
 def run_workload(name, argv_tail, target="card", **kw):
     """:func:`repro_torch.run.run_workload` on ``target``; returns
     ``(runtime, report, wall_seconds)``."""
@@ -64,12 +106,7 @@ def run_workload(name, argv_tail, target="card", **kw):
 def run_runtime(rt, target, max_ticks=1 << 36):
     """``rt.run`` to the end, the wall clock stopped after the device is
     done; returns ``(report, wall_seconds)``."""
-    t0 = time.time()
-    rep = rt.run(max_ticks=max_ticks)
-    if target == "card":
-        import torch
-        torch.cuda.synchronize()
-    return rep, time.time() - t0
+    return timed(target, lambda: rt.run(max_ticks=max_ticks))
 
 
 def parse_kv(stdout: bytes) -> dict:
@@ -123,6 +160,16 @@ def modelled(obj):
     return strip(obj)
 
 
+def walls(obj) -> list:
+    """Every ``wall_s`` of a result, at any depth, in order."""
+    if isinstance(obj, dict):
+        return [w for k, v in obj.items()
+                for w in ([v] if k == "wall_s" else walls(v))]
+    if isinstance(obj, list):
+        return [w for v in obj for w in walls(v)]
+    return []
+
+
 def differences(a, b, where="", limit=8) -> list:
     """Where the modelled numbers of ``a`` and ``b`` differ (at most
     ``limit`` places), as ``path: a != b`` strings."""
@@ -167,15 +214,19 @@ def check_against(paths, against: str) -> int:
     return rc
 
 
-def cli(doc: str, links: bool = False):
-    """The panel's argument parser: ``--quick``, ``--target``, ``--out``,
-    ``--against`` (and ``--link`` where the reference panel has it)."""
+def cli(doc: str, links: bool = False, options=(), host_only=False):
+    """The panel's argument parser: ``--quick``, ``--target`` (none where
+    the panel is ``host_only``), ``--out``, ``--against`` (and ``--link``
+    where the reference panel has it), and the panel's own ``options``,
+    each ``(flag, add_argument keywords)``."""
     ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="the reference's quick cut")
-    ap.add_argument("--target", default="card", choices=TARGETS[:2],
-                    help="card (default): TorchTarget on the CUDA device; "
-                         "pysim: the port's pure-Python simulator")
+    if not host_only:
+        ap.add_argument("--target", default="card", choices=TARGETS[:2],
+                        help="card (default): TorchTarget on the CUDA "
+                             "device; pysim: the port's pure-Python "
+                             "simulator")
     ap.add_argument("--out", default=None,
                     help="directory for torch_<name>.json (default "
                          "results/)")
@@ -184,16 +235,21 @@ def cli(doc: str, links: bool = False):
     if links:
         ap.add_argument("--link", default="uart",
                         choices=["uart", "pcie", "oracle"])
+    for flag, kw in options:
+        ap.add_argument(flag, **kw)
     return ap
 
 
-def main(run, doc: str, files, links: bool = False) -> int:
+def main(run, doc: str, files, links: bool = False, options=(),
+         host_only=False) -> int:
     """Parse the panel's command line, run it (``run`` takes ``quick``,
-    ``target``, ``out_dir`` and, with ``links``, ``link``; it writes
-    ``torch_<f>.json`` for each of ``files``) and, with ``--against``,
-    compare what it wrote; returns the exit code."""
-    a = cli(doc, links).parse_args()
-    if a.target == "card":
+    ``out_dir``, ``target`` unless the panel is ``host_only`` (it runs on
+    the host's CPU whatever the card), with ``links`` ``link``, and each
+    of ``options`` by its name; it writes ``torch_<f>.json`` for each of
+    ``files``, or of ``files(args)`` where that is a function) and, with
+    ``--against``, compare what it wrote; returns the exit code."""
+    a = cli(doc, links, options, host_only).parse_args()
+    if not host_only and a.target == "card":
         import torch
         if not torch.cuda.is_available():
             import sys
@@ -201,8 +257,13 @@ def main(run, doc: str, files, links: bool = False) -> int:
                   "pass --target pysim to run on the host",
                   file=sys.stderr)
             return 1
-    kw = dict(link=a.link) if links else {}
-    run(quick=a.quick, target=a.target, out_dir=a.out, **kw)
+    kw = {} if host_only else dict(target=a.target)
+    if links:
+        kw["link"] = a.link
+    for flag, opt in options:
+        name = opt.get("dest", flag.lstrip("-").replace("-", "_"))
+        kw[name] = getattr(a, name)
+    run(quick=a.quick, out_dir=a.out, **kw)
     paths = [os.path.join(a.out or RESULTS_DIR, f"torch_{f}.json")
-             for f in files]
+             for f in (files(a) if callable(files) else files)]
     return check_against(paths, a.against) if a.against else 0

@@ -401,15 +401,26 @@ def microbatches(v, n_micro):
     batch whose rows are sharded over more ranks than there are
     microbatches is gathered first and each microbatch's rows sharded
     again (DTensor does not split a sharded dim it would have to move):
-    the reshard XLA makes of the same reshape."""
+    the reshard XLA makes of the same reshape.  A microbatch is sharded
+    only over the row axes, in order, whose product divides its rows, and
+    kept whole on the rest (as :func:`~repro_torch.distributed.sharding.
+    dp_for` keeps a batch smaller than the data-parallel extent): DTensor
+    infers a shard's global shape from even shards, where XLA pads."""
     if not is_dtensor(v):
         return v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
     from torch.distributed.tensor import Replicate, Shard
     rows = v.placements
+    mesh = v.device_mesh
     v = v.redistribute(placements=[Replicate()] * len(rows))
     v = v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
-    return v.redistribute(placements=[Shard(1) if p.is_shard(0) else p
-                                      for p in rows])
+    out, ways = [], 1
+    for dim, p in enumerate(rows):
+        if p.is_shard(0):
+            even = v.shape[1] % (ways * mesh.size(dim)) == 0
+            ways *= mesh.size(dim) if even else 1
+            p = Shard(1) if even else Replicate()
+        out.append(p)
+    return v.redistribute(placements=out)
 
 
 def unbind(t):

@@ -74,8 +74,10 @@ def test_port_bench_package_passes_its_own_audit():
     bench.audit()
     assert set(bench.SCRIPTS) == {"decode_kernels", "dryrun_sweep",
                                   "paged_attention_timeline",
-                                  "port_kernels", *bench.PANELS}
+                                  "port_kernels", *bench.PANELS,
+                                  *bench.FLEET_PANELS, *bench.LM_PANELS}
     assert len(bench.PANELS) == 8 and "panels" in bench.EXCLUDED
+    assert len(bench.FLEET_PANELS) == 4 and len(bench.LM_PANELS) == 3
 
 
 def test_port_bench_runner_lists_every_script():
@@ -94,12 +96,16 @@ def test_port_bench_runner_lists_every_script():
                                   "stall_breakdown", "gapbs_accuracy",
                                   "coremark_accuracy", "baud_sweep",
                                   "hfutex_bench", "scale_sweep",
-                                  "arg_prefetch"])
+                                  "arg_prefetch", "fleet_scale",
+                                  "net_scale", "stall_attribution",
+                                  "migration", "serving_traffic",
+                                  "roofline", "hillclimb"])
 def test_each_script_runs_as_a_module_of_the_port(name):
     """``python -m repro_torch.bench.<name>``: ``--help`` where the script
     takes flags, else the refusal without a card (exit 1, no result).
-    The FASE panels take ``--quick``, ``--target card|pysim``, ``--out``
-    and ``--against``."""
+    The FASE panels, the fleet panels and the LM-side twins take
+    ``--quick``, ``--out`` and ``--against``, and each but ``hillclimb``
+    ``--target card|pysim``."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -112,7 +118,9 @@ def test_each_script_runs_as_a_module_of_the_port(name):
     if flags:
         assert out.returncode == 0 and "usage:" in out.stdout, out.stderr
         if name in bench_panels():
-            assert "--target {card,pysim}" in out.stdout
+            # hillclimb lowers its cells on the host: it takes no target
+            assert ("--target {card,pysim}" in out.stdout) == \
+                (name != "hillclimb")
             assert "--against" in out.stdout
     else:
         assert out.returncode == 1 and "no CUDA device" in out.stderr
@@ -121,7 +129,7 @@ def test_each_script_runs_as_a_module_of_the_port(name):
 
 def bench_panels():
     from repro_torch import bench
-    return bench.PANELS
+    return bench.PANELS + bench.FLEET_PANELS + bench.LM_PANELS
 
 
 def test_a_panel_on_the_card_refuses_without_one(tmp_path):

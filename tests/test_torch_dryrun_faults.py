@@ -193,3 +193,28 @@ def test_no_weight_is_saved_whole_for_the_backward(small_shapes):
     whole = [(shape, pl) for shape, pl in saved
              if shape in weights and not pl[0].is_shard()]
     assert not whole, whole
+
+
+def test_dp_only_microbatches_smaller_than_the_ranks_lower(monkeypatch):
+    """hillclimb's xlstm-350m ``train_4k`` ``dp_only`` cell: ``dp_only``
+    shards the batch's rows over every axis, and 8 microbatches of 2 rows
+    on a 2 x 4 mesh have fewer rows than its 8 ranks.  Each microbatch is
+    sharded over the data axis (2 divides its rows) and kept whole on the
+    model axis, and the cell lowers ``OK``; sharded over all 8 ranks,
+    DTensor read 8 rows from a shard of 1 and the loss's product refused
+    the mask's 2 (the fault the hill-climb met at production size)."""
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    monkeypatch.setattr(st, "SHAPES", {
+        k: dict(v, seq=64, batch=16) for k, v in st.SHAPES.items()})
+    dims, names = MESHES["2x4"]
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=names)
+        rows = distribute_tensor(torch.empty((16, 4), device="meta"), mesh,
+                                 [Shard(0), Shard(0)])
+        micro = DT.microbatches(rows, 8)
+        assert tuple(micro.shape) == (8, 2, 4)
+        assert tuple(micro.placements) == (Shard(1), Replicate())
+        res = DR.lower(CONFIGS["xlstm-350m"].smoke(), "train_4k", mesh,
+                       "dp_only")
+    assert res["status"] == "OK" and res["n_micro"] == 8

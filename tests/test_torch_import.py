@@ -65,7 +65,9 @@ PORT_MODULES = [
 ] + [f"repro_torch.bench.{name}" for name in (
     "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
     "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
-    "arg_prefetch")] + [f"repro_torch.configs.{name}" for name in (
+    "arg_prefetch", "fleet_scale", "net_scale", "stall_attribution",
+    "migration", "serving_traffic", "roofline", "hillclimb")] + [
+    f"repro_torch.configs.{name}" for name in (
     "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
     "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",
     "phi35_moe_42b", "qwen3_8b", "xlstm_350m")]
@@ -91,7 +93,8 @@ def test_port_sources_have_no_jax_or_reference_imports():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     root = Path(SRC) / "repro_torch"
-    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
+    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"] \
+        + sorted((Path(SRC).parent / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -106,7 +109,8 @@ def test_port_sources_start_no_interpreter_that_imports_jax_or_reference():
                      r"|import_module\(\s*['\"](jax|jaxlib|repro)['\".]",
                      re.M)
     root = Path(SRC) / "repro_torch"
-    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
+    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"] \
+        + sorted((Path(SRC).parent / "examples").glob("torch_*.py"))
     assert len(files) > 20
     assert pat.search('"import jax",') and pat.search("from repro.launch")
     assert not pat.search("from repro_torch.launch import dryrun")
