@@ -15,7 +15,9 @@ a sliding window, in both designs), and drives the port's paths:
   ``TorchTarget(device="cuda")`` on both routes of the interpreter — the
   chunk kernel (one launch per chunk) and the eager loop
   (``chunk_kernel="ref"``, the standalone ``walk_fetch_block`` once a
-  substep) — with every state field compared after every chunk; then the
+  substep) — with every state field compared after every chunk (bc's
+  eager run is the ``telemetry`` phase's armed one, held against both
+  kernel routes, when both phases run); then the
   full-width run on the chunk kernel — the registry's ``FASE_ROCKET_PCIE``
   deployment (4 cores, 64 MiB target image resident on the card, PCIe
   async queue pair) running GAPBS ``bc`` with 4 threads — against
@@ -32,6 +34,14 @@ a sliding window, in both designs), and drives the port's paths:
   ``repro_torch.bench`` at ``--quick`` on the card, each file's modelled
   numbers equal to the same panel's run on the port's PySim (run one
   after another in the background from launch), with the wall of each;
+* the speed panels (phase ``speed_panels``): ``target_speed`` and
+  ``speedup`` at ``--quick`` on the card — bc 4T on rmat(5,8) on the chunk
+  kernel with and without the fetch-block cache, on the eager loop and on
+  four boards of the stacked fleet kernel; CoreMark against PySim — each
+  row's modelled numbers equal to the same twin's PySim run, its launches
+  one a chunk (a substep, a global chunk) and the twin's quick gate held;
+  before them the chunk kernel with ``block_cache=False`` against the
+  eager route with the same knob after every chunk on hello@UART;
 * telemetry (phase ``telemetry``): hello@UART and bc@PCIe with both
   out-of-band bridges armed on both interpreter routes, the ring included
   in the fields compared after every chunk; bc@PCIe on the chunk kernel's
@@ -367,15 +377,20 @@ RESTART_ATOL = 1e-6
 #: telemetry (tests/test_telemetry.py ARMED)
 TELEM_ARMED = dict(counters=True, commit_trace=True, interval_ticks=50_000,
                    trace_slots=256)
+#: the depth of bc@PCIe's armed eager run (``telemetry_goldens``): it ends
+#: with the chunk that takes it to this many of bc's 11 472 substeps (23 of
+#: 68 chunks: the graph load, both threads' start, the first parallel
+#: chunks; ~35 % of the ~90-160 s the whole run costs on the card's host)
+BC_EAGER_SUBSTEPS = 4096
 #: the ring of the traced chunk kernel's timed chunk: the registry's
 #: telem_trace_slots (configs/registry.py FASE_ROCKET)
 TRACE_SLOTS = 4096
 #: a lossless capture's ring (telemetry/replay.py's default)
 CAPTURE_SLOTS = 1 << 15
 
-PHASES = ("kernel", "chunk", "full", "coremark", "panels", "telemetry",
-          "fleet", "fleet_panels", "serve", "train", "families", "dryrun",
-          "lm_panels")
+PHASES = ("kernel", "chunk", "full", "coremark", "panels", "speed_panels",
+          "telemetry", "fleet", "fleet_panels", "serve", "train", "families",
+          "dryrun", "lm_panels")
 #: seconds a phase waits for the host's share of its panels (they run
 #: one after another in the background from launch)
 PANELS_TIMEOUT = 600
@@ -915,21 +930,45 @@ def compare_states(torch, got, want, what):
             fail(f"{what}: {name} differs at {bad}")
 
 
-def routes_in_lockstep(torch, name, argv, pins, on_report=None, **kw):
+#: the commit-trace ring's state fields: the only ones an armed run may
+#: hold apart from an unarmed run of the same guest
+RING_FIELDS = ("tracebuf", "trace_n", "trace_armed")
+
+
+class _EagerCut(Exception):
+    """Raised by the eager route's target once it has run the substeps it
+    was given (``routes_in_lockstep``'s ``eager_substeps``)."""
+
+    def __init__(self, target):
+        super().__init__("eager route cut")
+        self.target = target
+
+
+def routes_in_lockstep(torch, name, argv, pins, on_report=None,
+                       target_opts=None, eager=True, keep=None, also=None,
+                       eager_substeps=None, **kw):
     """``name`` on both routes of the interpreter: the chunk kernel first,
     each chunk's state kept on the card; then the eager loop with the
     standalone walk kernel, each chunk's state and substep count held
     against the kernel route's.  Each route must hit ``pins``, and
     ``on_report(route, report)`` is called with each route's report.
+    ``target_opts`` go to both routes' targets (``block_cache=False``).
     With ``telemetry=`` in ``kw`` the ring is armed, the kernel route
     launches the traced instantiation and every state field compared
-    includes ``tracebuf``/``trace_n``/``trace_armed``.  Returns the
-    launches each route made."""
+    includes ``tracebuf``/``trace_n``/``trace_armed``.  ``eager=False``
+    runs the kernel route alone, its chunks appended to the list ``keep``;
+    ``also`` (such a list, of an unarmed kernel route) holds the eager
+    route against a second kernel route after every chunk too, on every
+    field but :data:`RING_FIELDS`.  ``eager_substeps`` cuts the eager
+    route's depth: it stops at the end of the chunk that takes it to that
+    many substeps, every chunk up to there held as above (its pins and
+    report are then the kernel route's alone).  Returns the launches each
+    route made and the number of chunks."""
     from repro_torch.core.interface import TorchTarget
     from repro_torch.kernels.page_walk import page_walk
     from repro_torch.kernels.run_chunk.run_chunk import run_chunk
     from repro_torch.run import run_workload
-    chunks = []
+    chunks = [] if keep is None else keep
 
     class Recording(TorchTarget):
         def run(self, max_cycles=1 << 62):
@@ -952,35 +991,59 @@ def routes_in_lockstep(torch, name, argv, pins, on_report=None, **kw):
                   f"!= the kernel route's {sub}")
             compare_states(torch, state_fields(self.st), want,
                            f"{name} chunk {i}")
+            if also is not None:
+                check(i <= len(also), f"{name}: the eager route ran more "
+                      f"chunks than the unarmed kernel route's {len(also)}")
+                sub, want = also[i - 1]
+                check(self.substeps - before == sub,
+                      f"{name} chunk {i}: substeps {self.substeps - before}"
+                      f" != the unarmed kernel route's {sub}")
+                compare_states(torch, state_fields(self.st),
+                               {k: v for k, v in want.items()
+                                if k not in RING_FIELDS},
+                               f"{name} chunk {i} (unarmed kernel route)")
+            if eager_substeps is not None and \
+                    self.substeps >= eager_substeps and i < len(chunks):
+                raise _EagerCut(self)
 
     out = {}
-    for route, cls, opts in (
-            ("kernel", Recording, {}),
-            ("ref", Checking, dict(chunk_kernel="ref",
-                                   fetch_kernel="kernel"))):
+    routes = (("kernel", Recording, {}),
+              ("ref", Checking, dict(chunk_kernel="ref",
+                                     fetch_kernel="kernel")))
+    for route, cls, opts in routes if eager else routes[:1]:
+        opts = {**(target_opts or {}), **opts}
         with target_class(cls):
             run_chunk.launches = 0                  # just before the path
             run_chunk.trace_launches = 0
             page_walk.walk_fetch_block.launches = 0
-            rt, rep, wall = run_workload(name, argv, device="cuda",
-                                         target_opts=opts, **kw)
+            t0 = time.time()
+            try:
+                rt, rep, wall = run_workload(name, argv, device="cuda",
+                                             target_opts=opts, **kw)
+                tgt = rt.target
+            except _EagerCut as cut:
+                torch.cuda.synchronize()
+                rep, wall, tgt = None, time.time() - t0, cut.target
             launches = dict(run_chunk=run_chunk.launches,
                             run_chunk_trace=run_chunk.trace_launches,
                             walk_fetch_block=page_walk.walk_fetch_block
                             .launches)               # just after it
-        tgt = rt.target
-        got = dict(ticks=rep.ticks, instret=sum(rep.instret),
-                   traffic=rep.traffic_total, stdout=rep.stdout.decode())
+        got = {} if rep is None else dict(
+            ticks=rep.ticks, instret=sum(rep.instret),
+            traffic=rep.traffic_total, stdout=rep.stdout.decode())
         emit({"phase": f"{name}_{kw.get('link') or 'uart'}", "route": route,
+              **({"target_opts": target_opts} if target_opts else {}),
               **{k: got[k] for k in pins if k in got},
+              **({} if rep else {"cut_after_chunks": tgt.chunks}),
               "substeps": tgt.substeps, "launches": launches,
               "wall_s": round(wall, 3),
               "s_per_substep": wall / tgt.substeps})
-        for k, v in pins.items():
-            check(got[k] == v, f"{name} on the {route} route: {k} "
-                  f"{got[k]!r} != {v!r}")
-        if on_report is not None:
-            on_report(route, rep)
+        if rep is not None:
+            for k, v in pins.items():
+                check(got[k] == v, f"{name} on the {route} route: {k} "
+                      f"{got[k]!r} != {v!r}")
+            if on_report is not None:
+                on_report(route, rep)
         traced = "telemetry" in kw
         used, unused = (("run_chunk_trace", "run_chunk") if traced else
                         ("run_chunk", "run_chunk_trace"))
@@ -991,9 +1054,11 @@ def routes_in_lockstep(torch, name, argv, pins, on_report=None, **kw):
                   launches[unused] == 0,
                   f"{launches} chunk launches for {len(chunks)} chunks")
         else:
-            check(getattr(tgt, "chunks", 0) == len(chunks),
-                  f"{name}: the eager route ran {getattr(tgt, 'chunks', 0)}"
-                  f" chunks, the kernel route {len(chunks)}")
+            ran = getattr(tgt, "chunks", 0)
+            check((ran == len(chunks) if rep else 0 < ran < len(chunks))
+                  and (also is None or len(also) == len(chunks)),
+                  f"{name}: the eager route ran {ran} chunks, the kernel "
+                  f"route {len(chunks)}")
             check(launches["run_chunk"] == launches["run_chunk_trace"] == 0,
                   "the eager route launched the chunk kernel")
             check(launches["walk_fetch_block"] == tgt.substeps,
@@ -1002,24 +1067,42 @@ def routes_in_lockstep(torch, name, argv, pins, on_report=None, **kw):
     return out, len(chunks)
 
 
-def phase_chunk(torch):
+HELLO_PINS = dict(ticks=HELLO_UART["ticks"],
+                  stdout=HELLO_UART["stdout"].decode())
+
+
+def bc_pcie_run():
+    """bc@PCIe 2T's argv and ``run_workload`` keywords (the pin's run)."""
+    from repro_torch.core.workloads import graphgen
+    g = graphgen.rmat(4, 4, weights=True)
+    return ["g.bin", "2", "1"], dict(link="pcie", n_cores=2, mem=1 << 22,
+                                     files={"g.bin": g})
+
+
+def phase_chunk(torch, bc_chunks=None):
     """hello@UART and bc@PCIe 2T on both routes, state equal after every
     chunk; returns the standalone walk kernel's launches on the eager
-    route."""
-    from repro_torch.core.workloads import graphgen
+    route.  Given a list ``bc_chunks``, bc runs on the kernel route alone
+    and its chunks go there: the ``telemetry`` phase's armed eager run is
+    then held against them after every chunk it runs (one eager bc run,
+    cut to ``BC_EAGER_SUBSTEPS``, instead of two whole ones of some 90-160
+    s each on the card's host)."""
     t0 = time.time()
     hello, n_hello = routes_in_lockstep(
-        torch, "hello", [], dict(ticks=HELLO_UART["ticks"],
-                                 stdout=HELLO_UART["stdout"].decode()),
-        mode="fase", n_cores=1, mem=1 << 22)
-    g = graphgen.rmat(4, 4, weights=True)
+        torch, "hello", [], HELLO_PINS, mode="fase", n_cores=1, mem=1 << 22)
+    argv, kw = bc_pcie_run()
     bc, n_bc = routes_in_lockstep(
-        torch, "bc", ["g.bin", "2", "1"], BC_PCIE, mode="fase", link="pcie",
-        n_cores=2, mem=1 << 22, files={"g.bin": g})
-    walks = hello["ref"]["walk_fetch_block"] + bc["ref"]["walk_fetch_block"]
+        torch, "bc", argv, BC_PCIE, mode="fase", eager=bc_chunks is None,
+        keep=bc_chunks, **kw)
+    walks = hello["ref"]["walk_fetch_block"] + \
+        bc.get("ref", {}).get("walk_fetch_block", 0)
     emit({"phase": "chunk_vs_plain", "workloads": ["hello@uart", "bc@pcie"],
           "chunks": n_hello + n_bc, "fields_equal_after_every_chunk": True,
           "tolerance": 0, "walk_fetch_block_launches_eager": walks,
+          **({"bc_eager_route": "telemetry_goldens: its armed eager run, "
+                                "held against this kernel route's chunks "
+                                f"to {BC_EAGER_SUBSTEPS} substeps"}
+             if bc_chunks is not None else {}),
           "seconds": round(time.time() - t0, 1)})
     from repro_torch.kernels.run_chunk import run_chunk as RC
     RC.run_chunk.cluster_launches = RC.run_chunk.cluster_trace_launches = 0
@@ -1712,25 +1795,27 @@ def pysim_report(name, argv, **kw):
     return run_workload(name, argv, mode="fase", target="pysim", **kw)
 
 
-def telemetry_goldens(torch):
+def telemetry_goldens(torch, bc_chunks=None):
     """hello@UART and bc@PCIe 2T with both bridges armed on both routes,
     every field (the ring included) equal after every chunk, the pins
     held, every hello record drained, and each report equal to PySim's
-    but for the backend model counters."""
-    from repro_torch.core.workloads import graphgen
+    but for the backend model counters.  bc's eager route runs to
+    ``BC_EAGER_SUBSTEPS`` (its report and pins are the kernel route's).
+    ``bc_chunks`` (the ``chunk`` phase's unarmed kernel route of bc) holds
+    the armed eager bc run against that route too, after every chunk, on
+    every field but the ring's."""
     from repro_torch.telemetry import without_backend_counters
-    g = graphgen.rmat(4, 4, weights=True)
-    runs = (("hello", [], dict(ticks=HELLO_UART["ticks"],
-                               stdout=HELLO_UART["stdout"].decode()),
-             dict(n_cores=1, mem=1 << 22)),
-            ("bc", ["g.bin", "2", "1"], BC_PCIE,
-             dict(link="pcie", n_cores=2, mem=1 << 22, files={"g.bin": g})))
+    bc_argv, bc_kw = bc_pcie_run()
+    runs = (("hello", [], HELLO_PINS, dict(n_cores=1, mem=1 << 22)),
+            ("bc", bc_argv, BC_PCIE, bc_kw))
     out = {}
     for name, argv, pins, kw in runs:
         reps = {}
         launches, chunks = routes_in_lockstep(
             torch, name, argv, pins,
             on_report=lambda route, rep: reps.__setitem__(route, rep),
+            also=bc_chunks if name == "bc" else None,
+            eager_substeps=BC_EAGER_SUBSTEPS if name == "bc" else None,
             mode="fase", telemetry=dict(TELEM_ARMED), **kw)
         _, want, _ = pysim_report(name, argv, telemetry=dict(TELEM_ARMED),
                                   **kw)
@@ -1750,6 +1835,9 @@ def telemetry_goldens(torch):
                   f"{name} armed on the {route} route: the telemetry "
                   f"report differs from PySim's")
         out[name] = dict(chunks=chunks, launches=launches,
+                         **({"also_equal_to_unarmed_kernel_route": True}
+                            if name == "bc" and bc_chunks is not None
+                            else {}),
                          records=reps["kernel"].telemetry[
                              "commit_trace"]["records"],
                          ring_dropped=reps["kernel"].telemetry[
@@ -2054,9 +2142,9 @@ def telemetry_clis(torch):
                 gate=[ln for ln in text.splitlines() if ": " in ln])
 
 
-def phase_telemetry(torch, scale, latency):
+def phase_telemetry(torch, scale, latency, bc_chunks=None):
     t0 = time.time()
-    goldens = telemetry_goldens(torch)
+    goldens = telemetry_goldens(torch, bc_chunks)
     emit({"phase": "telemetry_goldens", "telemetry": TELEM_ARMED,
           "fields_equal_after_every_chunk": True, "tolerance": 0,
           **goldens, "seconds": round(time.time() - t0, 1)})
@@ -2076,7 +2164,8 @@ def phase_telemetry(torch, scale, latency):
     emit({"phase": "telemetry_clis", "device": "cuda", **clis,
           "seconds": round(time.time() - t1, 1)})
     emit({"phase": "telemetry", "seconds": round(time.time() - t0, 1)})
-    return full["launches"]["run_chunk_trace"], timing
+    return full["launches"]["run_chunk_trace"], timing, \
+        goldens["bc"]["launches"]["ref"]["walk_fetch_block"]
 
 
 # ---------------------------------------------------------------------------
@@ -2443,10 +2532,11 @@ def time_run_chunk_fleet(torch, latency):
         for _ in range(20):
             chunk("kernel")
         torch.cuda.synchronize()
-    kern = [e for e in device_events(prof.key_averages())
-            if "run_chunk_fleet" in e.key]
+    on_dev = device_events(prof.key_averages())
+    kern = [e for e in on_dev if "run_chunk_fleet" in e.key]
     check(len(kern) == 1 and kern[0].count >= 10,
-          "profile: the fleet kernel was not traced")
+          f"profile: the fleet kernel was not traced 20 times: "
+          f"{[(e.key, e.count) for e in on_dev]}")
     dev_ms = kern[0].self_device_time_total / kern[0].count / 1e3
     # bytes: every board's state fields read once and written once
     nbytes = 2 * sum(v.numel() * v.element_size() for k, v in
@@ -4159,7 +4249,8 @@ def start_background(only):
     """The host's share of the panels, one process after another in the
     background (they take one of the host's cores from the card's
     phases): with ``panels``, each of ``repro_torch.bench.PANELS`` at
-    ``--quick`` on the port's PySim; with ``fleet_panels``, each of
+    ``--quick`` on the port's PySim; with ``speed_panels``, each of
+    ``SPEED_PANELS`` the same way; with ``fleet_panels``, each of
     ``FLEET_PANELS`` at full size on PySim; with ``lm_panels``,
     ``serving_traffic`` on the host (the smoke sweep's engine on the CPU,
     co-residency at full size on PySim) and ``hillclimb --quick`` (its
@@ -4169,10 +4260,13 @@ def start_background(only):
     in ``times["rc"]`` and ``times["wall"]``, and its process in
     ``times["proc"]`` while it runs."""
     import threading
-    from repro_torch.bench import FLEET_PANELS, PANELS
+    from repro_torch.bench import FLEET_PANELS, PANELS, SPEED_PANELS
     jobs = []
     if "panels" in only:
         jobs += [(name, ["--quick", "--target", "pysim"]) for name in PANELS]
+    if "speed_panels" in only:
+        jobs += [(name, ["--quick", "--target", "pysim"])
+                 for name in SPEED_PANELS]
     if "fleet_panels" in only:
         jobs += [(name, ["--target", "pysim"]) for name in FLEET_PANELS]
     if "lm_panels" in only:
@@ -4263,6 +4357,105 @@ def phase_panels(torch, runs):
     emit({"phase": "panels", "quick": True, "modelled_equal_to_pysim": True,
           "tolerance": 0, "panels": out,
           "seconds": round(time.time() - t_phase, 1)})
+
+
+def phase_speed_panels(torch, runs):
+    """The two speed panels at ``--quick`` on the card, through each
+    twin's own ``run``: ``target_speed`` (its kernel rows on ``run_chunk``,
+    with and without the fetch-block cache, its eager row on the eager
+    loop with the standalone ``walk_fetch_block``, its fleet row on
+    ``run_chunk_fleet``) and ``speedup`` (CoreMark on the card against
+    PySim).  Each row's modelled numbers equal the same twin's run on the
+    port's PySim (``start_background``), tolerance 0; the twin itself
+    exits 1 where a row's launches are not one a chunk (a substep, a
+    dispatch) or the quick gate fails.  Before them, ``run_chunk`` with
+    ``block_cache=False`` (the ``kernel_nocache`` row's path) against the
+    eager route with the same knob after every chunk on hello@UART.
+    Returns the launches of each kernel on the two panels' paths."""
+    import importlib
+    from repro_torch.bench import SPEED_PANELS
+    from repro_torch.bench import target_speed as TS
+    from repro_torch.kernels.page_walk import page_walk
+    from repro_torch.kernels.run_chunk import run_chunk as RC
+    t_phase = time.time()
+    chunks = []
+    nocache, n_chunks = routes_in_lockstep(
+        torch, "hello", [], HELLO_PINS, target_opts=dict(block_cache=False),
+        keep=chunks, mode="fase", n_cores=1, mem=1 << 22)
+    last = chunks[-1][1]
+    hits, walks = int(last["fetch_hits"].sum()), int(last["fetch_walks"].sum())
+    check(hits == 0 and walks > 0, f"block_cache=False: the kernel route "
+          f"counted {hits} fetch-block hits and {walks} walks")
+    del chunks, last
+    emit({"phase": "nocache_vs_plain", "workload": "hello@uart",
+          "target_opts": {"block_cache": False}, "chunks": n_chunks,
+          "fields_equal_after_every_chunk": True, "tolerance": 0,
+          "fetch_hits": hits, "fetch_walks": walks, "launches": nocache})
+    counters = {"run_chunk": RC.run_chunk,
+                "run_chunk_fleet": RC.run_chunk_fleet,
+                "walk_fetch_block": page_walk.walk_fetch_block}
+    out, launches = {}, {}
+    deadline = time.time() + PANELS_TIMEOUT
+    for name in SPEED_PANELS:
+        twin = importlib.import_module(f"repro_torch.bench.{name}")
+        card_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_card_")
+        printed = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(printed):   # its row lines
+                _, n = counted(counters, lambda: twin.run(
+                    quick=True, target="card", out_dir=card_dir))
+        except SystemExit as e:
+            fail(f"speed panel {name} on the card exited {e.code}:\n"
+                 f"{printed.getvalue()[-3000:]}")
+        wall = time.time() - t0
+        sim_dir, sim_wall = background_result(runs, name, deadline)
+        with open(os.path.join(card_dir, f"torch_{name}.json")) as f:
+            card = json.load(f)
+        with open(os.path.join(sim_dir, f"torch_{name}.json")) as f:
+            sim = json.load(f)
+        check(card["target"] == "card" and card["card"],
+              f"speed panel {name}: its file names no card")
+        if name == "target_speed":
+            rows = card["result"]["rows"]
+            got = (TS.modelled_rows(card),
+                   {r["name"]: r["runs"] for r in rows if "runs" in r})
+            want = (TS.modelled_rows(sim),
+                    {r["name"]: r["runs"]
+                     for r in sim["result"]["rows"] if "runs" in r})
+            check(n["run_chunk"] > 0 and n["run_chunk_fleet"] > 0 and
+                  n["walk_fetch_block"] > 0, f"target_speed: launches {n}")
+            out[name] = {
+                "rows": {r["name"]: {k: r.get(k) for k in (
+                    "instructions", "ticks", "ips", "wall_s", "runs",
+                    "substeps", "dispatches", "launches")
+                    if r.get(k) is not None} for r in rows},
+                "kernel_vs_eager_speedup":
+                card["result"]["kernel_vs_eager_speedup"],
+                "fleet_aggregate_vs_one_board":
+                card["result"]["fleet_aggregate_vs_one_board"]}
+        else:
+            got = [(r["instret"], r["model_s"]) for r in card["result"][:2]]
+            want = [(r["instret"], r["model_s"]) for r in sim["result"][:2]]
+            check(got[0] == got[1] and n["run_chunk"] > 0,
+                  f"speedup: rows {got}, launches {n}")
+            out[name] = {"rows": {r["target"]: {
+                k: r[k] for k in ("instret", "model_s", "wall_s",
+                                  "inst_per_s", "wall_per_iter")}
+                for r in card["result"][:2]},
+                "ratio": card["result"][2]["value"]}
+        check(got == want, f"speed panel {name}: the card's modelled "
+              f"numbers differ from PySim's: {got} != {want}")
+        out[name].update(card_wall_s=round(wall, 3),
+                         pysim_process_s=round(sim_wall, 3), launches=n)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        shutil.rmtree(card_dir, ignore_errors=True)
+        shutil.rmtree(sim_dir, ignore_errors=True)
+    emit({"phase": "speed_panels", "quick": True,
+          "modelled_equal_to_pysim": True, "tolerance": 0, "panels": out,
+          "launches": launches, "seconds": round(time.time() - t_phase, 1)})
+    return launches
 
 
 def serve_counters():
@@ -4754,10 +4947,12 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    phase_build()
-    dry = start_dryrun() if "dryrun" in args.only else []
+    # the host's PySim panels need no kernel: they start before the build
     host = start_background(args.only)
+    dry = []
     try:
+        phase_build()
+        dry = start_dryrun() if "dryrun" in args.only else []
         return run_phases(torch, dev, args, smi, t_start, dry, host)
     finally:
         procs = [proc for _, _, proc, _ in dry] + \
@@ -4781,8 +4976,11 @@ def run_phases(torch, dev, args, smi, t_start, dry, host):
         latency = phase_latency(torch, dev, FASE_ROCKET_PCIE["mem_bytes"] // 8)
     walk_launches = None
     cluster_timing = None
+    # with both phases, bc@PCIe's one eager run is the telemetry phase's
+    # armed run, held against both kernel routes after every chunk
+    bc_chunks = [] if {"chunk", "telemetry"} <= set(args.only) else None
     if "chunk" in args.only:
-        walk_launches, cluster_launches = phase_chunk(torch)
+        walk_launches, cluster_launches = phase_chunk(torch, bc_chunks)
         timing = cluster_timing = time_cluster(torch)
         for name, n in zip(("run_chunk_cluster", "run_chunk_trace_cluster"),
                            cluster_launches):
@@ -4832,8 +5030,20 @@ def run_phases(torch, dev, args, smi, t_start, dry, host):
         phase_coremark(torch)
     if "panels" in args.only:
         phase_panels(torch, host)
+    if "speed_panels" in args.only:
+        more["speed_panels"] = phase_speed_panels(torch, host)
     if "telemetry" in args.only:
-        launches, c = phase_telemetry(torch, args.scale, latency)
+        launches, c, bc_walks = phase_telemetry(torch, args.scale, latency,
+                                                bc_chunks)
+        if bc_chunks is not None:
+            bc_chunks.clear()         # the card's copies of bc's chunks
+            walk = next((k for k in kernels
+                         if k["name"] == "walk_fetch_block"), None)
+            if walk is not None:      # bc's eager walks ran armed
+                walk["launches"] += bc_walks
+                walk["note"] += ("; bc@pcie's eager walks are the armed "
+                                 "run's in telemetry_goldens, held against "
+                                 "both kernel routes")
         kernels.append({
             "name": "run_chunk_trace", "route": "cuda",
             "source": SOURCES["run_chunk_trace"],

@@ -1,6 +1,8 @@
 """The port's benchmark scripts, each run as ``python -m
 repro_torch.bench.<name>`` (``PYTHONPATH=src``), and their runner,
-``python -m repro_torch.bench``, which lists them.
+``python -m repro_torch.bench``, which lists them (and, with ``--run``,
+runs the seventeen twins of the reference's panels in
+:data:`RUN_ORDER`).
 
 They live here, not in the reference's ``benchmarks`` package, whose
 runner (``benchmarks/run.py``) asserts that every module of that package
@@ -18,18 +20,34 @@ SCRIPTS = ("decode_kernels", "paged_attention_timeline", "port_kernels",
            "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
            "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
            "arg_prefetch",
+           # the speed panels (twins of the reference's target_speed and
+           # speedup)
+           "target_speed", "speedup",
            # the fleet panels (twins of the reference's multi-board ones)
            "fleet_scale", "net_scale", "stall_attribution", "migration",
            # the LM-side twins
            "serving_traffic", "roofline", "hillclimb")
 #: the paper's eight FASE panels of :data:`SCRIPTS`, in its order
 PANELS = SCRIPTS[4:12]
+#: the two speed panels of :data:`SCRIPTS`: guest instructions per second
+#: of each interpreter route, and wall a CoreMark iteration against PySim
+SPEED_PANELS = SCRIPTS[12:14]
 #: the fleet panels of :data:`SCRIPTS`: their boards are targets of the
 #: panel's kind behind one ``FleetRuntime``
-FLEET_PANELS = SCRIPTS[12:16]
+FLEET_PANELS = SCRIPTS[14:18]
 #: the LM-side twins of :data:`SCRIPTS`: the serving engine's poll sweep
 #: and co-residency, and two readings of the port's dry run
-LM_PANELS = SCRIPTS[16:]
+LM_PANELS = SCRIPTS[18:]
+#: the twins ``python -m repro_torch.bench --run`` runs, in the order of
+#: the reference's runner (``benchmarks/run.py``)
+RUN_ORDER = ("target_speed", "htp_vs_direct", "coremark_accuracy",
+             "speedup", "gapbs_accuracy", "stall_breakdown", "baud_sweep",
+             "hfutex_bench", "scale_sweep", "serving_traffic",
+             "arg_prefetch", "fleet_scale", "net_scale", "migration",
+             "roofline", "stall_attribution", "hillclimb")
+#: the twins of :data:`RUN_ORDER` that run on the host whatever the card
+#: (they take no ``target``)
+HOST_ONLY = frozenset(("hillclimb",))
 #: modules of this package that are not scripts
 EXCLUDED = frozenset(("__main__", "timing", "panels"))
 

@@ -34,10 +34,12 @@ TARGETS = ("card", "pysim", "cpu")
 #: wall seconds, the serving engine's host seconds a part of its steps
 #: (scheduling, enqueueing the device work, polling), a dry-run cell's
 #: seconds on the host, the card's measured rates and the roofline
-#: terms at those rates
+#: terms at those rates, and the speed panels' rates and their ratios
 WALL_KEYS = ("wall", "wall_s", "oracle_wall_s", "host_schedule_s",
              "host_enqueue_s", "host_poll_s", "lower_s", "compile_s",
-             "measured", "roofline_measured")
+             "measured", "roofline_measured", "ips", "inst_per_s",
+             "wall_per_iter", "value", "kernel_vs_eager_speedup",
+             "fleet_aggregate_vs_one_board")
 
 
 def target_kwargs(target: str) -> dict:
@@ -214,19 +216,23 @@ def check_against(paths, against: str) -> int:
     return rc
 
 
-def cli(doc: str, links: bool = False, options=(), host_only=False):
-    """The panel's argument parser: ``--quick``, ``--target`` (none where
-    the panel is ``host_only``), ``--out``, ``--against`` (and ``--link``
-    where the reference panel has it), and the panel's own ``options``,
-    each ``(flag, add_argument keywords)``."""
+def cli(doc: str, links: bool = False, options=(), host_only=False,
+        targets=TARGETS[:2]):
+    """The panel's argument parser: ``--quick``, ``--target`` (one of
+    ``targets``; none where the panel is ``host_only``), ``--out``,
+    ``--against`` (and ``--link`` where the reference panel has it), and
+    the panel's own ``options``, each ``(flag, add_argument
+    keywords)``."""
     ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="the reference's quick cut")
     if not host_only:
-        ap.add_argument("--target", default="card", choices=TARGETS[:2],
+        ap.add_argument("--target", default="card", choices=targets,
                         help="card (default): TorchTarget on the CUDA "
                              "device; pysim: the port's pure-Python "
-                             "simulator")
+                             "simulator" + ("; cpu: TorchTarget on the "
+                                            "host (tests)"
+                                            if "cpu" in targets else ""))
     ap.add_argument("--out", default=None,
                     help="directory for torch_<name>.json (default "
                          "results/)")
@@ -241,14 +247,16 @@ def cli(doc: str, links: bool = False, options=(), host_only=False):
 
 
 def main(run, doc: str, files, links: bool = False, options=(),
-         host_only=False) -> int:
+         host_only=False, targets=TARGETS[:2], against=check_against) -> int:
     """Parse the panel's command line, run it (``run`` takes ``quick``,
-    ``out_dir``, ``target`` unless the panel is ``host_only`` (it runs on
-    the host's CPU whatever the card), with ``links`` ``link``, and each
-    of ``options`` by its name; it writes ``torch_<f>.json`` for each of
-    ``files``, or of ``files(args)`` where that is a function) and, with
-    ``--against``, compare what it wrote; returns the exit code."""
-    a = cli(doc, links, options, host_only).parse_args()
+    ``out_dir``, ``target`` (one of ``targets``) unless the panel is
+    ``host_only`` (it runs on the host's CPU whatever the card), with
+    ``links`` ``link``, and each of ``options`` by its name; it writes
+    ``torch_<f>.json`` for each of ``files``, or of ``files(args)`` where
+    that is a function) and, with ``--against``, compare what it wrote
+    (``against(paths, DIR)``, :func:`check_against` unless the panel has
+    its own); returns the exit code."""
+    a = cli(doc, links, options, host_only, targets).parse_args()
     if not host_only and a.target == "card":
         import torch
         if not torch.cuda.is_available():
@@ -266,4 +274,4 @@ def main(run, doc: str, files, links: bool = False, options=(),
     run(quick=a.quick, out_dir=a.out, **kw)
     paths = [os.path.join(a.out or RESULTS_DIR, f"torch_{f}.json")
              for f in (files(a) if callable(files) else files)]
-    return check_against(paths, a.against) if a.against else 0
+    return against(paths, a.against) if a.against else 0

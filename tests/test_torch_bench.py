@@ -75,9 +75,11 @@ def test_port_bench_package_passes_its_own_audit():
     assert set(bench.SCRIPTS) == {"decode_kernels", "dryrun_sweep",
                                   "paged_attention_timeline",
                                   "port_kernels", *bench.PANELS,
-                                  *bench.FLEET_PANELS, *bench.LM_PANELS}
+                                  *bench.FLEET_PANELS, *bench.LM_PANELS,
+                                  *bench.SPEED_PANELS}
     assert len(bench.PANELS) == 8 and "panels" in bench.EXCLUDED
     assert len(bench.FLEET_PANELS) == 4 and len(bench.LM_PANELS) == 3
+    assert bench.SPEED_PANELS == ("target_speed", "speedup")
 
 
 def test_port_bench_runner_lists_every_script():
@@ -99,13 +101,14 @@ def test_port_bench_runner_lists_every_script():
                                   "arg_prefetch", "fleet_scale",
                                   "net_scale", "stall_attribution",
                                   "migration", "serving_traffic",
-                                  "roofline", "hillclimb"])
+                                  "roofline", "hillclimb", "target_speed",
+                                  "speedup"])
 def test_each_script_runs_as_a_module_of_the_port(name):
     """``python -m repro_torch.bench.<name>``: ``--help`` where the script
     takes flags, else the refusal without a card (exit 1, no result).
-    The FASE panels, the fleet panels and the LM-side twins take
-    ``--quick``, ``--out`` and ``--against``, and each but ``hillclimb``
-    ``--target card|pysim``."""
+    The FASE panels, the fleet panels, the LM-side twins and the speed
+    panels take ``--quick``, ``--out`` and ``--against``, and each but
+    ``hillclimb`` ``--target card|pysim`` (``target_speed`` also ``cpu``)."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -120,7 +123,9 @@ def test_each_script_runs_as_a_module_of_the_port(name):
         if name in bench_panels():
             # hillclimb lowers its cells on the host: it takes no target
             assert ("--target {card,pysim}" in out.stdout) == \
-                (name != "hillclimb")
+                (name not in ("hillclimb", "target_speed"))
+            assert ("--target {card,cpu,pysim}" in out.stdout) == \
+                (name == "target_speed")
             assert "--against" in out.stdout
     else:
         assert out.returncode == 1 and "no CUDA device" in out.stderr
@@ -129,7 +134,8 @@ def test_each_script_runs_as_a_module_of_the_port(name):
 
 def bench_panels():
     from repro_torch import bench
-    return bench.PANELS + bench.FLEET_PANELS + bench.LM_PANELS
+    return bench.PANELS + bench.FLEET_PANELS + bench.LM_PANELS + \
+        bench.SPEED_PANELS
 
 
 def test_a_panel_on_the_card_refuses_without_one(tmp_path):

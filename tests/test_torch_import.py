@@ -66,7 +66,8 @@ PORT_MODULES = [
     "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
     "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
     "arg_prefetch", "fleet_scale", "net_scale", "stall_attribution",
-    "migration", "serving_traffic", "roofline", "hillclimb")] + [
+    "migration", "serving_traffic", "roofline", "hillclimb",
+    "target_speed", "speedup")] + [
     f"repro_torch.configs.{name}" for name in (
     "chatglm3_6b", "deepseek_coder_33b", "internvl2_76b", "jamba_v0_1_52b",
     "llama3_405b", "llama4_scout_17b_a16e", "musicgen_medium",
