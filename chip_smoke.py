@@ -92,7 +92,9 @@ a sliding window, in both designs), and drives the port's paths:
   prefill shape;
 * the dry run (phase ``dryrun``): ``python -m repro_torch.launch.dryrun``
   on three production cells (``meta`` tensors on the host's CPU, started
-  with the build and run beside the card's phases), qwen3-8b
+  with the build and run beside the card's phases), each cell's
+  argument and peak bytes a device beside its parent's, the decode cell's
+  KV pools a device the whole pools over its 256 devices, qwen3-8b
   ``train_4k``'s peak a device beside its reading under DTensor's own
   layouts, and the card's measured bf16 GEMM and HBM copy rates;
 * the LM-side twins (phase ``lm_panels``): serving_traffic's poll sweep
@@ -3928,13 +3930,24 @@ JAMBA_GRAD_TOKEN_SEEDS = (11, 13)
 #: dense ones, whose 5e-4 stays
 JAMBA_GRAD_LIMITS = (1.5e-3, TRAIN_GN_RTOL, 6.5e-2)
 #: the dry run's cells at production size (started with the build, they
-#: run on the host's CPU beside the card's phases, a minute or two each);
-#: the MoE decode cell dispatches row-sharded tokens, which torch 2.11's
-#: DTensor refused until the dispatch gathered them
+#: run on the host's CPU beside the card's phases, a minute or two each):
+#: the train step's layouts, prefill's online KV chunks (jamba's window,
+#: its MoE dispatch), and decode's KV pool sharded over its pages with a
+#: MoE dispatch of row-sharded tokens
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
                 ("jamba-v0.1-52b", "prefill_32k", True),
                 ("phi3.5-moe-42b-a6.6b", "decode_32k", False))
 DRYRUN_TIMEOUT = 900
+#: each cell's argument and peak bytes a device before the pool was
+#: sharded, prefill ran the online chunks and the MoE dispatch moved rows
+#: (the dryrun phase's line on torch 2.11, the card's host), printed
+#: beside the run's own
+DRYRUN_PARENT = {
+    ("qwen3-8b", "train_4k", "16x16"): (323_545_092, 3_153_803_284),
+    ("jamba-v0.1-52b", "prefill_32k", "2x16x16"): (438_550_528,
+                                                   105_867_174_032),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "16x16"): (550_083_735_616,
+                                                      1_375_206_199_628)}
 #: qwen3-8b train_4k's peak a device on 16 x 16 (GiB) when DTensor laid
 #: out every operator itself, weights gathered whole and the vocabulary
 #: gathered for the loss (fake tensors, torch 2.11, the card's host): the
@@ -4883,6 +4896,17 @@ def start_dryrun():
     return runs
 
 
+def dryrun_pool_bytes(arch, shape):
+    """The bytes of a decode cell's whole KV pools (both), from the
+    decode state's shapes on the ``meta`` device."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.launch import steps as st
+    state = st.abstract_decode_state(CONFIGS[arch], st.SHAPES[shape]["batch"],
+                                     st.SHAPES[shape]["seq"])
+    return sum(state[n].numel() * state[n].element_size()
+               for n in ("kpool", "vpool"))
+
+
 def phase_dryrun(torch, dev, runs):
     """The dry-run cells started by ``start_dryrun`` (they ran beside the
     card's phases), each report read back and ``OK``; the card's measured
@@ -4907,7 +4931,16 @@ def phase_dryrun(torch, dev, runs):
             cell = json.load(f)[0]
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
         check(cell["status"] == "OK", f"dryrun {arch} {shape}: {cell}")
-        out.append({**cell, "wall_s": round(wall, 1)})
+        pool = cell["per_device"].get("kv_pool_bytes")
+        if pool is not None:
+            whole = dryrun_pool_bytes(arch, shape)
+            check(pool * cell["n_chips"] == whole, f"dryrun {arch} {shape}:"
+                  f" the KV pools hold {pool} bytes a device, not the whole "
+                  f"pools' {whole} over {cell['n_chips']} devices")
+        parent = DRYRUN_PARENT.get((arch, shape, cell["mesh"]))
+        out.append({**cell, "wall_s": round(wall, 1),
+                    "parent_per_device": parent and {
+                        "argument_bytes": parent[0], "peak_bytes": parent[1]}})
     qwen = next(c for c in out if (c["arch"], c["shape"], c["mesh"]) ==
                 ("qwen3-8b", "train_4k", "16x16"))
     emit({"phase": "dryrun", "cells": out, "measured": rates,

@@ -10,12 +10,16 @@ each operator's layout by itself: weights gathered over the data axes
 for a use and again in the backward (FSDP: :func:`gathered`), a
 sublayer's input rows-only and its output summed, in both passes
 (Megatron: :func:`tp_in`, :func:`summed`), the embedding and the loss
-over vocabulary shards, the MoE dispatch over gathered token rows and
-experts' buffers pinned to the experts' shards; and it runs shard by
-shard (``local_map``) what is independent per row and head, or what
-DTensor lays out badly (the attention, the mLSTM and Mamba chunks, RoPE,
-the optimizer's elementwise updates).  No serve or train path on the card
-sees a DTensor.
+over vocabulary shards, the MoE dispatch moving each device's token rows
+into the experts' slots and back (:func:`by_rows`, :func:`send_rows`,
+:func:`take_rows`: every device routes its rows and computes the one plan
+of the batch from the gathered expert ids), decode's KV pool sharded
+over its pages with split-KV decoding over the shards
+(:func:`write_rows`, :func:`local_decode`); and it runs shard by shard
+(``local_map``) what is independent per row and head, or what DTensor
+lays out badly (the attention, in prefill the reference's online KV
+chunks, the mLSTM and Mamba chunks, RoPE, the optimizer's elementwise
+updates).  No serve or train path on the card sees a DTensor.
 """
 from __future__ import annotations
 
@@ -82,24 +86,15 @@ def tp_in(h):
 
 
 def by_expert(buf, w):
-    """The experts' buffer ``buf`` ``(E * C, d)`` of an MoE sublayer whose
-    expert weights are ``w`` ``(E, ...)``: on DTensors its rows sharded
-    as ``w``'s experts are (a run of whole experts a device) and nothing
-    else, in the backward too."""
+    """The experts' buffer ``buf`` ``(E, C, d)`` of an MoE sublayer whose
+    expert weights are ``w`` ``(E, ...)``: on DTensors its experts sharded
+    as ``w``'s are (a run of whole experts a device), its slots over every
+    other mesh dim, in the backward too."""
     if not is_dtensor(buf):
         return buf
-    from torch.distributed.tensor import Replicate, Shard
-    return pinned(buf, (Shard(0) if pl.is_shard(0) else Replicate()
+    from torch.distributed.tensor import Shard
+    return pinned(buf, (Shard(0) if pl.is_shard(0) else Shard(1)
                         for pl in w.placements))
-
-
-def whole(t):
-    """DTensor ``t`` whole on every device, its gradient too; anything
-    else as it is."""
-    if not is_dtensor(t):
-        return t
-    from torch.distributed.tensor import Replicate
-    return pinned(t, (Replicate(),) * t.device_mesh.ndim)
 
 
 def _reshape_heads(t, shape):
@@ -213,14 +208,15 @@ def head_logits(x, head):
     return checkpoint(_head_logits, x, head, use_reentrant=False)
 
 
-def _vocab_ids(t, dim):
-    """``arange(t.shape[dim])`` as a DTensor sharded over the mesh dims
-    that shard ``t``'s dim ``dim``: each device's ids of its rows."""
+def _ids(n, t, dim, placements=None):
+    """``arange(n)`` as a DTensor sharded over the mesh dims that shard
+    DTensor ``t``'s dim ``dim`` (by ``t``'s placements, or ``placements``):
+    each device's ids of its part of that dim."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     return distribute_tensor(
-        torch.arange(t.shape[dim], device=t.to_local().device),
-        t.device_mesh, tuple(Shard(0) if pl.is_shard(dim) else Replicate()
-                             for pl in t.placements))
+        torch.arange(n, device=t.to_local().device), t.device_mesh,
+        tuple(Shard(0) if pl.is_shard(dim) else Replicate()
+              for pl in placements or t.placements))
 
 
 def _local_rows(table, idx, ids):
@@ -253,7 +249,7 @@ def embed(table, tokens):
                 for r, w_pl in zip(rows, tpl))
     grad = tuple(Partial() if r.is_shard(0) else w_pl
                  for r, w_pl in zip(rows, tpl))
-    ids = _vocab_ids(w, 0)
+    ids = _ids(w.shape[0], w, 0)
     return summed(local_map(
         _local_rows, out_placements=(out,),
         in_placements=(tpl, rows, tuple(ids.placements)),
@@ -300,15 +296,6 @@ def _local_gold(logits, labels, ids):
     return picked * inside.to(logits.dtype)
 
 
-def whole_rows(t):
-    """A DTensor with its rows (dim 0) gathered and no partial sums; the
-    MoE dispatch routes every assignment of the batch together (one
-    stable sort, one capacity), and DTensor 2.11 mislays the experts'
-    buffer built from row-sharded tokens over two data axes.  Anything
-    else as it is."""
-    return replicated(t, lambda pl: pl.is_shard(0) or pl.is_partial())
-
-
 def laid_out_as(t, like):
     """DTensor ``t`` laid out as DTensor ``like``; anything else as is."""
     if not is_dtensor(t):
@@ -351,48 +338,255 @@ def logz_and_gold(logits, labels):
     s = local_map(_local_sumexp, out_placements=(reduced("sum"),),
                   in_placements=(lpl, rows))(logits, m)
     logz = m + torch.log(s.redistribute(placements=rows))
-    ids = _vocab_ids(logits, last)
+    ids = _ids(logits.shape[last], logits, last)
     lab = labels.clamp(min=0).redistribute(placements=rows)
     gold = local_map(_local_gold, out_placements=(reduced("sum"),),
                      in_placements=(lpl, rows, vocab))(logits, lab, ids)
     return logz, gold.redistribute(placements=rows)
 
 
-def bincount(x, n):
-    """``torch.bincount(x, minlength=n)`` of a 1-d index tensor; on a
-    DTensor as a one-hot sum (DTensor has no rule for ``bincount``)."""
-    if is_dtensor(x):
-        return torch.nn.functional.one_hot(x, n).sum(0)
-    return torch.bincount(x, minlength=n)
+def _rows(t, skip=None):
+    """``t``'s placements with only its shards of dim 0 kept (and not on
+    the mesh dims ``skip`` marks)."""
+    from torch.distributed.tensor import Replicate
+    skip = skip or (False,) * len(t.placements)
+    return tuple(pl if pl.is_shard(0) and not s else Replicate()
+                 for pl, s in zip(t.placements, skip))
 
 
-def first_of_each(sorted_ids, n):
-    """Where each of ``0 .. n-1`` first appears in the sorted 1-d
-    ``sorted_ids`` (``torch.searchsorted``); on a DTensor from the counts
-    (DTensor has no rule for ``searchsorted``)."""
-    if is_dtensor(sorted_ids):
-        counts = bincount(sorted_ids, n)
-        return counts.cumsum(0) - counts
-    return torch.searchsorted(
-        sorted_ids, torch.arange(n, device=sorted_ids.device))
+def by_rows(fn, n_out, rows, *weights):
+    """``fn(*rows, *weights)`` -> ``n_out`` tensors of the rows ``(T,
+    ...)`` of the tensors ``rows`` (laid out alike): on DTensors each
+    device runs ``fn`` on its own rows (each of ``rows`` whole but for its
+    shards of dim 0), the weights whole, every output laid out as the rows
+    and each weight's gradient the sum of the devices' (row by row work:
+    no operator of ``fn`` is propagated)."""
+    if not is_dtensor(rows[0]):
+        return fn(*rows, *weights)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    lay = _rows(rows[0])
+    whole = (Replicate(),) * len(lay)
+    grad = tuple(Partial() if pl.is_shard(0) else pl for pl in lay)
+    ws = tuple(w.redistribute(placements=whole) for w in weights)
+    return local_map(fn, out_placements=(lay,) * n_out,
+                     in_placements=(lay,) * len(rows) + (whole,) * len(ws),
+                     in_grad_placements=(lay,) * len(rows) +
+                     (grad,) * len(ws))(
+        *(x.redistribute(placements=lay) for x in rows), *ws)
+
+
+def column_means(t):
+    """``t.mean(0)``; a DTensor whose rows are sharded shard by shard, the
+    devices' sums reduced."""
+    if not is_dtensor(t):
+        return t.mean(0)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    rows = _rows(t)
+    return summed(local_map(
+        lambda x: x.sum(0), out_placements=(
+            tuple(Partial() if pl.is_shard(0) else Replicate()
+                  for pl in rows),), in_placements=(rows,))(
+        t.redistribute(placements=rows))) / t.shape[0]
+
+
+def as_replicated(t, like):
+    """A plain ``t``, the same on every device, as a replicated DTensor
+    on ``like``'s mesh when ``like`` is a DTensor (no collective);
+    otherwise ``t``."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, like.device_mesh,
+                              (Replicate(),) * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def _moe_layout(x, w):
+    """The MoE dispatch's layout of DTensor token rows ``x`` against
+    expert weights ``w`` ``(E, ...)``, per mesh dim: whether it shards the
+    experts (``ex``); ``x``'s rows' placements, whole on the experts'
+    dims (``rows``); and the experts' buffer's ``(E, C, d)`` placements
+    (``buf``): the experts over their dims, the slots over every other."""
+    from torch.distributed.tensor import Shard
+    ex = tuple(pl.is_shard(0) for pl in w.placements)
+    return ex, _rows(x, ex), tuple(Shard(0) if e else Shard(1) for e in ex)
+
+
+def _slots(C, x, w):
+    """The capacity ``C`` rounded up to a multiple of the ranks that split
+    the experts' slots (:func:`_moe_layout`), so that they split it
+    evenly.  The slots past ``C`` stay empty."""
+    ex = _moe_layout(x, w)[0]
+    n = 1
+    for i, e in enumerate(ex):
+        n *= 1 if e else x.device_mesh.size(i)
+    return -(-C // n) * n
+
+
+def _sorted(expert, slot, keep, sort, C):
+    """The plan's assignments in ``sort`` order (by expert, stable): each
+    one's row ``e * C + slot`` of the experts' buffer, whether it got a
+    slot, and its token."""
+    K = expert.shape[1]
+    return ((expert * C + slot).reshape(-1)[sort], keep.reshape(-1)[sort],
+            sort // K)
+
+
+def _slot_of(expert, slot, keep, tok, exp, cap, need_keep):
+    """Each of this device's rows' assignments (``tok``: the global ids of
+    its rows) at its place ``e * C_l + s`` in this device's part of the
+    experts' buffer (``exp``, ``cap``: the global ids of its experts and
+    slots), and whether it lies there (and, with ``need_keep``, got a
+    slot)."""
+    e = expert[tok] - exp[0]                                  # (T_l, K)
+    s = slot[tok] - cap[0]
+    inside = (e >= 0) & (e < exp.shape[0]) & (s >= 0) & (s < cap.shape[0])
+    if need_keep:
+        inside = inside & keep[tok]
+    return torch.where(inside, e * cap.shape[0] + s, 0), inside
+
+
+def send_rows(x, expert, slot, keep, sort, w, C):
+    """The experts' buffer ``(E, C, d)`` of an MoE sublayer from the token
+    rows ``x`` ``(T, d)`` and the whole batch's plan (plain tensors:
+    ``expert``, ``slot``, ``keep`` ``(T, K)``, each assignment's expert,
+    its slot there and whether it got one; ``sort``, the assignments
+    sorted by expert) against the expert weights ``w`` ``(E, ...)``: the
+    kept rows added into their slots in ``sort`` order.  On DTensor rows
+    each device adds its own rows into its experts' slots; where the rows
+    are sharded, the parts are reduce-scattered over the slots (the
+    capacity rounded up to split evenly: :func:`_slots`).  Laid out by
+    :func:`by_expert`: every device runs its experts on its own slots."""
+    if not is_dtensor(x):
+        row, kept, tok = _sorted(expert, slot, keep, sort, C)
+        return x.new_zeros((w.shape[0] * C, x.shape[1])).index_add(
+            0, row, x[tok] * kept[:, None].to(x.dtype)).view(
+                w.shape[0], C, x.shape[1])
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    _, rows, lay = _moe_layout(x, w)
+    part = tuple(Partial() if r.is_shard(0) else pl
+                 for r, pl in zip(rows, lay))
+    grad = tuple(pl if pl.is_shard(0) else Partial() for pl in rows)
+    x = x.redistribute(placements=rows)
+    tok, exp = _ids(x.shape[0], x, 0), _ids(w.shape[0], w, 0)
+    cap = _ids(_slots(C, x, w), x, 1, part)
+
+    def send(x, tok, exp, cap, expert, slot, keep):
+        at, inside = _slot_of(expert, slot, keep, tok, exp, cap, True)
+        buf = x.new_zeros((exp.shape[0] * cap.shape[0], x.shape[1]))
+        for k in range(at.shape[1]):
+            buf.index_add_(0, at[:, k], x * inside[:, k, None].to(x.dtype))
+        return buf.view(exp.shape[0], cap.shape[0], x.shape[1])
+    ids = tuple(tuple(t.placements) for t in (tok, exp, cap))
+    return by_expert(local_map(
+        send, out_placements=(part,),
+        in_placements=(rows, *ids, None, None, None),
+        in_grad_placements=(grad, *ids, None, None, None))(
+            x, tok, exp, cap, expert, slot, keep), w)
+
+
+def take_rows(out, expert, slot, keep, sort, gates, by_id):
+    """Each token's MoE output ``(T, d)`` from the experts' outputs
+    ``out`` ``(E, C, d)`` (laid out by :func:`by_expert`) and the plan of
+    :func:`send_rows`: each kept assignment's output weighted by its gate
+    (``gates`` ``(T, K)``, laid out as the rows), a token's summed in
+    ``by_id`` order (its assignments by expert id) in ``out``'s dtype.
+    On DTensors, gathered over the slots where the rows are sharded, each
+    device takes its rows' assignments to the experts and slots it holds;
+    the partial sums of the devices that hold the other experts and slots
+    are pending (summed as a sublayer's output is)."""
+    if not is_dtensor(out):
+        E, C, d = out.shape
+        T, K = expert.shape
+        row, kept, _ = _sorted(expert, slot, keep, sort, C)
+        g = gates.reshape(-1)[sort]
+        contrib = out.view(E * C, d)[row] * \
+            (g * kept.float())[:, None].to(out.dtype)
+        # back to (token, k); a token's contributions in expert-id order
+        per_tok = torch.empty_like(contrib).index_copy(0, sort, contrib)
+        per_tok = per_tok.view(T, K, d).gather(
+            1, by_id[..., None].expand(T, K, d))
+        y = out.new_zeros((T, d))
+        for r in range(K):
+            y = y + per_tok[:, r]
+        return y
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    ex = tuple(pl.is_shard(0) for pl in out.placements)
+    rows = _rows(gates, ex)
+    gates, by_id = (t.redistribute(placements=rows) for t in (gates, by_id))
+    held = tuple(Replicate() if r.is_shard(0) else pl
+                 for r, pl in zip(rows, out.placements))
+    out = pinned(out, held)
+    y_pl = tuple(pl if pl.is_shard(0) else Partial() if not h.is_replicate()
+                 else Replicate() for pl, h in zip(rows, held))
+    out_grad = tuple(Partial() if r.is_shard(0) else h
+                     for r, h in zip(rows, held))
+    tok = _ids(gates.shape[0], gates, 0)
+    exp = _ids(out.shape[0], out, 0)
+    cap = _ids(out.shape[1], out, 1)
+
+    def take(out, tok, exp, cap, expert, slot, keep, gates, by_id):
+        at, inside = _slot_of(expert, slot, keep, tok, exp, cap, False)
+        g = (gates * keep[tok].to(gates.dtype)).to(out.dtype) * \
+            inside.to(out.dtype)
+        flat = out.reshape(-1, out.shape[-1])
+        y = out.new_zeros((tok.shape[0], out.shape[-1]))
+        for j in range(at.shape[1]):
+            k = by_id[:, j:j + 1]
+            y = y + flat[at.gather(1, k)[:, 0]] * g.gather(1, k)
+        return y
+    ids = tuple(tuple(t.placements) for t in (tok, exp, cap))
+    return local_map(
+        take, out_placements=(y_pl,),
+        in_placements=(held, *ids, None, None, None, rows, rows),
+        in_grad_placements=(out_grad, *ids, None, None, None, y_pl, rows))(
+            out, tok, exp, cap, expert, slot, keep, gates, by_id)
+
+
+def _write_local(pool, page, off, rows):
+    """``pool[page, off] = rows`` for the entries whose ``page`` lies in
+    ``pool`` ``(NP, page_size, ...)``; the rest write nothing.  Without a
+    data-dependent shape: an entry outside rewrites what the first entry
+    inside writes, or with none inside, slot 0 of page 0 with its own
+    value."""
+    NP, size = pool.shape[:2]
+    inside = (page >= 0) & (page < NP)
+    flat = pool.view(NP * size, *pool.shape[2:])
+    at = page.clamp(0, NP - 1) * size + off
+    first = inside.int().argmax()[None]
+    some = inside.any()
+    at = torch.where(inside, at, torch.where(some, at[first], 0))
+    keep = inside.reshape(-1, *([1] * (rows.dim() - 1)))
+    flat[at] = torch.where(keep, rows, torch.where(some, rows[first],
+                                                   flat[0]))
 
 
 def write_rows(pool, page, off, rows):
-    """``pool[page, off] = rows`` in place.  On DTensors the pool is whole
-    on every device, so every device writes every row: the rows are
-    gathered and each device writes its copy of the pool (DTensor has no
-    rule for the indexed write)."""
+    """``pool[page, off] = rows`` in place.  On DTensors the pool's pages
+    are sharded (:func:`repro_torch.distributed.sharding.
+    decode_state_specs`): the page ids, offsets and rows are gathered
+    (a few bytes a row) and each device writes the entries whose page it
+    holds, at its own page ids (DTensor has no rule for the indexed
+    write)."""
     if not is_dtensor(pool):
         pool[page, off] = rows
         return
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     whole = (Replicate(),) * pool.device_mesh.ndim
+    ids = _ids(pool.shape[0], pool, 0)
 
-    def write(pool, page, off, rows):
-        pool[page, off] = rows
-    local_map(write, out_placements=None, in_placements=(whole,) * 4)(
-        pool, *(t.redistribute(placements=whole) for t in (page, off, rows)))
+    def write(pool, page, off, rows, ids):
+        _write_local(pool, page - ids[0], off, rows)
+    local_map(write, out_placements=None,
+              in_placements=(tuple(pool.placements),) + (whole,) * 3 +
+              (tuple(ids.placements),))(
+        pool, *(t.redistribute(placements=whole) for t in (page, off, rows)),
+        ids)
 
 
 def microbatches(v, n_micro):
@@ -524,13 +718,27 @@ def refuse_kernel(op, t, impl):
             f"impl='ref' to run the plain version shard by shard")
 
 
+def _group(h, G):
+    """The query heads of one KV head in a device's run of ``h``
+    consecutive query heads (``G`` a KV head): ``G`` where the run holds
+    whole groups, ``h`` where it lies inside one, else 1 (each query head
+    with its own copy of its KV head)."""
+    return G if h % G == 0 else h if G % h == 0 else 1
+
+
 def local_attention(q, k, v, causal, window):
-    """:func:`~repro_torch.kernels.flash_attention.ref.flash_mha_ref` on
-    DTensors, shard by shard: attention is independent per sequence and
-    head, so with the sequence whole each device computes its own batch
-    rows and heads.  K and V are repeated to the query heads (the GQA
-    fold) and laid out as ``q``; no sharded dim is flattened, which
-    DTensor does not do for the fold's ``(B * H)``."""
+    """Attention on DTensors, shard by shard: attention is independent per
+    sequence and head, so with the sequence whole each device computes its
+    own batch rows and heads.  Causal and without autograd (the prefill)
+    it runs the reference's own function,
+    :func:`~repro_torch.kernels.flash_attention.ref.online_attn` (K/V
+    chunks, the query heads grouped by KV head, which each device
+    gathers for its query heads); under autograd (a train step, whose
+    checkpoint saves only the inputs)
+    :func:`~repro_torch.kernels.flash_attention.ref.flash_mha_ref`, K and
+    V repeated to the query heads (the GQA fold) and laid out as ``q``;
+    no sharded dim is flattened, which DTensor does not do for the fold's
+    ``(B * H)``."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -539,6 +747,8 @@ def local_attention(q, k, v, causal, window):
     if any(pl.is_shard(1) or pl.is_partial() for pl in placements):
         raise ValueError(f"attention on DTensors needs the sequence whole "
                          f"and no partial sums; q is {placements}")
+    if causal and not torch.is_grad_enabled():
+        return _local_online(q, k, v, window)
     G = q.shape[2] // k.shape[2]
 
     def as_q(x):
@@ -549,6 +759,35 @@ def local_attention(q, k, v, causal, window):
     run = local_map(flash_mha_ref, out_placements=(placements,),
                     in_placements=(placements,) * 3 + (None, None))
     return run(q, as_q(k), as_q(v), causal, window)
+
+
+def _local_online(q, k, v, window):
+    """:func:`local_attention` without autograd: each device's rows and
+    query heads through ``online_attn``, against the KV heads they read
+    (K and V gathered over the heads' shards, their rows as ``q``'s; a
+    sharded index of each query head's KV head picks them)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels.flash_attention.ref import online_attn
+    placements = tuple(q.placements)
+    G = q.shape[2] // k.shape[2]
+    kv_pl = tuple(Replicate() if pl.is_shard(2) else pl for pl in placements)
+    heads = _ids(q.shape[2], q, 2)
+
+    def run(q, k, v, heads):
+        B, S, h, D = q.shape
+        g = _group(h, G)
+        pos = torch.arange(S, device=q.device).expand(B, S)
+        sel = heads[::g] // G             # the KV heads of its query heads
+        o = online_attn(q.reshape(B, S, h // g, g, D), k[:, :, sel],
+                        v[:, :, sel], pos, pos, window)
+        return o.reshape(B, S, h, D)
+    return local_map(run, out_placements=(placements,),
+                     in_placements=(placements, kv_pl, kv_pl,
+                                    tuple(heads.placements)))(
+        q, k.redistribute(placements=kv_pl), v.redistribute(placements=kv_pl),
+        heads)
 
 
 def local_device(t):
@@ -630,38 +869,56 @@ def local_scan(fn, decay, drive, C, h):
 
 def local_decode(q, kpool, vpool, block_table, seq_lens, window):
     """:func:`~repro_torch.kernels.paged_attention.ref.paged_attention_ref`
-    on DTensors, device by device: each device's query rows and heads
-    against the KV heads they read (a sharded index of each query head's
-    KV head picks them), over the whole pools.  The pools must be whole
-    on every device: page ids are data."""
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    on DTensors, split-KV over the pools' shards: each device runs
+    :func:`~repro_torch.kernels.paged_attention.ref.paged_partial` over
+    the pages it holds, for every row (the query rows, the block table
+    and the lengths gathered: a page may be any row's) and for its query
+    heads (whole over the mesh dims that shard the pages), and one
+    combine joins the devices that split the pages (a max, then two sums,
+    over them).  Any block table that names each page at most once."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from ..kernels.paged_attention.ref import paged_attention_ref
-    mesh = q.device_mesh
-    H, Hkv = q.shape[1], kpool.shape[2]
+    from ..kernels.paged_attention.ref import paged_partial
+    mesh, q_in = q.device_mesh, tuple(q.placements)
+    pages = tuple(kpool.placements)
+    if any(not (pl.is_shard(0) or pl.is_replicate()) for pl in pages):
+        raise ValueError(f"decode on DTensors needs the pools laid out by "
+                         f"pages alone; kpool is {pages}")
+    vpool = laid_out_as(vpool, kpool)
+    split = [pl.is_shard(0) for pl in pages]
+    hd = [pl.is_shard(1) and not s for pl, s in zip(q.placements, split)]
     whole = (Replicate(),) * mesh.ndim
-    pools = []
-    for pool in (kpool, vpool):
-        if tuple(pool.placements) != whole:
-            pool = pool.redistribute(placements=whole)
-        pools.append(pool)
-    heads_pl = tuple(Shard(0) if pl.is_shard(1) else Replicate()
-                     for pl in q.placements)
-    kv_of = distribute_tensor(
-        torch.arange(H, device=q.to_local().device) // (H // Hkv), mesh,
-        heads_pl)
-    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
-                 for pl in q.placements)
+    q_pl = tuple(Shard(1) if h else Replicate() for h in hd)
 
-    def run(q, kp, vp, bt, lens, kv):
-        # this device's query heads read a run of KV heads, G a head
-        g = min(H // Hkv, q.shape[1])
-        sel = kv[::g]
-        return paged_attention_ref(q, kp[:, :, sel], vp[:, :, sel], bt,
-                                   lens, window)
-    return local_map(run, out_placements=(tuple(q.placements),),
-                     in_placements=(tuple(q.placements), whole, whole,
-                                    rows, rows, heads_pl))(
-        q, *pools, block_table.redistribute(placements=rows),
-        seq_lens.redistribute(placements=rows), kv_of)
+    def lay(split_as, heads_dim):
+        return tuple(split_as if s else Shard(heads_dim) if h else
+                     Replicate() for s, h in zip(split, hd))
+    parts, maxed, sums, out = (lay(Shard(0), 2), lay(Partial("max"), 1),
+                               lay(Partial(), 1), lay(Replicate(), 1))
+    G = q.shape[1] // kpool.shape[2]
+    q = q.redistribute(placements=q_pl)
+    heads, ids = _ids(q.shape[1], q, 1), _ids(kpool.shape[0], kpool, 0)
+
+    def part(q, kp, vp, bt, lens, heads, ids):
+        sel = heads[::_group(q.shape[1], G)] // G
+        return tuple(t[None] for t in paged_partial(
+            q, kp[:, :, sel], vp[:, :, sel], bt, lens, ids[0], window))
+    m, l, acc = local_map(
+        part, out_placements=(parts,) * 3,
+        in_placements=(q_pl, pages, pages, whole, whole,
+                       tuple(heads.placements), tuple(ids.placements)))(
+        q, kpool, vpool, *(t.redistribute(placements=whole)
+                           for t in (block_table, seq_lens)), heads, ids)
+    top = local_map(lambda m: m[0], out_placements=(maxed,),
+                    in_placements=(parts,))(m).redistribute(placements=out)
+
+    def rescale(m, l, acc, top):
+        w = torch.exp(m[0] - top)
+        return l[0] * w, acc[0] * w[..., None]
+    l, acc = (t.redistribute(placements=out) for t in local_map(
+        rescale, out_placements=(sums, sums),
+        in_placements=(parts, parts, parts, out))(m, l, acc, top))
+    o = local_map(lambda l, acc: (acc / l[..., None]).to(q.dtype),
+                  out_placements=(out,), in_placements=(out, out))(l, acc)
+    return o.redistribute(placements=q_in)

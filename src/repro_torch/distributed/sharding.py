@@ -132,15 +132,17 @@ def batch_specs(cfg: ModelConfig, mesh, with_prefix: bool = False,
 
 
 def decode_state_specs(cfg: ModelConfig, mesh, state):
-    """The reference's table over the port's decode state, but for the KV
-    pool.  The reference keeps a per-row pool ``(steps, n_attn, B, pages,
-    page, Hkv, D)`` and shards its rows over the data axes and its pages
-    over "model"; the port keeps one global pool ``(steps, n_attn, NP,
-    page, Hkv, D)`` that a decode step writes at data-dependent page ids
-    (the block table), and DTensor has no rule that writes in place into a
-    dim sharded across those ids.  So the pool stays whole on every device
-    (ROADMAP Queue C: a decode cell's pool bytes a device are the whole
-    pool's, not the reference's over 256 or 512)."""
+    """The reference's table over the port's decode state.  The reference
+    keeps a per-row pool ``(steps, n_attn, B, pages, page, Hkv, D)`` and
+    shards its rows over the data axes and its pages over "model" where
+    a row's pages divide by it; the port keeps one global pool ``(steps,
+    n_attn, NP, page, Hkv, D)``, row ``b`` owning pages ``b * pages ...``
+    (:func:`repro_torch.models.core.make_decode_state`), and shards its
+    pages over the same axes, the data axes outermost: the same bytes a
+    device, each row's pages on its own data shard.  A decode step writes
+    and reads the pages each device holds
+    (:func:`repro_torch.distributed.dtensor.write_rows`,
+    :func:`~repro_torch.distributed.dtensor.local_decode`)."""
     batch = state["seq_lens"].shape[0]
     dp = dp_for(mesh, batch)
     tp = mesh.size(mesh.mesh_dim_names.index("model"))
@@ -150,8 +152,10 @@ def decode_state_specs(cfg: ModelConfig, mesh, state):
 
     specs = {"seq_lens": P(dp), "block_tables": P(dp, None)}
     if "kpool" in state:
-        specs["kpool"] = P(None, None, None, None, None, None)
-        specs["vpool"] = P(None, None, None, None, None, None)
+        axes = tuple(dp or ()) + tuple(filter(None, [mdl(
+            state["block_tables"].shape[1])]))
+        specs["kpool"] = P(None, None, axes or None, None, None, None)
+        specs["vpool"] = P(None, None, axes or None, None, None, None)
     if "mamba_h" in state:
         di = state["mamba_h"].shape[3]
         specs["mamba_h"] = P(None, None, dp, mdl(di), None)

@@ -11,7 +11,8 @@ version runs on CUDA tensors only when it is asked for by name
 (``impl="ref"``).  A sliding window is a no-op while ``S <= window``; a
 shorter one goes to the kernel (both of its designs take it) and to the
 backward alike.  DTensor inputs (the dry run's, batch and heads sharded)
-run the plain version on each device's shards
+run the plain version on each device's shards, without autograd the
+reference's online KV chunks
 (:func:`repro_torch.distributed.dtensor.local_attention`) under the same
 rule: only with ``impl="ref"`` or shards off the card.
 """

@@ -14,6 +14,13 @@ positions before the query: ``_online_attn``'s mask), a softmax over the keys an
 the saved inputs (it recomputes the scores and the softmax): the backward
 of the kernel route's ``autograd.Function`` (``ops.py``).  It does not
 call the forward's plain version.
+
+:func:`online_attn` is the reference model's own attention
+(``repro/models/core.py::_online_attn``): GQA queries ``(B, Sq, Hkv, G,
+D)`` against K/V chunks of :data:`KV_CHUNK` keys with a running ``(m, l,
+acc)`` in f32, K and V never repeated to the query heads.  It holds one
+chunk's scores at a time, where :func:`flash_mha_ref` holds all ``S x S``;
+the dry run's prefill runs it shard by shard.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ NEG = -1e30
 #: S = 4096, where outputs are ~0.03, dropping one 64-key tile moves a row
 #: by ~1/64 of its spread, about 2**-6 of the value.
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
+#: keys a chunk of :func:`online_attn` (the reference's ``KV_CHUNK``)
+KV_CHUNK = 512
 
 
 def attention_ref(q, k, v, causal=True, window=0):
@@ -59,6 +68,45 @@ def flash_mha_ref(q, k, v, causal=True, window=0):
         return x.transpose(1, 2).reshape(B * H, S, D)
     o = attention_ref(fold(q), fold(kr), fold(vr), causal, window)
     return o.reshape(B, H, S, D).transpose(1, 2)
+
+
+def online_attn(q, k, v, q_pos, kv_pos, window=0):
+    """The reference's ``_online_attn``: ``q`` ``(B, Sq, Hkv, G, D)``,
+    ``k``/``v`` ``(B, Skv, Hkv, D)``, absolute positions ``q_pos`` ``(B,
+    Sq)`` and ``kv_pos`` ``(B, Skv)`` -> ``(B, Sq, Hkv, G, D)`` in ``q``'s
+    dtype.  Key ``j`` is attended by query ``i`` iff ``kv_pos[j] <=
+    q_pos[i]`` and, with a ``window``, ``kv_pos[j] > q_pos[i] - window``;
+    the keys go in ``max(Skv // KV_CHUNK, 1)`` equal chunks, each folded
+    into a running max ``m``, sum ``l`` and output ``acc`` (f32)."""
+    B, Sq, Hkv, G, D = q.shape
+    Skv = k.shape[1]
+    nkv = max(Skv // KV_CHUNK, 1)
+    ck = k.reshape(B, nkv, Skv // nkv, Hkv, D)
+    cv = v.reshape(B, nkv, Skv // nkv, Hkv, D)
+    cpos = kv_pos.reshape(B, nkv, Skv // nkv)
+    qs = q.float() * (1.0 / math.sqrt(D))
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((B, Hkv, G, Sq), NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nkv):
+        pc = cpos[:, j][:, None, None, None, :]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ck[:, j].float())
+        mask = pc <= qp
+        if window:
+            mask = mask & (pc > qp - window)
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, cv[:, j].float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def _mask(S, causal, window, device):

@@ -6,7 +6,8 @@ built or launched; CPU tensors go to the plain PyTorch version.  There is
 no probing and no fallback: the plain version runs on CUDA tensors only
 when it is asked for by name (``impl="ref"``).  DTensor inputs (the dry
 run's: rows over the data axes, query heads over "model", the pools'
-pages whole) run the plain version on each device's rows and heads
+pages over the data axes and "model") run the plain version split over
+the pages each device holds and combined across the devices
 (:func:`repro_torch.distributed.dtensor.local_decode`) under the same
 rule: only with ``impl="ref"`` or shards off the card.
 """

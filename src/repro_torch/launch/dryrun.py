@@ -12,8 +12,9 @@ a fake process group of 256 or 512 ranks
 issues the collectives a real mesh would, so a cell whose step cannot be
 laid out fails here, with the operator named, as a reference cell fails
 to lower.  The step takes the plain route by name (``impl="ref"``: the
-attention is ``flash_mha``'s plain version and decode's
-``paged_attention``'s, shard by shard): the reference's dry run traces
+attention is ``flash_mha``'s plain version, in prefill the reference's
+online KV chunks, and decode's ``paged_attention``'s split over the
+pages each device holds, shard by shard): the reference's dry run traces
 ``models/core.py``, which calls no Pallas kernel either.  What the model
 builds itself (masks, positions) lands on the ``meta`` device too.
 
@@ -24,7 +25,9 @@ count as a device's work, and every scan step and microbatch repeats the
 first one's signatures.  The second run (``compile_s``), of the whole
 cell, is counted, one device's view:
 
-* ``per_device.argument_bytes``: the local shards of every input, exactly;
+* ``per_device.argument_bytes``: the local shards of every input, exactly
+  (of a decode cell with attention, ``kv_pool_bytes`` those of the KV
+  pools);
 * ``per_device.peak_bytes``: the arguments plus ``temp_bytes``, the most
   bytes of storage the operators a device runs hold live at once (the
   counter below tracks each storage they allocate until it is freed; the
@@ -36,9 +39,10 @@ cell, is counted, one device's view:
   ``FlopCounterMode`` above a DTensor counts the global operator);
 * ``collective_bytes_per_device``: the output bytes of every functional
   collective a device issues (``_c10d_functional``), by kind, as the
-  reference sums collectives' output shapes.  The fake group lowers an
-  all-to-all as an all-gather and a chunk: it is counted as the
-  all-gather;
+  reference sums collectives' output shapes (DTensor's move of a shard
+  to another dim is one all-to-all of the local size inside
+  :func:`~repro_torch.launch.mesh.fake_world`, where a CPU mesh would
+  gather the whole dim);
 * ``trip_mult`` is 1: the run executes every layer and microbatch, where
   XLA counts a ``while`` body once and the reference multiplies.  The one
   loop it does not execute whole is the sLSTM's time loop, a Python loop
@@ -339,14 +343,18 @@ def lower(cfg, shape: str, mesh, variant: str = "baseline",
             fn(*args)
         t_compile = time.time() - t0
     temp = counter.peak
+    per_device = {"argument_bytes": arg_bytes, "temp_bytes": temp,
+                  "peak_bytes": arg_bytes + temp}
     flops = float(counter.flops)
     coll = dict(sorted(counter.coll.items()))
+    if kind == "decode" and "kpool" in args[1]:
+        per_device["kv_pool_bytes"] = _local_bytes(
+            [args[1]["kpool"], args[1]["vpool"]])
     res = {
         "status": "OK", "variant": variant,
         "n_chips": int(mesh.size()),
         "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
-        "per_device": {"argument_bytes": arg_bytes, "temp_bytes": temp,
-                       "peak_bytes": arg_bytes + temp},
+        "per_device": per_device,
         "hlo_flops_per_device": flops,
         "collective_bytes_per_device": coll,
         "scan_trip_count": n_scan_steps(cfg), "trip_mult": 1,

@@ -17,18 +17,41 @@ import contextlib
 @contextlib.contextmanager
 def fake_world(size: int):
     """A fake process group of ``size`` ranks (this process rank 0), torn
-    down on exit.  Refuses to stand over a group that is already open."""
+    down on exit.  Refuses to stand over a group that is already open.
+    Inside it DTensor moves a shard from one dim to another with one
+    all-to-all of the local size (:func:`_all_to_all`)."""
     import torch.distributed as dist
+    from torch.distributed.tensor import placement_types as PT
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialised; the "
                            "dry run's fake world needs its own")
     dist.init_process_group("fake", world_size=size, rank=0,
                             store=FakeStore())
+    real, PT.shard_dim_alltoall = PT.shard_dim_alltoall, _all_to_all
     try:
         yield
     finally:
+        PT.shard_dim_alltoall = real
         dist.destroy_process_group()
+
+
+def _all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's move of a shard from dim ``gather_dim`` to ``shard_dim``
+    over one mesh dim (its ``shard_dim_alltoall``; DTensor has padded
+    ``shard_dim`` to a multiple of the ranks), as the one all-to-all of the
+    local size a card's group runs.  On a CPU mesh DTensor gathers the
+    whole dim and keeps a chunk (gloo has no all-to-all): on the fake
+    group that would count an all-gather's bytes and hold the gathered
+    whole live."""
+    import torch
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_to_all_single(
+        torch.stack(input.chunk(mesh.size(mesh_dim), dim=shard_dim)), None,
+        None, (mesh, mesh_dim))
+    if isinstance(out, funcol.AsyncCollectiveTensor):
+        out = out.wait()
+    return torch.cat(out.unbind(0), dim=gather_dim)
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -374,21 +374,21 @@ def moe(p, cfg: ModelConfig, x2d):
     output.  Every expert runs on its ``C`` slots; a token's ``K``
     contributions are summed in bf16 in the sorted order.  ``aux`` is the
     Switch balance loss ``E * sum(mean(probs) * share of assignments)``.
-    On DTensors the token rows are gathered first (:func:`DT.whole_rows`):
-    the routing sorts every assignment of the batch."""
-    rows = DT.whole_rows(x2d)
-    probs, idx = route(p, cfg, rows)
-    y, aux = moe_dispatch(p, cfg, rows, probs, idx)
-    return DT.laid_out_as(y, x2d), aux
+    On DTensor rows each device routes its own rows and only rows move,
+    with the same routing (:func:`moe_dispatch`)."""
+    return moe_dispatch(p, cfg, x2d, *route(p, cfg, x2d))
 
 
 def route(p, cfg: ModelConfig, x2d):
     """The router of :func:`moe`: its f32 probabilities ``(T, E)`` and each
-    token's top-``K`` experts ``(T, K)``, the highest first."""
-    probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
-    idx = torch.argsort(probs, dim=-1, descending=True,
-                        stable=True)[:, :cfg.top_k]
-    return probs, idx
+    token's top-``K`` experts ``(T, K)``, the highest first (on DTensor
+    rows each device routes its own: :func:`DT.by_rows`)."""
+    def routed(x, router):
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        idx = torch.argsort(probs, dim=-1, descending=True,
+                            stable=True)[:, :cfg.top_k]
+        return probs, idx
+    return DT.by_rows(routed, 2, (x2d,), p["router"])
 
 
 def dispatch_plan(idx, E, C):
@@ -398,50 +398,61 @@ def dispatch_plan(idx, E, C):
     got a slot (``keep``) and its row ``e * C + slot`` of the experts'
     buffer (``row``; a dropped one its expert's slot ``C - 1``)."""
     T, K = idx.shape
-    dev = DT.local_device(idx)
+    dev = idx.device
     e_flat = idx.reshape(-1)                                  # (T*K,)
     tok_flat = torch.arange(T, device=dev).repeat_interleave(K)
     order = torch.argsort(e_flat, stable=True)
     e_s, tok_s = e_flat[order], tok_flat[order]
-    start = DT.first_of_each(e_s, E)
+    start = torch.searchsorted(e_s, torch.arange(E, device=dev))
     pos = torch.arange(T * K, device=dev) - start[e_s]
     keep = pos < C
     row = e_s * C + torch.where(keep, pos, C - 1)
     return order, tok_s, keep, row
 
 
+def _gates_by_id(probs, idx):
+    """Each token's gates (its top-``K`` probabilities renormalised) and
+    its ``K`` assignments ordered by expert id ``(T, K)``: the order its
+    contributions are summed in."""
+    gate_vals = probs.gather(1, idx)
+    rank = (idx[:, None, :] < idx[:, :, None]).sum(-1)        # (T, K)
+    return (gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9),
+            rank.argsort(dim=1))
+
+
+def _experts(p, buf):
+    """Every expert's SwiGLU on its slots ``buf`` ``(E, C, d)``."""
+    h = torch.bmm(buf, p["w_gate"])
+    h2 = torch.bmm(buf, p["w_in"])
+    return torch.bmm(silu(h) * h2, p["w_out"])
+
+
 def moe_dispatch(p, cfg: ModelConfig, x2d, probs, idx):
     """:func:`moe` from the router's ``probs`` and each token's experts
     ``idx`` on: the gates, the balance loss, the capacity dispatch and the
-    experts."""
+    experts.  Every device computes the one plan of the whole batch from
+    the expert ids ``(T, K)`` (on DTensors gathered: integers only); the
+    token rows go into the experts' slots (:func:`DT.send_rows`) and the
+    outputs come back to their rows (:func:`DT.take_rows`), on DTensor
+    rows each device's own rows to and from the devices that hold their
+    experts' slots."""
     T, d = x2d.shape
     E, K = cfg.n_experts, cfg.top_k
-    gate_vals = probs.gather(1, idx)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    me = probs.mean(0)
-    ce = DT.bincount(idx.reshape(-1), E).float() / (T * K)
-    aux = E * (me * ce).sum()
-
     C = int(cfg.capacity_factor * T * K / E) + 1
-    order, tok_s, keep, row = dispatch_plan(idx, E, C)
-    g_s = gate_vals.reshape(-1)[order]
-    buf = DT.by_expert(x2d.new_zeros((E * C, d)).index_add(
-        0, row, x2d[tok_s] * keep[:, None].to(x2d.dtype)),
-        p["w_gate"]).view(E, C, d)
-    h = torch.bmm(buf, p["w_gate"])
-    h2 = torch.bmm(buf, p["w_in"])
-    out_buf = DT.whole(torch.bmm(silu(h) * h2, p["w_out"]).view(E * C, d))
-    contrib = out_buf[row] * (g_s * keep.float())[:, None].to(x2d.dtype)
-    # back to (token, k); a token's contributions in sorted (expert) order
-    per_tok = torch.empty_like(contrib).index_copy(0, order, contrib)
-    per_tok = per_tok.view(T, K, d)
-    rank = (idx[:, None, :] < idx[:, :, None]).sum(-1)        # (T, K)
-    per_tok = per_tok.gather(
-        1, rank.argsort(dim=1)[..., None].expand(T, K, d))
-    y = x2d.new_zeros((T, d))
-    for r in range(K):
-        y = y + per_tok[:, r]
-    return y, aux
+    gates, by_id = DT.by_rows(_gates_by_id, 2, (probs, idx))
+    idx = DT.local_value(idx)                         # (T, K), every device
+    # each expert's share of the assignments (bincount has no meta kernel)
+    ce = torch.zeros(E, device=idx.device).index_add_(
+        0, idx.reshape(-1), torch.ones(T * K, device=idx.device)) / (T * K)
+    aux = E * (DT.column_means(probs) * DT.as_replicated(ce, probs)).sum()
+    sort, _, keep, row = dispatch_plan(idx, E, C)
+    # each assignment's expert, slot and keep, in (token, k) order
+    row = torch.empty_like(row).index_copy(0, sort, row).view(T, K)
+    keep = torch.empty_like(keep).index_copy(0, sort, keep).view(T, K)
+    expert, slot = row // C, row % C
+    buf = DT.send_rows(x2d, expert, slot, keep, sort, p["w_gate"], C)
+    out = DT.by_expert(_experts(p, buf), p["w_gate"])
+    return DT.take_rows(out, expert, slot, keep, sort, gates, by_id), aux
 
 
 def _linear_scan(a, b):
@@ -835,11 +846,16 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
             1, ((slot // PAGE_SIZE) % n_pages)[:, None])[:, 0].long()
         off = slot % PAGE_SIZE
         cos, sin = rope_angles(seq_lens[:, None], D, cfg.rope_theta)
-    blocks = params["blocks"]
-    for i in range(n_scan_steps(cfg)):
+    # per-step views of the weights and of the state, [step][sublayer]:
+    # on DTensors shard by shard (an index per step would be a new
+    # operator signature a step, whose sharding DTensor derives on
+    # global-shaped tensors)
+    steps = _unstack(params["blocks"])
+    at = {n: [DT.unbind(s) for s in DT.unbind(t)]
+          for n, t in state.items() if n not in ("seq_lens", "block_tables")}
+    for i, layer in enumerate(steps):
         j = dict.fromkeys(_STATEFUL, 0)
-        step = DT.for_use([{n: w[i] for n, w in sub.items()}
-                           for sub in blocks])
+        step = DT.for_use(layer)
         for name, p in zip(layout, step):
             h = rmsnorm(x, p["norm"], cfg.norm_eps)
             if name == "attn":
@@ -852,7 +868,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
                     k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
                 q = rope_apply(q, cos, sin)
                 k = rope_apply(k, cos, sin)
-                kp, vp = state["kpool"][i, a], state["vpool"][i, a]
+                kp, vp = at["kpool"][i][a], at["vpool"][i][a]
                 DT.write_rows(kp, page_of_slot, off, k[:, 0])
                 DT.write_rows(vp, page_of_slot, off, v[:, 0])
                 o = paged_decode(q[:, 0], kp, vp, bt, lens, impl=impl,
@@ -865,18 +881,18 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
                 o = o.reshape(B, 1, -1)
             elif name == "mamba":
                 a = j["mamba"]
-                m_h, m_conv = state["mamba_h"][i, a], state["mamba_conv"][i, a]
+                m_h, m_conv = at["mamba_h"][i][a], at["mamba_conv"][i][a]
                 o, (h_new, conv_new) = mamba(p, cfg, h, state=(m_h, m_conv))
                 m_h.copy_(h_new)
                 m_conv.copy_(conv_new)
             elif name == "mlstm":
                 a = j["mlstm"]
-                C = state["mlstm_C"][i, a]
+                C = at["mlstm_C"][i][a]
                 o, C_new = mlstm(p, cfg, h, state=C)
                 C.copy_(C_new)
             elif name == "slstm":
                 a = j["slstm"]
-                s_h, s_c = state["slstm_h"][i, a], state["slstm_c"][i, a]
+                s_h, s_c = at["slstm_h"][i][a], at["slstm_c"][i][a]
                 o, (h_new, c_new) = slstm(p, cfg, h, state=(s_h, s_c))
                 s_h.copy_(h_new)
                 s_c.copy_(c_new)

@@ -1,0 +1,211 @@
+"""The dry run's layouts that follow the reference's partition of the
+step (ROADMAP Queue C 6–8), jax-free: decode's KV pool sharded over its
+pages as the reference shards its per-row pool, with split-KV decoding
+over the shards; prefill attention in the reference's online KV chunks;
+the MoE dispatch moving token rows, not the batch.  The numbers come from
+four processes of a real gloo group on the CPU
+(``tests/torch_dtensor_worker.py``) against the plain model; the bytes
+from the dry run itself on a fake group."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import CONFIGS
+from repro_torch.distributed import sharding as sh
+from repro_torch.kernels.flash_attention.ref import (ATTN_TOL, KV_CHUNK,
+                                                     flash_mha_ref,
+                                                     online_attn)
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_partial)
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+from repro_torch.training.optim import tree_leaves
+from test_torch_dtensor_numbers import run_ranks
+
+
+@pytest.mark.parametrize("case", ["decode", "decode_window"])
+def test_sharded_decode_equals_the_plain_decode_on_a_permuted_table(case):
+    """Three f32 decode steps of qwen3-8b at smoke width on a (2, 2) gloo
+    group, the block table a seeded permutation of the pages (a row's
+    pages on any rank), the pools and lengths seeded (``decode_window``:
+    a ring of 3 pages under a window of 96, past its wrap, the pages not
+    split over "model"): the logits and the pools within f32 summation
+    order, the lengths and tables equal, and each device holding its
+    share of the pages (not the whole pool)."""
+    out = run_ranks(case)
+    assert out["logits_rel"] < 1e-5 and out["state_rel"] < 1e-6, out
+    assert out["ints_equal"], out
+    share = 4 if case == "decode" else 2        # data x model, or data
+    assert out["pool_local"][2] == out["pages"] // share, out
+
+
+def test_sharded_decode_in_bf16_is_the_plain_decode_to_rounding():
+    """The same in bf16, the model's dtype: the logits within bf16
+    partial sums reduced in another order (a page read from the wrong
+    rank, or missed, moves them by their own size)."""
+    out = run_ranks("decode_bf16")
+    assert out["logits_rel"] < 3e-2 and out["state_rel"] < 3e-3, out
+    assert out["ints_equal"], out
+
+
+def test_moe_moves_rows_and_routes_as_the_plain_one():
+    """phi3.5-moe's sublayer at smoke width, 16 token rows sharded over
+    "data": the same expert ids and plan as the plain dispatch (one
+    stable sort, one capacity), the outputs and the balance loss equal,
+    every gradient (rows, router, experts) to bf16 rounding; the experts'
+    buffer on each device its 2 of 4 experts and half of the slots (the
+    capacity 11 rounded up to 12), not every slot of its experts."""
+    out = run_ranks("moe_grad")
+    assert out["routing_equal"], out
+    assert out["rel"] < 1e-6 and out["aux"] < 1e-6, out
+    assert out["grad_rel"] < 2e-2, out
+    slots = -(-out["capacity"] // 2) * 2
+    assert out["buffer_local"] == [[out["experts"] // 2, slots // 2,
+                                    64]] * 2, out
+
+
+def test_prefill_runs_the_online_chunks_shard_by_shard():
+    """The prefill step of qwen3-8b at smoke width in f32 on DTensors:
+    the plain ``forward``'s logits, each device's attention through
+    ``online_attn`` on its row and its one KV head's group of two query
+    heads."""
+    out = run_ranks("prefill")
+    assert out["logits_rel"] < 1e-5, out
+    assert out["online_calls"] == [[1, 3 * KV_CHUNK, 1, 2, 16]] * 2, out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 700])
+def test_online_attn_equals_flash_mha_ref(dtype, window):
+    """``online_attn`` over three KV chunks against ``flash_mha_ref`` on
+    the same GQA inputs, causal and windowed (the window across chunk
+    boundaries), within ``ATTN_TOL``."""
+    rng = np.random.default_rng(7)
+    B, S, Hkv, G, D = 2, 3 * KV_CHUNK, 2, 2, 16
+    dt = getattr(torch, dtype)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dt)
+    q, k, v = draw(B, S, Hkv * G, D), draw(B, S, Hkv, D), draw(B, S, Hkv, D)
+    pos = torch.arange(S).expand(B, S)
+    got = online_attn(q.reshape(B, S, Hkv, G, D), k, v, pos, pos, window)
+    want = flash_mha_ref(q, k, v, True, window)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.reshape(B, S, Hkv * G, D).float(),
+                               want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("window", [0, 20])
+def test_split_kv_partials_combine_to_paged_attention(window):
+    """``paged_partial`` over three ranges of a pool's pages, rescaled to
+    their largest max and summed, is ``paged_attention_ref`` (a permuted table,
+    rows of lengths 0 to full, and with ``window`` a ring past its wrap)."""
+    g = torch.Generator().manual_seed(8)
+    B, P, page, Hkv, G, D = 3, 4, 8, 2, 2, 16
+    NP = B * P
+    q = torch.randn((B, Hkv * G, D), generator=g)
+    kp, vp = (torch.randn((NP, page, Hkv, D), generator=g) for _ in "kv")
+    bt = torch.randperm(NP, generator=g).int().view(B, P)
+    lens = torch.tensor([1, 17, P * page] if not window else
+                        [1, 70, 3 * P * page + 5]).int()
+    cuts = [0, 5, 9, NP]
+    m, l, acc = (torch.stack(t) for t in zip(*(
+        paged_partial(q, kp[a:b], vp[a:b], bt, lens, a, window)
+        for a, b in zip(cuts, cuts[1:]))))
+    w = torch.exp(m - m.amax(dim=0))              # the splits' combine
+    got = (acc * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+    want = paged_attention_ref(q, kp, vp, bt, lens, window)
+    torch.testing.assert_close(got, want.float(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch,shape,axes", [
+    ("qwen3-8b", "decode_32k", ("data", "model")),
+    ("jamba-v0.1-52b", "decode_32k", ("data",)),     # a ring of 129 pages
+    ("jamba-v0.1-52b", "long_500k", None),           # one row, 129 pages
+])
+def test_pool_specs_follow_the_references_rule(arch, shape, axes):
+    """The pool's pages over the data axes of ``dp_for`` and then "model"
+    where a row's pages divide by it: the reference's ``P(None, None, dp,
+    mdl(pages), ...)`` on its per-row pool."""
+    cfg = CONFIGS[arch].scaled(n_layers=CONFIGS[arch].hybrid_period or 1)
+    B, S = st.SHAPES[shape]["batch"], st.SHAPES[shape]["seq"]
+    with fake_world(256):
+        mesh = make_production_mesh()
+        state = st.abstract_decode_state(cfg, B, S)
+        spec = sh.decode_state_specs(cfg, mesh, state)
+    assert spec["kpool"] == spec["vpool"] == sh.P(None, None, axes, None,
+                                                  None, None)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["16x16", "2x16x16"])
+def test_decode_cell_arguments_are_the_spec_tables_arithmetic(multi_pod):
+    """qwen3-8b ``decode_32k`` cut to one layer: the dry run's argument
+    bytes a device are every input's bytes over the mesh sizes its spec
+    names, the pools' over dp x tp (256 or 512), which halves them from
+    16 x 16 to 2 x 16 x 16."""
+    cfg = CONFIGS["qwen3-8b"].scaled(n_layers=1)
+    res = DR.run_cell("qwen3-8b", "decode_32k", multi_pod, verbose=False,
+                      n_layers=1)
+    assert res["status"] == "OK", res
+    B = st.SHAPES["decode_32k"]["batch"]
+    inputs = st.input_specs(cfg, "decode_32k")
+    with fake_world(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        specs = {"params": sh.param_specs(cfg, mesh),
+                 "state": sh.decode_state_specs(cfg, mesh, inputs["state"]),
+                 "tokens": sh.tokens_spec(mesh, B)}
+        size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def share(t, spec):
+        ways = math.prod(size[a] for e in spec if e is not None
+                         for a in (e if isinstance(e, tuple) else (e,)))
+        assert t.numel() % ways == 0
+        return t.numel() * t.element_size() // ways
+    pairs = list(_pairs(inputs, specs))
+    pool = sum(share(t, s) for t, s in pairs if t.dim() == 6)
+    whole = sum(t.numel() * t.element_size() for t, _ in pairs
+                if t.dim() == 6)
+    assert pool * math.prod(size.values()) == whole
+    assert res["per_device"]["argument_bytes"] == sum(
+        share(t, s) for t, s in pairs)
+    assert len(pairs) == len(tree_leaves(inputs))
+
+
+def _pairs(tree, specs):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _pairs(tree[k], specs[k])
+    elif isinstance(tree, list):
+        for a, b in zip(tree, specs):
+            yield from _pairs(a, b)
+    else:
+        yield tree, specs
+
+
+def test_fake_world_moves_a_shard_with_one_all_to_all():
+    """Inside ``fake_world`` DTensor's move of a shard from one dim to
+    another (``Shard(0)`` -> ``Shard(1)`` over the 8-rank "model" dim)
+    counts one all-to-all of the local size and no all-gather, and holds
+    at most a few local sizes live, not the gathered whole (8 of them):
+    the move a card's group makes, not the all-gather and chunk of a CPU
+    mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    local = torch.empty((8, 64, 32), device="meta", dtype=torch.bfloat16)
+    nbytes = local.numel() * local.element_size()
+    with fake_world(16):
+        mesh = init_device_mesh("cpu", (2, 8),
+                                mesh_dim_names=("data", "model"))
+        t = DTensor.from_local(local, mesh, (Replicate(), Shard(0)),
+                               run_check=False)
+        counter = DR._counter()
+        with counter:
+            moved = t.redistribute(placements=(Replicate(), Shard(1)))
+        assert tuple(moved.to_local().shape) == (64, 8, 32)
+    assert counter.coll == {"all-to-all": nbytes}, counter.coll
+    assert counter.peak <= 4 * nbytes, (counter.peak, nbytes)

@@ -11,7 +11,12 @@ the peaks::
 
     python tests/torch_dryrun_reference.py [--arch qwen3-8b]
         [--shape train_4k] [--layers 4] [--meshes 16x16 2x16x16]
-        [--fake] [--out FILE]
+        [--fake] [--breakdown N] [--out FILE]
+
+With ``--breakdown N`` each line also holds the ``N`` largest parts of
+both peaks: the port's live storages at its peak, by the operator that
+made them and their shape, and the regions of the reference's temporary
+allocation, each by its largest buffer (from XLA's buffer assignment).
 
 The reference runs in an interpreter of its own (it sets ``XLA_FLAGS``
 when imported), on a mesh of ``Auto`` axes: JAX 0.9's ``make_mesh``
@@ -27,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -39,6 +45,10 @@ _REFERENCE = "\n".join((
     "import jax",
     "from jax.sharding import AxisType",
     "from repro.launch import dryrun as D",
+    "import os",
+    "if os.environ.get('REF_DUMP'):",
+    "    os.environ['XLA_FLAGS'] += ' --xla_dump_to=' + "
+    "os.environ['REF_DUMP']",
     "def mesh(*, multi_pod=False):",
     "    shape = (2, 16, 16) if multi_pod else (16, 16)",
     "    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')",
@@ -53,23 +63,97 @@ _REFERENCE = "\n".join((
 ))
 
 
-def reference_cell(arch, shape, multi_pod, layers):
-    """The reference's report of the cell (a subprocess on XLA:CPU)."""
+def reference_cell(arch, shape, multi_pod, layers, dump=None):
+    """The reference's report of the cell (a subprocess on XLA:CPU); with
+    ``dump`` a directory, XLA dumps the compiled program there."""
     out = subprocess.run(
         [sys.executable, "-c", _REFERENCE, arch, shape,
          "1" if multi_pod else "0", str(layers or 0)],
         capture_output=True, text=True, timeout=1800,
-        env=dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu"))
+        env=dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+                 **({"REF_DUMP": dump} if dump else {})))
     if out.returncode != 0:
         raise RuntimeError(f"reference dry run failed:\n{out.stderr[-3000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def port_cell(arch, shape, multi_pod, layers, tensors):
-    """The port's report of the cell (its own fake process group)."""
+def port_cell(arch, shape, multi_pod, layers, tensors, parts=0):
+    """The port's report of the cell (its own fake process group); with
+    ``parts``, under ``"peak_parts"`` its ``parts`` largest groups of the
+    storages live at the peak, ``[bytes, operator, shape, dtype]``."""
     from repro_torch.launch import dryrun as DR
-    return DR.run_cell(arch, shape, multi_pod, verbose=False,
-                       tensors=tensors, n_layers=layers)
+    if not parts:
+        return DR.run_cell(arch, shape, multi_pod, verbose=False,
+                           tensors=tensors, n_layers=layers)
+    made, at_peak = {}, []
+    counter = DR._counter
+
+    def watched():
+        c = counter()
+        base = type(c)
+
+        class Watched(base):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                self.func = func
+                return base.__torch_dispatch__(self, func, types, args,
+                                               kwargs)
+
+            def _track(self, out):
+                peak = self.peak
+                base._track(self, out)
+                for t in out if isinstance(out, (tuple, list)) else (out,):
+                    if type(t).__name__ == "Tensor":
+                        st = t.untyped_storage()
+                        made.setdefault(st._cdata, (
+                            st.nbytes(), str(self.func), tuple(t.shape),
+                            str(t.dtype)))
+                if self.peak > peak:
+                    at_peak[:] = [made[k] for k in self.storages
+                                  if k in made]
+        c.__class__ = Watched
+        return c
+    DR._counter = watched
+    try:
+        rep = DR.run_cell(arch, shape, multi_pod, verbose=False,
+                          tensors=tensors, n_layers=layers)
+    finally:
+        DR._counter = counter
+    groups = {}
+    for nbytes, *what in at_peak:
+        groups[tuple(what)] = groups.get(tuple(what), 0) + nbytes
+    rep["peak_parts"] = sorted(([b, f, list(sh), dt] for (f, sh, dt), b
+                                in groups.items()), reverse=True)[:parts]
+    return rep
+
+
+def reference_parts(dump, parts):
+    """The ``parts`` largest regions of the reference's temporary
+    allocation (XLA's buffer assignment in ``dump``), each by the largest
+    buffer that starts it: ``[bytes, offset, buffer, shape]``."""
+    import glob
+    import re
+    path, = glob.glob(os.path.join(
+        dump, "*after_optimizations-buffer-assignment.txt"))
+    values, temp = [], False
+    with open(path) as f:
+        for line in f:
+            if line.startswith("allocation "):
+                temp = "preallocated-temp" in line
+                continue
+            m = temp and re.search(r"value: <\d+ (\S+) @\d+> \(size=(\d+),"
+                                   r"offset=(\d+)\): (\S+)", line)
+            if m:
+                values.append((int(m[3]), int(m[2]), m[1], m[4]))
+    regions, end = [], -1
+    for off, size, name, shape in sorted(values, key=lambda v: (v[0],
+                                                                -v[1])):
+        if off >= end:
+            regions.append([off, size, name, shape])
+        elif off + size > end:
+            regions[-1][1] = off + size - regions[-1][0]
+        end = max(end, off + size)
+    return sorted(([size, off, name, shape] for off, size, name, shape
+                   in regions), reverse=True)[:parts]
 
 
 def row(port, ref, fake=None):
@@ -110,16 +194,25 @@ def main(argv=None):
                     choices=["16x16", "2x16x16"])
     ap.add_argument("--fake", action="store_true",
                     help="also run the port's cell on fake tensors")
+    ap.add_argument("--breakdown", type=int, default=0, metavar="N",
+                    help="the N largest parts of both peaks")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     rows = []
     for mesh in args.meshes:
         mp = mesh == "2x16x16"
-        port = port_cell(args.arch, args.shape, mp, args.layers, "meta")
+        port = port_cell(args.arch, args.shape, mp, args.layers, "meta",
+                         args.breakdown)
         fake = port_cell(args.arch, args.shape, mp, args.layers,
                          "fake") if args.fake else None
-        ref = reference_cell(args.arch, args.shape, mp, args.layers)
-        rows.append(row(port, ref, fake))
+        with tempfile.TemporaryDirectory() as dump:
+            ref = reference_cell(args.arch, args.shape, mp, args.layers,
+                                 dump if args.breakdown else None)
+            rows.append(row(port, ref, fake))
+            if args.breakdown:
+                rows[-1]["port"]["peak_parts"] = port["peak_parts"]
+                rows[-1]["reference"]["temp_parts"] = reference_parts(
+                    dump, args.breakdown)
         print(json.dumps(rows[-1]), flush=True)
     if args.out:
         with open(args.out, "w") as f:

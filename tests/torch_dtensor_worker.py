@@ -9,7 +9,11 @@ Every rank builds the same seeded inputs; rank 0 prints one JSON line of
 the comparison.  Cases: ``loss`` (qwen3-8b at smoke width: ``loss_fn``
 and its gradients on a (2, 2) mesh against the plain ones), ``moe``
 (the MoE dispatch of decode's token rows sharded over "data" against the
-plain dispatch of the gathered rows).
+plain dispatch of the gathered rows), ``moe_grad`` (the same with
+gradients, the routing and the experts' buffer's layout), ``decode`` and
+``decode_window`` (three f32 decode steps over a permuted block table
+against the plain ``decode_step``; the pool's local shape),
+``decode_bf16`` (the same in bf16), ``prefill`` (f32 prefill logits).
 """
 from __future__ import annotations
 
@@ -89,7 +93,9 @@ def case_moe(mesh):
     got, got_aux = M.moe(dp, cfg, dx)
     got = full(got)
     C = int(cfg.capacity_factor * 8 * cfg.top_k / cfg.n_experts) + 1
-    plans = [M.dispatch_plan(M.route(q, cfg, t)[1], cfg.n_experts, C)
+    from repro_torch.distributed import dtensor as DT
+    plans = [M.dispatch_plan(DT.local_value(M.route(q, cfg, t)[1]),
+                             cfg.n_experts, C)
              for q, t in ((p, x), (dp, dx))]
     return {"routing_equal": all(torch.equal(full(a), b) for a, b in
                                  zip(plans[1], plans[0])),
@@ -97,6 +103,155 @@ def case_moe(mesh):
                                               float(want_aux)),
             "max_abs": float((got.float() - want.float()).abs().max()),
             "max_want": float(want.float().abs().max())}
+
+
+def _decode(mesh, window, dtype):
+    """Three decode steps of qwen3-8b at smoke width on DTensors laid out
+    by the dry run's spec table against the plain ``decode_step``, from
+    the same state: the weights and pools in ``dtype`` (f32: the two
+    routes differ only in the order of f32 sums), the pools filled with
+    seeded values, the lengths seeded (past the ring's wrap with
+    ``window``), the block table a seeded permutation of the pages.
+    Returns the largest relative gap of the logits and of the state after
+    each step, the pool's local shape and whether every integer of the
+    state is equal."""
+    cfg = CONFIGS["qwen3-8b"].smoke()
+    if window:
+        cfg = cfg.scaled(sliding_window=window)
+    params = tree_map(lambda t: t.to(dtype),
+                      M.init_params(cfg, 0, device="cpu"))
+    B, S = 4, 256
+    g = torch.Generator().manual_seed(3)
+    state = M.make_decode_state(cfg, B, S, device="cpu")
+    NP = state["kpool"].shape[2]
+    for name in ("kpool", "vpool"):
+        state[name] = torch.randn(state[name].shape, generator=g).to(dtype)
+    state["block_tables"].copy_(torch.randperm(NP, generator=g).int()
+                                .view(B, -1))
+    top = S + 64 if window else S - 8
+    state["seq_lens"].copy_(torch.randint(0, top, (B,), generator=g).int())
+    dstate = sh.distribute(mesh, tree_map(lambda t: t.clone(), state),
+                           sh.decode_state_specs(cfg, mesh, state))
+    dparams = sh.distribute(mesh, params, sh.param_specs(cfg, mesh))
+    logits, states, ints = [], [], True
+    for _ in range(3):
+        tokens = torch.randint(0, cfg.vocab, (B,), generator=g)
+        want, _ = M.decode_step(cfg, params, state, tokens, impl="ref")
+        got, _ = M.decode_step(cfg, dparams, dstate, sh.distribute(
+            mesh, tokens, sh.tokens_spec(mesh, B)), impl="ref")
+        logits.append(rel(full(got), want))
+        states.append(max(rel(full(dstate[n]), state[n])
+                          for n in ("kpool", "vpool")))
+        ints = ints and all(torch.equal(full(dstate[n]), state[n])
+                            for n in ("seq_lens", "block_tables"))
+    return {"logits_rel": max(logits), "state_rel": max(states),
+            "ints_equal": ints, "pages": NP,
+            "pool_local": list(dstate["kpool"].to_local().shape)}
+
+
+def case_decode(mesh):
+    return _decode(mesh, 0, torch.float32)
+
+
+def case_decode_window(mesh):
+    return _decode(mesh, 96, torch.float32)
+
+
+def case_decode_bf16(mesh):
+    return _decode(mesh, 0, torch.bfloat16)
+
+
+def case_moe_grad(mesh):
+    """The MoE sublayer on 16 token rows sharded over "data", its weights
+    laid out by the spec table and gathered for the use as a scan step
+    gathers them, against the plain sublayer: each call's expert ids
+    (``dispatch_plan``'s input) and plan equal, the outputs, the balance
+    loss and every gradient (the rows' and each weight's) to bf16
+    rounding; and the experts' buffer's local shape."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import dtensor as DT
+    cfg = CONFIGS["phi3.5-moe-42b-a6.6b"].smoke()
+    params = M.init_params(cfg, 0, device="cpu")
+    p = {n: w[0].clone() for n, w in params["blocks"][1].items()}
+    specs = sh.param_specs(cfg, mesh)["blocks"][1]
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((16, cfg.d_model), generator=g).to(torch.bfloat16)
+    probe = torch.randn((16, cfg.d_model), generator=g)
+    plans, bufs = [], []
+    real_plan, real_buf = M.dispatch_plan, DT.by_expert
+
+    def plan(idx, E, C):
+        out = real_plan(idx, E, C)
+        plans.append((idx.clone(), *(t.clone() for t in out)))
+        return out
+
+    def by_expert(buf, w):
+        out = real_buf(buf, w)
+        if DT.is_dtensor(out):
+            bufs.append(list(out.to_local().shape))
+        return out
+    M.dispatch_plan, DT.by_expert = plan, by_expert
+
+    def run(p, x):
+        leaves = [x] + [p[n] for n in ("router", "w_gate", "w_in", "w_out")]
+        for t in leaves:
+            t.requires_grad_(True)
+        y, aux = M.moe(p, cfg, x)
+        y = DT.summed(y)
+        loss = (y.float() * probe).sum() + aux
+        return y, aux, torch.autograd.grad(loss, leaves)
+    try:
+        want, want_aux, want_g = run(p, x.clone())
+        dp = {n: distribute_tensor(params["blocks"][1][n], mesh,
+                                   sh.placements(mesh, specs[n]))
+              for n in p}
+        dp = DT.for_use([{n: DT.unbind(w)[0] for n, w in dp.items()}])[0]
+        rows = [Shard(0) if n == "data" else Replicate()
+                for n in mesh.mesh_dim_names]
+        dx = distribute_tensor(x.clone(), mesh, rows)
+        got, got_aux, got_g = run(dp, dx)
+    finally:
+        M.dispatch_plan, DT.by_expert = real_plan, real_buf
+    C = int(cfg.capacity_factor * 16 * cfg.top_k / cfg.n_experts) + 1
+    return {"routing_equal": len(plans) == 2 and all(
+        torch.equal(a, b) for a, b in zip(*plans)),
+            "rel": rel(full(got), want),
+            "aux": abs(float(full(got_aux)) - float(want_aux)),
+            "grad_rel": max(rel(full(a), b) for a, b in zip(got_g, want_g)),
+            "buffer_local": bufs, "experts": cfg.n_experts, "capacity": C}
+
+
+def case_prefill(mesh):
+    """The prefill step (``forward`` without autograd: the attention's
+    online KV chunks shard by shard) of qwen3-8b at smoke width, f32, on
+    DTensors laid out by the spec table, against the plain ``forward``:
+    the logits' relative gap, over a sequence of three KV chunks, and
+    the local query shapes ``online_attn`` ran on."""
+    from repro_torch.kernels.flash_attention import ref as FR
+    cfg = CONFIGS["qwen3-8b"].smoke()
+    params = tree_map(lambda t: t.float(),
+                      M.init_params(cfg, 0, device="cpu"))
+    g = torch.Generator().manual_seed(5)
+    S = 3 * FR.KV_CHUNK
+    tokens = torch.randint(0, cfg.vocab, (2, S), generator=g).int()
+    act = sh.P(sh.dp_axis(mesh), "model", None)
+    calls, real = [], FR.online_attn
+
+    def online(q, *rest):
+        calls.append(list(q.shape))
+        return real(q, *rest)
+    FR.online_attn = online
+    try:
+        with torch.no_grad():
+            want, _ = M.forward(cfg, params, tokens, impl="ref")
+            got, _ = M.forward(cfg, sh.distribute(
+                mesh, params, sh.param_specs(cfg, mesh)), sh.distribute(
+                    mesh, tokens, sh.P(sh.dp_axis(mesh), None)),
+                impl="ref", act_spec=act)
+    finally:
+        FR.online_attn = real
+    return {"logits_rel": rel(full(got), want), "online_calls": calls}
 
 
 def main():
@@ -112,7 +267,12 @@ def main():
         from torch.distributed.tensor.experimental import \
             implicit_replication
         with implicit_replication():         # as the dry run runs
-            out = {"loss": case_loss, "moe": case_moe}[case](mesh)
+            out = {"loss": case_loss, "moe": case_moe,
+                   "decode": case_decode,
+                   "decode_window": case_decode_window,
+                   "decode_bf16": case_decode_bf16,
+                   "prefill": case_prefill,
+                   "moe_grad": case_moe_grad}[case](mesh)
         if rank == 0:
             print(json.dumps(out), flush=True)
     finally:
