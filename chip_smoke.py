@@ -3936,18 +3936,23 @@ JAMBA_GRAD_LIMITS = (1.5e-3, TRAIN_GN_RTOL, 6.5e-2)
 #: MoE dispatch of row-sharded tokens
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
                 ("jamba-v0.1-52b", "prefill_32k", True),
-                ("phi3.5-moe-42b-a6.6b", "decode_32k", False))
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", False),
+                ("deepseek-coder-33b", "prefill_32k", False))
 DRYRUN_TIMEOUT = 900
 #: each cell's argument and peak bytes a device before the pool was
 #: sharded, prefill ran the online chunks and the MoE dispatch moved rows
-#: (the dryrun phase's line on torch 2.11, the card's host), printed
-#: beside the run's own
+#: (the dryrun phase's line on torch 2.11, the card's host), and
+#: deepseek-coder-33b's before its 56 query heads were kept whole with the
+#: query rows split over "model" (the 64-cell sweep on the card's host,
+#: torch 2.11), printed beside the run's own
 DRYRUN_PARENT = {
     ("qwen3-8b", "train_4k", "16x16"): (323_545_092, 3_153_803_284),
     ("jamba-v0.1-52b", "prefill_32k", "2x16x16"): (438_550_528,
                                                    105_867_174_032),
     ("phi3.5-moe-42b-a6.6b", "decode_32k", "16x16"): (550_083_735_616,
-                                                      1_375_206_199_628)}
+                                                      1_375_206_199_628),
+    ("deepseek-coder-33b", "prefill_32k", "16x16"): (262_539_264,
+                                                     38_722_484_748)}
 #: qwen3-8b train_4k's peak a device on 16 x 16 (GiB) when DTensor laid
 #: out every operator itself, weights gathered whole and the vocabulary
 #: gathered for the loss (fake tensors, torch 2.11, the card's host): the

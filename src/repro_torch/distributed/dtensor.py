@@ -13,9 +13,12 @@ sublayer's input rows-only and its output summed, in both passes
 over vocabulary shards, the MoE dispatch moving each device's token rows
 into the experts' slots and back (:func:`by_rows`, :func:`send_rows`,
 :func:`take_rows`: every device routes its rows and computes the one plan
-of the batch from the gathered expert ids), decode's KV pool sharded
-over its pages with split-KV decoding over the shards
-(:func:`write_rows`, :func:`local_decode`); and it runs shard by shard
+of the batch from the gathered expert ids; at a decode step's few rows
+the expert weights stay on their ranks: :func:`for_use`), decode's KV
+pool sharded over its pages with split-KV decoding over the shards
+(:func:`write_rows`, :func:`local_decode`), query heads that do not
+divide the ranks kept whole with the query rows split instead
+(:func:`query_heads`); and it runs shard by shard
 (``local_map``) what is independent per row and head, or what DTensor
 lays out badly (the attention, in prefill the reference's online KV
 chunks, the mLSTM and Mamba chunks, RoPE, the optimizer's elementwise
@@ -85,16 +88,24 @@ def tp_in(h):
                       for pl in h.placements))
 
 
+def _buffer(w):
+    """The placements of the experts' buffer ``(E, C, d)`` against expert
+    weights ``w`` ``(E, d, ...)``, per mesh dim: its experts where ``w``
+    shards them (a run of whole experts a device), its width where ``w``
+    shards its rows (weights kept on their ranks: :func:`for_use`), its
+    slots over every other mesh dim."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(0) if pl.is_shard(0) else Shard(2) if pl.is_shard(1)
+                 else Shard(1) for pl in w.placements)
+
+
 def by_expert(buf, w):
     """The experts' buffer ``buf`` ``(E, C, d)`` of an MoE sublayer whose
-    expert weights are ``w`` ``(E, ...)``: on DTensors its experts sharded
-    as ``w``'s are (a run of whole experts a device), its slots over every
-    other mesh dim, in the backward too."""
+    expert weights are ``w`` ``(E, ...)``: on DTensors laid out by
+    :func:`_buffer`, in the backward too."""
     if not is_dtensor(buf):
         return buf
-    from torch.distributed.tensor import Shard
-    return pinned(buf, (Shard(0) if pl.is_shard(0) else Shard(1)
-                        for pl in w.placements))
+    return pinned(buf, _buffer(w))
 
 
 def _reshape_heads(t, shape):
@@ -143,6 +154,130 @@ def heads(t, *shape):
     return _MergeHeads.apply(t, shape)
 
 
+def halves(t):
+    """``t.chunk(2, dim=-1)``.  A DTensor whose last dim is sharded over
+    one mesh dim of ``k`` ranks holds the first half on its first ``k /
+    2`` ranks, which DTensor splits by gathering it whole (each device
+    then computing the whole of what follows, gradients included); here
+    the halves are regrouped as XLA reshards the reference's split, each
+    half sharded over all ``k`` ranks: the ``2 k`` runs of columns moved
+    to every rank (one all-to-all), split into the halves, and each
+    half's runs moved back one a rank (one all-to-all each).  The views
+    go shard by shard (DTensor 2.11 gathers a sharded dim it splits, and
+    unbinds by gathering every dim)."""
+    last = t.dim() - 1
+    on = [i for i, pl in enumerate(t.placements if is_dtensor(t) else ())
+          if pl.is_shard(last) and t.device_mesh.size(i) > 1]
+    if len(on) != 1:
+        return t.chunk(2, dim=-1)
+    from torch.distributed.tensor.experimental import local_map
+    w = t.shape[-1] // (2 * t.device_mesh.size(on[0]))
+
+    def shard_by_shard(fn, x, n_out=1):
+        pl = tuple(x.placements)
+        return local_map(fn, out_placements=(pl,) * n_out,
+                         in_placements=(pl,))(x)
+    runs = shard_by_shard(lambda x: x.reshape(*x.shape[:-1], -1, w), t)
+    runs = _moved(runs, last, last + 1)      # every run, w / k columns
+    first, second = shard_by_shard(lambda x: x.reshape(
+        *x.shape[:-2], 2, -1, x.shape[-1]).unbind(-3), runs, 2)
+    return tuple(shard_by_shard(lambda x: x.reshape(*x.shape[:-2], -1),
+                                _moved(h, last + 1, last))
+                 for h in (first, second))
+
+
+def _moved(t, src, dst):
+    """DTensor ``t`` with its shards of dim ``src`` moved to dim ``dst``
+    on the same mesh dims (one all-to-all each); its gradient moved back
+    (DTensor's ``redistribute``)."""
+    from torch.distributed.tensor import Shard
+    return t.redistribute(placements=[Shard(dst) if pl.is_shard(src) else pl
+                                      for pl in t.placements])
+
+
+def _split_rows(t, dim):
+    """The number of parts DTensor ``t``'s dim ``dim`` is split into and
+    this device's part (over the mesh dims that shard it, outermost first,
+    as DTensor splits a dim over several)."""
+    mesh = t.device_mesh
+    n, r = 1, 0
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            n, r = n * mesh.size(i), r * mesh.size(i) + mesh.get_local_rank(i)
+    return n, r
+
+
+def _pair_blocks(t, n, undo=False):
+    """DTensor ``t`` ``(B, S, ...)``, its dim 1 whole, with the ``2 n``
+    blocks of its rows dealt in pairs, one from each end: ``0, 2n - 1, 1,
+    2n - 2, ...`` (each of ``n`` runs of rows then holds block ``r`` and
+    block ``2n - 1 - r``); with ``undo``, back.  Shard by shard."""
+    from torch.distributed.tensor.experimental import local_map
+    order = [b for r in range(n) for b in (r, 2 * n - 1 - r)]
+    if undo:
+        order = sorted(range(2 * n), key=order.__getitem__)
+
+    def deal(x):
+        blocks = x.reshape(x.shape[0], 2 * n, -1, *x.shape[2:])
+        idx = torch.tensor(order, device=x.device)
+        return blocks.index_select(1, idx).reshape(x.shape)
+    pl = tuple(t.placements)
+    return local_map(deal, out_placements=(pl,), in_placements=(pl,))(t)
+
+
+def query_heads(t, *shape, unit=1, causal=False):
+    """The queries ``t`` ``(B, S, H * D)`` split into heads ``(B, S, H,
+    D)``, or an attention output's heads merged back: ``t.reshape(*shape)``.
+    On a DTensor whose columns are sharded over ranks that the ``H``
+    heads do not divide (deepseek's 56, llama4-scout's 40 or musicgen's
+    24 over 16) and whose rows split into runs of ``unit`` (an mLSTM's
+    chunks) over the same ranks, laid out as XLA partitions the
+    reference: the columns' shards moved to the rows before the split (one
+    all-to-all a mesh dim, the heads then whole and the rows split), and
+    an output's rows' shards back to its columns after the merge
+    (:func:`columns`).  With ``causal`` (attention's queries and output)
+    the rows are dealt in pairs of blocks from both ends first
+    (:func:`_pair_blocks`, undone after the merge), so that every device's
+    rows attend to as many keys (:func:`_rows_attention`).  Otherwise
+    :func:`heads`."""
+    if not is_dtensor(t):
+        return t.reshape(*shape)
+    split = len(shape) > t.dim()
+    last = t.dim() - 1
+    unit *= 2 if causal else 1
+    if split and any(pl.is_shard(last) and shape[-2] % t.device_mesh.size(i)
+                     for i, pl in enumerate(t.placements)) and not any(
+            pl.is_shard(last) and t.shape[1] % (unit * t.device_mesh.size(i))
+            for i, pl in enumerate(t.placements)):
+        if causal:
+            t = _pair_blocks(t, _split_rows(t, last)[0])
+        return _moved(t, last, 1).reshape(shape)
+    if not split and any(pl.is_shard(1) for pl in t.placements):
+        n = _split_rows(t, 1)[0]
+        t = columns(t.reshape(shape))
+        return _pair_blocks(t, n, undo=True) if causal else t
+    return heads(t, *shape)
+
+
+def in_row_order(q, *ts):
+    """``ts`` ``(B, S, ...)`` (the rotary angles) in the order of the rows
+    of queries ``q`` that :func:`query_heads` split with ``causal``; as
+    they are otherwise."""
+    if not rows_split(q):
+        return ts
+    n = _split_rows(q, 1)[0]
+    return tuple(_pair_blocks(t, n) for t in ts)
+
+
+def columns(t):
+    """``t`` ``(B, S, n)``; a DTensor whose rows :func:`query_heads` split
+    with its rows' shards moved back to its columns (one all-to-all a
+    mesh dim), for the product with a weight's row shards (``wo``)."""
+    if not is_dtensor(t) or not any(pl.is_shard(1) for pl in t.placements):
+        return t
+    return _moved(t, 1, t.dim() - 1)
+
+
 #: the mesh dims a weight's FSDP shards lie on (the data axes)
 _FSDP_AXES = ("pod", "data")
 
@@ -184,13 +319,27 @@ def gathered(w):
     return _Gather.apply(w)
 
 
-def for_use(layer):
+def _stays(w, rows):
+    """Whether an MoE sublayer's expert weights ``w`` ``(E, d, ...)`` stay
+    on the ranks that hold them for a step of ``rows`` token rows: where
+    the rows (and so any expert's slots) are fewer than the rows ``d`` of
+    the weight, moving the slots' partial products costs less than
+    gathering the weight (decode's few rows, as XLA lays out the
+    reference's decode)."""
+    return rows is not None and w.dim() == 3 and rows < w.shape[1]
+
+
+def for_use(layer, rows=None):
     """Each weight of a scan step's sublayer dicts :func:`gathered`; the
     dicts of plain tensors as they are (decided once, on the first weight:
-    a model's weights are all DTensors or none)."""
+    a model's weights are all DTensors or none).  With ``rows``, the step's
+    token rows, the expert weights :func:`_stays` keeps are not
+    gathered: the experts' products contract over the weights' own shards
+    (:func:`by_expert`)."""
     if not is_dtensor(next(iter(layer[0].values()))):
         return layer
-    return [{n: gathered(w) for n, w in sub.items()} for sub in layer]
+    return [{n: w if _stays(w, rows) else gathered(w)
+             for n, w in sub.items()} for sub in layer]
 
 
 def _head_logits(x, head):
@@ -408,20 +557,18 @@ def _moe_layout(x, w):
     expert weights ``w`` ``(E, ...)``, per mesh dim: whether it shards the
     experts (``ex``); ``x``'s rows' placements, whole on the experts'
     dims (``rows``); and the experts' buffer's ``(E, C, d)`` placements
-    (``buf``): the experts over their dims, the slots over every other."""
-    from torch.distributed.tensor import Shard
+    (``buf``, :func:`_buffer`)."""
     ex = tuple(pl.is_shard(0) for pl in w.placements)
-    return ex, _rows(x, ex), tuple(Shard(0) if e else Shard(1) for e in ex)
+    return ex, _rows(x, ex), _buffer(w)
 
 
 def _slots(C, x, w):
     """The capacity ``C`` rounded up to a multiple of the ranks that split
     the experts' slots (:func:`_moe_layout`), so that they split it
     evenly.  The slots past ``C`` stay empty."""
-    ex = _moe_layout(x, w)[0]
     n = 1
-    for i, e in enumerate(ex):
-        n *= 1 if e else x.device_mesh.size(i)
+    for i, pl in enumerate(_moe_layout(x, w)[2]):
+        n *= x.device_mesh.size(i) if pl.is_shard(1) else 1
     return -(-C // n) * n
 
 
@@ -464,12 +611,17 @@ def send_rows(x, expert, slot, keep, sort, w, C):
         return x.new_zeros((w.shape[0] * C, x.shape[1])).index_add(
             0, row, x[tok] * kept[:, None].to(x.dtype)).view(
                 w.shape[0], C, x.shape[1])
-    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     _, rows, lay = _moe_layout(x, w)
+    # where the buffer's width is split and the rows are not, each device
+    # adds its own columns of every row
+    rows = tuple(Shard(1) if b.is_shard(2) and not r.is_shard(0) else r
+                 for r, b in zip(rows, lay))
     part = tuple(Partial() if r.is_shard(0) else pl
                  for r, pl in zip(rows, lay))
-    grad = tuple(pl if pl.is_shard(0) else Partial() for pl in rows)
+    grad = tuple(pl if pl.is_shard(0) or pl.is_shard(1) else Partial()
+                 for pl in rows)
     x = x.redistribute(placements=rows)
     tok, exp = _ids(x.shape[0], x, 0), _ids(w.shape[0], w, 0)
     cap = _ids(_slots(C, x, w), x, 1, part)
@@ -494,7 +646,8 @@ def take_rows(out, expert, slot, keep, sort, gates, by_id):
     :func:`send_rows`: each kept assignment's output weighted by its gate
     (``gates`` ``(T, K)``, laid out as the rows), a token's summed in
     ``by_id`` order (its assignments by expert id) in ``out``'s dtype.
-    On DTensors, gathered over the slots where the rows are sharded, each
+    On DTensors, gathered over the slots where the rows are sharded (and
+    over the width where it is split: :func:`for_use`), each
     device takes its rows' assignments to the experts and slots it holds;
     the partial sums of the devices that hold the other experts and slots
     are pending (summed as a sublayer's output is)."""
@@ -518,7 +671,7 @@ def take_rows(out, expert, slot, keep, sort, gates, by_id):
     ex = tuple(pl.is_shard(0) for pl in out.placements)
     rows = _rows(gates, ex)
     gates, by_id = (t.redistribute(placements=rows) for t in (gates, by_id))
-    held = tuple(Replicate() if r.is_shard(0) else pl
+    held = tuple(Replicate() if r.is_shard(0) or pl.is_shard(2) else pl
                  for r, pl in zip(rows, out.placements))
     out = pinned(out, held)
     y_pl = tuple(pl if pl.is_shard(0) else Partial() if not h.is_replicate()
@@ -744,9 +897,13 @@ def local_attention(q, k, v, causal, window):
 
     from ..kernels.flash_attention.ref import flash_mha_ref
     placements = tuple(q.placements)
-    if any(pl.is_shard(1) or pl.is_partial() for pl in placements):
-        raise ValueError(f"attention on DTensors needs the sequence whole "
-                         f"and no partial sums; q is {placements}")
+    if any(pl.is_partial() for pl in placements) or (
+            any(pl.is_shard(1) for pl in placements) and not causal):
+        raise ValueError(f"attention on DTensors needs no partial sums, "
+                         f"and the sequence whole but causal; q is "
+                         f"{placements}")
+    if any(pl.is_shard(1) for pl in placements):
+        return _rows_attention(q, k, v, window)
     if causal and not torch.is_grad_enabled():
         return _local_online(q, k, v, window)
     G = q.shape[2] // k.shape[2]
@@ -790,26 +947,91 @@ def _local_online(q, k, v, window):
         heads)
 
 
+def _rows_attention(q, k, v, window):
+    """:func:`local_attention` of queries whose rows :func:`query_heads`
+    split with ``causal``, in both passes: each device's two blocks of
+    rows (block ``r`` and ``2n - 1 - r`` of ``2n``) through ``online_attn``
+    at their positions against the keys up to the block's end (rounded up
+    to whole KV chunks; the chunks past it are wholly masked), K and V
+    whole over the mesh dims that split the rows (the reference's
+    partition of its ``_online_attn``, without its masked chunks; every
+    device attends to as many keys).  Under autograd (a train step) each
+    block runs ``masked_attn`` on its keys at once (autograd keeps every
+    chunk's scores for the backward either way), and the keys' and
+    values' gradients are each device's partial sums over its rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels.flash_attention.ref import (KV_CHUNK, masked_attn,
+                                               online_attn)
+    placements = tuple(q.placements)
+    S, G = k.shape[1], q.shape[2] // k.shape[2]
+    kv_pl = tuple(Replicate() if pl.is_shard(1) or pl.is_shard(2) else pl
+                  for pl in placements)
+    kv_grad = tuple(Partial() if pl.is_shard(1) else kv
+                    for pl, kv in zip(placements, kv_pl))
+    n, r = _split_rows(q, 1)
+    L = S // (2 * n)
+    whole = torch.is_grad_enabled()
+    attn = masked_attn if whole else online_attn
+
+    def run(q, k, v):
+        B, _, H, D = q.shape
+        out = []
+        for j, b in enumerate((r, 2 * n - 1 - r)):
+            end = (b + 1) * L if whole else \
+                min(S, -(-(b + 1) * L // KV_CHUNK) * KV_CHUNK)
+            q_pos = torch.arange(b * L, (b + 1) * L,
+                                 device=q.device).expand(B, L)
+            kv_pos = torch.arange(end, device=q.device).expand(B, end)
+            o = attn(q[:, j * L:(j + 1) * L].reshape(B, L, H // G, G, D),
+                     k[:, :end], v[:, :end], q_pos, kv_pos, window)
+            out.append(o.reshape(B, L, H, D))
+        return torch.cat(out, dim=1)
+    return local_map(run, out_placements=(placements,),
+                     in_placements=(placements, kv_pl, kv_pl),
+                     in_grad_placements=(placements, kv_grad, kv_grad))(
+        q, k.redistribute(placements=kv_pl), v.redistribute(placements=kv_pl))
+
+
 def local_device(t):
     """The device of ``t``'s data: a DTensor's local shard's."""
     return t.to_local().device if is_dtensor(t) else t.device
 
 
+def rows_of(fn, n_out, t, like):
+    """``fn(t)`` -> ``n_out`` tensors of ``t``'s rows, ``t`` ``(B, ...)``
+    a plain tensor the same on every device (the positions of a batch).
+    Where ``like`` is a DTensor whose rows ``(B, ...)`` are sharded, each
+    device computes its own rows' (``t`` and the outputs laid out as
+    ``like``'s rows), not the whole batch's."""
+    if not is_dtensor(like):
+        return fn(t)
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    rows = _rows(like)
+    return local_map(fn, out_placements=(rows,) * n_out,
+                     in_placements=(rows,))(
+        distribute_tensor(t, like.device_mesh, rows))
+
+
 def local_rope(fn, x, cos, sin):
     """``fn(x, cos, sin)``, RoPE of ``x`` ``(B, S, H, D)`` by angles
     ``(B, S, 1, D / 2)``; on a DTensor ``x`` shard by shard, the angles
-    laid out as its rows (DTensor 2.11 on fake tensors multiplies a
-    sharded query by its angles as whole tensors)."""
+    laid out as its rows and, where :func:`query_heads` split them, its
+    positions (DTensor 2.11 on fake tensors multiplies a sharded query by
+    its angles as whole tensors)."""
     if not is_dtensor(x):
         return fn(x, cos, sin)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import local_map
     x = summed(x)
     pl = tuple(x.placements)
-    if any(p.is_shard(d) for p in pl for d in (1, x.dim() - 1)):
-        raise ValueError(f"rope of a DTensor laid out {pl}: its sequence "
-                         f"and last dim must be whole")
-    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    if any(p.is_shard(x.dim() - 1) for p in pl):
+        raise ValueError(f"rope of a DTensor laid out {pl}: its last dim "
+                         f"must be whole")
+    rows = tuple(Shard(p.dim) if p.is_shard(0) or p.is_shard(1) else
+                 Replicate() for p in pl)
     cos, sin = (t.redistribute(placements=rows) if is_dtensor(t) else
                 distribute_tensor(t, x.device_mesh, rows)
                 for t in (cos, sin))
@@ -841,16 +1063,92 @@ def local_chunk(fn, q, k, v, f, i, C, mask):
         q, k, v, f, i, C.redistribute(placements=state), mask)
 
 
+def rows_split(t):
+    """Whether ``t`` is a DTensor whose rows (dim 1) are split
+    (:func:`query_heads`)."""
+    return is_dtensor(t) and any(pl.is_shard(1) for pl in t.placements)
+
+
+def local_chunks(fn, state_fn, q, k, v, f, i, C, mask):
+    """The mLSTM over queries ``q``, ``k``, ``v`` ``(B, S, H, D)`` whose
+    rows :func:`query_heads` split, gates ``(B, S, H)`` and incoming state
+    ``C`` ``(B, H, D, D)``: ``(y (B, S, H, D), C)`` laid out as ``q`` and
+    as its batch rows.  The state's recurrence over chunks is linear, so
+    each device runs its own run of chunks twice: from a zero state for
+    the state at the run's end and its whole log forget gate
+    (``state_fn``), which are gathered over the ranks that split the rows;
+    then, from ``C`` with the gathered states of the runs before its own
+    folded in, through ``fn`` (:func:`local_chunk`'s) for its outputs.
+    The last run's device holds the state at the end (its partial, zero
+    elsewhere, is summed)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(q.placements)
+    split = tuple(p.is_shard(1) for p in pl)
+    rows = tuple(p if p.is_shard(0) or s else Replicate()
+                 for p, s in zip(pl, split))
+    state = tuple(p if p.is_shard(0) else Replicate() for p in rows)
+    runs = tuple(Shard(0) if s else Shard(1) if p.is_shard(0) else p
+                 for p, s in zip(state, split))
+    every = tuple(Replicate() if s else r for r, s in zip(runs, split))
+    partial = tuple(Partial() if s else p for p, s in zip(state, split))
+    summed_runs = tuple(Partial() if s else p for p, s in zip(every, split))
+    c = mask.shape[0]
+    q, k, v, f, i = (t.redistribute(placements=rows) for t in (q, k, v, f, i))
+    ids = _ids(q.shape[1], q, 1)
+    last = q.shape[1] - q.to_local().shape[1]
+
+    def chunked(*ts):
+        B, Sl = ts[0].shape[:2]
+        return [t.float().reshape(B, Sl // c, c, *t.shape[2:]) for t in ts]
+
+    def first(k, v, f, i):
+        kc, vc, fc, ic = chunked(k, v, f, i)
+        B, n, _, H, D = kc.shape
+        end = kc.new_zeros((B, H, D, D))
+        logf = kc.new_zeros((B, H))
+        for j in range(n):
+            end, total = state_fn(kc[:, j], vc[:, j], fc[:, j], ic[:, j], end)
+            logf = logf + total
+        return end[None], logf[None]
+    ends, logfs = (t.redistribute(placements=every) for t in local_map(
+        first, out_placements=(runs, runs), in_placements=(rows,) * 4)(
+            k, v, f, i))
+
+    def second(q, k, v, f, i, C, ends, logfs, ids):
+        qc, kc, vc, fc, ic = chunked(q, k, v, f, i)
+        run = ids[0] // qc.shape[1] // c
+        for s in range(ends.shape[0]):       # the runs before this one
+            C = torch.where(s < run, C * torch.exp(logfs[s])[..., None, None]
+                            + ends[s], C)
+        ys = []
+        for j in range(qc.shape[1]):
+            y, C = fn(qc[:, j], kc[:, j], vc[:, j], fc[:, j], ic[:, j], C,
+                      mask)
+            ys.append(y)
+        return torch.cat(ys, dim=1), C * (ids[0] == last).to(C.dtype)
+    ids_pl = tuple(ids.placements)
+    y, C = local_map(
+        second, out_placements=(rows, partial),
+        in_placements=(rows,) * 5 + (state, every, every, ids_pl),
+        in_grad_placements=(rows,) * 5 + (partial, summed_runs, summed_runs,
+                                          ids_pl))(
+        q, k, v, f, i, C.redistribute(placements=state), ends, logfs, ids)
+    return y, C.redistribute(placements=state)
+
+
 def local_scan(fn, decay, drive, C, h):
     """``fn(decay, drive, C, h)`` -> ``(y, h)``, a chunk of the selective
     scan (``decay``, ``drive`` ``(B, c, di, N)``, ``C`` ``(B, c, N)``,
     ``h`` ``(B, di, N)``, ``y`` ``(B, c, di)``); on DTensors shard by
     shard, every batch row and channel being independent: each device
     scans its rows and channels as ``decay`` lays them out, so DTensor
-    propagates none of the log-step scan's many small operators."""
+    propagates none of the log-step scan's many small operators.  ``C``
+    is read by every channel, so its gradient is each device's partial
+    sum over its channels."""
     if not is_dtensor(decay):
         return fn(decay, drive, C, h)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     on = [0 if pl.is_shard(0) else 2 if pl.is_shard(2) else None
           for pl in decay.placements]
@@ -860,9 +1158,11 @@ def local_scan(fn, decay, drive, C, h):
                      Shard(channels) if d == 2 and channels else Replicate()
                      for d in on)
     seq, rows, state = lay(2), lay(None), lay(1)
+    rows_grad = tuple(Partial() if d == 2 else pl for d, pl in zip(on, rows))
     decay, drive = (t.redistribute(placements=seq) for t in (decay, drive))
     return local_map(fn, out_placements=(seq, state),
-                     in_placements=(seq, seq, rows, state))(
+                     in_placements=(seq, seq, rows, state),
+                     in_grad_placements=(seq, seq, rows_grad, state))(
         decay, drive, C.redistribute(placements=rows),
         h.redistribute(placements=state))
 

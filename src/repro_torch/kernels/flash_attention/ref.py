@@ -109,6 +109,26 @@ def online_attn(q, k, v, q_pos, kv_pos, window=0):
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+def masked_attn(q, k, v, q_pos, kv_pos, window=0):
+    """:func:`online_attn` over all the keys at once (one chunk, no
+    running max): the masked softmax of the scores, f32, in ``q``'s
+    dtype.  The same inputs and outputs, and the same numbers up to f32
+    rounding; under autograd it keeps the scores and probabilities as
+    the chunks would, in a tenth of the operators."""
+    B, Sq, Hkv, G, D = q.shape
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float() * (1.0 / math.sqrt(D)),
+                     k.float())
+    qp, pc = q_pos[:, None, None, :, None], kv_pos[:, None, None, None, :]
+    mask = pc <= qp
+    if window:
+        mask = mask & (pc > qp - window)
+    s = torch.where(mask, s, NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p / p.sum(dim=-1, keepdim=True),
+                       v.float())
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
 def _mask(S, causal, window, device):
     """The ``(S, S)`` boolean mask of :func:`attention_ref` (True:
     attended), or None without ``causal``."""

@@ -238,8 +238,16 @@ def count_time_loop(counter=None):
             hs.append(carry[0])
         hs = torch.stack(hs, dim=1)
         if S > 2:
-            B, _, d = hs.shape
-            hs = torch.cat([hs, hs.new_zeros((B, S - 2, d))], dim=1)
+            def rest(h):
+                return h.new_zeros((h.shape[0], S - 2, h.shape[2]))
+            if DT.is_dtensor(hs):
+                # laid out as the trips' outputs: a DTensor's new_zeros
+                # is whole on every device
+                from torch.distributed.tensor.experimental import local_map
+                pl = tuple(hs.placements)
+                rest = local_map(rest, out_placements=(pl,),
+                                 in_placements=(pl,))
+            hs = torch.cat([hs, rest(hs)], dim=1)
             if counter is not None:
                 # the outputs the zeros stood for, saved for the backward
                 counter.hold((S - 2) * h, kept)
@@ -378,9 +386,15 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     """variant: baseline | tp_serve (decode without FSDP param gathers) |
     dp_only (no tensor parallelism) | microN (train grad-accum N);
     ``tensors`` as :func:`lower`'s; ``n_layers`` cuts the model's depth
-    (widths and shapes as they are)."""
+    (widths and shapes as they are) to a multiple of its scan step's layers
+    (jamba's period of 8, xlstm's 2)."""
     cfg = CONFIGS[arch]
     if n_layers:
+        from ..models.core import n_scan_steps
+        step = cfg.n_layers // n_scan_steps(cfg)
+        if n_layers % step:
+            raise ValueError(f"{arch}: {n_layers} layers is not a multiple "
+                             f"of its scan step's {step}")
         cfg = cfg.scaled(n_layers=n_layers)
     ok, why = st.cell_supported(cfg, shape)
     if not ok:
@@ -413,7 +427,8 @@ def main(argv=None):
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--tensors", choices=("meta", "fake"), default="meta")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut every model to this many layers")
+                    help="cut every model to this many layers (a multiple "
+                         "of its scan step's: jamba 8, xlstm 2)")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(CONFIGS)

@@ -350,17 +350,17 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     cache a prefill leaves."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = DT.heads(x @ p["wq"], B, S, H, D)
+    q = DT.query_heads(x @ p["wq"], B, S, H, D, causal=True)
     k = DT.heads(x @ p["wk"], B, S, Hkv, D)
     v = DT.heads(x @ p["wv"], B, S, Hkv, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope_apply(q, cos, sin)
+    q = rope_apply(q, *DT.in_row_order(q, cos, sin))
     k = rope_apply(k, cos, sin)
     window = {"window": cfg.sliding_window} if cfg.sliding_window else {}
     o = flash_mha(q, k, v, causal=True, impl=impl, **window)
-    return DT.heads(o, B, S, H * D) @ p["wo"], k, v
+    return DT.query_heads(o, B, S, H * D, causal=True) @ p["wo"], k, v
 
 
 def moe(p, cfg: ModelConfig, x2d):
@@ -421,9 +421,11 @@ def _gates_by_id(probs, idx):
 
 
 def _experts(p, buf):
-    """Every expert's SwiGLU on its slots ``buf`` ``(E, C, d)``."""
-    h = torch.bmm(buf, p["w_gate"])
-    h2 = torch.bmm(buf, p["w_in"])
+    """Every expert's SwiGLU on its slots ``buf`` ``(E, C, d)`` (on
+    DTensors whose width is sharded, the products' partial sums reduced
+    first)."""
+    h = DT.summed(torch.bmm(buf, p["w_gate"]))
+    h2 = DT.summed(torch.bmm(buf, p["w_in"]))
     return torch.bmm(silu(h) * h2, p["w_out"])
 
 
@@ -484,7 +486,7 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     Returns ``(out, (h, conv))``."""
     B, S, d = x.shape
     di, N, W = cfg.d_inner, cfg.ssm_state, cfg.conv_width
-    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    xi, z = DT.halves(x @ p["w_in"])
     # causal depthwise conv1d: a Python sum of W bf16 products, in order
     pad = xi.new_zeros((B, W - 1, di)) if state is None else state[1]
     xc = torch.cat([pad, xi], dim=1)
@@ -492,7 +494,10 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     kern = p["conv_w"]
     xi = sum(xc[:, w:w + S, :] * kern[w] for w in range(W))
     xi = silu(xi)
-    dt = softplus(DT.summed(xi @ p["w_dt"]) + p["dt_bias"])     # (B,S,di)
+    # (B, S, di), on DTensors its channels sharded as xi's (DTensor 2.11
+    # adds the sharded bias to the reduced product by gathering the bias)
+    dt = softplus(DT.laid_out_as(DT.summed(xi @ p["w_dt"]), xi) +
+                  p["dt_bias"])
     Bm = xi @ p["w_B"]                                        # (B,S,N)
     Cm = xi @ p["w_C"]
     A = -torch.exp(p["A_log"].float())                        # (di,N)
@@ -541,41 +546,67 @@ def _mlstm_chunk(qj, kj, vj, fj, ij, C, mask):
     # inter-chunk: q_t * decay(0..t) @ C
     inter = torch.einsum("bqhd,bhde->bqhe",
                          qj * torch.exp(cum)[..., None], C)
-    wk = ij * torch.exp(total - cum)                          # decay t..end
-    C = C * torch.exp(total)[:, 0, :, None, None] + \
-        torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
+    C = _mlstm_carry(kj, vj, ij, cum, total, C)
     return intra + inter, C
+
+
+def _mlstm_carry(kj, vj, ij, cum, total, C):
+    """The state ``C`` carried across a chunk of :func:`_mlstm_chunk`
+    (``cum``, ``total``: the cumulative and whole log forget gates over
+    the chunk)."""
+    wk = ij * torch.exp(total - cum)                          # decay t..end
+    return C * torch.exp(total)[:, 0, :, None, None] + \
+        torch.einsum("bkhd,bkhe->bhde", kj * wk[..., None], vj)
+
+
+def _mlstm_state(kj, vj, fj, ij, C):
+    """The state after a chunk of :func:`_mlstm_chunk` without its
+    outputs, and the chunk's whole log forget gate ``(B, H)``."""
+    cum = torch.cumsum(torch.log(fj.clamp(min=1e-9)), dim=1)
+    total = cum[:, -1:]
+    return _mlstm_carry(kj, vj, ij, cum, total, C), total[:, 0]
 
 
 def mlstm(p, cfg: ModelConfig, x, state=None):
     """The reference's chunked gated linear attention.  ``state`` ``C``
     ``(B, H, D, D)`` f32 for decode; returns ``(out, C)``.  On DTensors
-    each chunk runs shard by shard (:func:`DT.local_chunk`)."""
+    each chunk runs shard by shard (:func:`DT.local_chunk`), or where the
+    heads do not divide the ranks that shard their columns, each device
+    its own run of chunks (:func:`DT.local_chunks`)."""
     B, S, d = x.shape
     H = cfg.n_heads
     D = d // H
-    q = DT.heads(x @ p["wq"], B, S, H, D)
-    k = DT.heads(x @ p["wk"], B, S, H, D) / math.sqrt(D)
-    v = DT.heads(x @ p["wv"], B, S, H, D)
+    nchunk = max(S // SSM_CHUNK, 1)
+    c = S // nchunk
+    q = DT.query_heads(x @ p["wq"], B, S, H, D, unit=c)
+    k = DT.query_heads(x @ p["wk"], B, S, H, D, unit=c) / math.sqrt(D)
+    v = DT.query_heads(x @ p["wv"], B, S, H, D, unit=c)
     f = torch.sigmoid((x @ p["wf"]).reshape(B, S, H).float())
     i = torch.exp(-softplus(-(x @ p["wi"]).reshape(B, S, H).float()))
 
-    nchunk = max(S // SSM_CHUNK, 1)
-    c = S // nchunk
-    qc, kc, vc = (t.float().reshape(B, nchunk, c, H, D) for t in (q, k, v))
-    fc, ic = f.reshape(B, nchunk, c, H), i.reshape(B, nchunk, c, H)
-    mask = torch.ones((c, c), dtype=torch.bool,
-                      device=DT.local_device(x)).tril()
-    C = x.new_zeros((B, H, D, D), dtype=F32) if state is None else \
-        state.float()
-    ys = []
-    for j in range(nchunk):
-        y_j, C = DT.local_chunk(_mlstm_chunk, qc[:, j], kc[:, j], vc[:, j],
-                                fc[:, j], ic[:, j], C, mask)
-        ys.append(y_j)
-    y = DT.heads(torch.cat(ys, dim=1), B, S, H * D).to(x.dtype)
+    def start():        # the intra-chunk causal mask and the state
+        mask = torch.ones((c, c), dtype=torch.bool,
+                          device=DT.local_device(x)).tril()
+        return mask, (x.new_zeros((B, H, D, D), dtype=F32)
+                      if state is None else state.float())
+    if DT.rows_split(q):
+        # each device's runs of chunks (DT.query_heads split the rows)
+        y, C = DT.local_chunks(_mlstm_chunk, _mlstm_state, q, k, v, f, i,
+                               *reversed(start()))
+        y = y.reshape(B, S, H * D).to(x.dtype)
+    else:
+        qc, kc, vc = (t.float().reshape(B, nchunk, c, H, D)
+                      for t in (q, k, v))
+        fc, ic = f.reshape(B, nchunk, c, H), i.reshape(B, nchunk, c, H)
+        mask, C = start()
+        ys = []
+        for j in range(nchunk):
+            y_j, C = DT.local_chunk(_mlstm_chunk, qc[:, j], kc[:, j],
+                                    vc[:, j], fc[:, j], ic[:, j], C, mask)
+            ys.append(y_j)
+        y = DT.heads(torch.cat(ys, dim=1), B, S, H * D).to(x.dtype)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
-    return y @ p["wo"], C
+    return DT.columns(y) @ p["wo"], C
 
 
 #: the time loop of :func:`slstm`: ``TIME_LOOP(trip, (h, c), S)`` returns
@@ -717,7 +748,10 @@ def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     x = DT.pin(x, act_spec)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
-    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    # on DTensors each device computes the angles of its own batch rows
+    cos, sin = DT.rows_of(
+        lambda pos: rope_angles(pos, cfg.d_head, cfg.rope_theta), 2,
+        positions, x)
     aux = x.new_zeros((), dtype=F32)
     per_step = []
     for layer in _unstack(params["blocks"]):
@@ -855,7 +889,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
           for n, t in state.items() if n not in ("seq_lens", "block_tables")}
     for i, layer in enumerate(steps):
         j = dict.fromkeys(_STATEFUL, 0)
-        step = DT.for_use(layer)
+        step = DT.for_use(layer, rows=B)
         for name, p in zip(layout, step):
             h = rmsnorm(x, p["norm"], cfg.norm_eps)
             if name == "attn":

@@ -1,8 +1,12 @@
 """The dry run's layouts that follow the reference's partition of the
-step (ROADMAP Queue C 6–8), jax-free: decode's KV pool sharded over its
+step (ROADMAP Queue C 6–11), jax-free: decode's KV pool sharded over its
 pages as the reference shards its per-row pool, with split-KV decoding
 over the shards; prefill attention in the reference's online KV chunks;
-the MoE dispatch moving token rows, not the batch.  The numbers come from
+the MoE dispatch moving token rows, not the batch; query heads that do
+not divide "model" kept whole with the query rows split (the attention's
+blocks, the mLSTM's runs of chunks); Mamba's ``x @ w_in`` in halves
+sharded over "model"; decode's expert weights kept on their ranks.  The
+numbers come from
 four processes of a real gloo group on the CPU
 (``tests/torch_dtensor_worker.py``) against the plain model; the bytes
 from the dry run itself on a fake group."""
@@ -16,6 +20,7 @@ from repro_torch.configs import CONFIGS
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.flash_attention.ref import (ATTN_TOL, KV_CHUNK,
                                                      flash_mha_ref,
+                                                     masked_attn,
                                                      online_attn)
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      paged_partial)
@@ -77,12 +82,15 @@ def test_prefill_runs_the_online_chunks_shard_by_shard():
     assert out["online_calls"] == [[1, 3 * KV_CHUNK, 1, 2, 16]] * 2, out
 
 
+@pytest.mark.parametrize("attn", [online_attn, masked_attn],
+                         ids=["online", "masked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 700])
-def test_online_attn_equals_flash_mha_ref(dtype, window):
-    """``online_attn`` over three KV chunks against ``flash_mha_ref`` on
-    the same GQA inputs, causal and windowed (the window across chunk
-    boundaries), within ``ATTN_TOL``."""
+def test_online_attn_equals_flash_mha_ref(dtype, window, attn):
+    """``online_attn`` over three KV chunks (and ``masked_attn``, the
+    same keys at once: the train step's blocks of query rows) against
+    ``flash_mha_ref`` on the same GQA inputs, causal and windowed (the
+    window across chunk boundaries), within ``ATTN_TOL``."""
     rng = np.random.default_rng(7)
     B, S, Hkv, G, D = 2, 3 * KV_CHUNK, 2, 2, 16
     dt = getattr(torch, dtype)
@@ -92,7 +100,7 @@ def test_online_attn_equals_flash_mha_ref(dtype, window):
             np.float32)).to(dt)
     q, k, v = draw(B, S, Hkv * G, D), draw(B, S, Hkv, D), draw(B, S, Hkv, D)
     pos = torch.arange(S).expand(B, S)
-    got = online_attn(q.reshape(B, S, Hkv, G, D), k, v, pos, pos, window)
+    got = attn(q.reshape(B, S, Hkv, G, D), k, v, pos, pos, window)
     want = flash_mha_ref(q, k, v, True, window)
     atol, rtol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.reshape(B, S, Hkv * G, D).float(),
@@ -209,3 +217,123 @@ def test_fake_world_moves_a_shard_with_one_all_to_all():
         assert tuple(moved.to_local().shape) == (64, 8, 32)
     assert counter.coll == {"all-to-all": nbytes}, counter.coll
     assert counter.peak <= 4 * nbytes, (counter.peak, nbytes)
+
+
+@pytest.mark.parametrize("case", ["loss_heads", "loss_mlstm", "loss_jamba"])
+def test_uneven_heads_and_mamba_train_as_the_plain_model(case):
+    """The loss and every gradient on a (2, 2) gloo group in f32 against
+    the plain model: musicgen-medium at smoke width with 3 heads (the
+    attention's query rows split over "model", which 3 heads do not
+    divide), an mLSTM of one head over two chunks (each rank its own
+    chunk, from the state the other's folds in), jamba at smoke width
+    (Mamba's ``x @ w_in``, 256 columns over 2 ranks, split into halves
+    each sharded over both; the MoE; the window).  The loss within the
+    f32 limit of 1e-5; the gradients within 1e-3 (f32 partial sums
+    reduced in another order read up to 1.8e-4, on the embedding; the
+    Mamba scan's ``C`` gradient taken whole on every rank instead of
+    summed read 0.77)."""
+    out = run_ranks(case)
+    assert out["loss_rel"] < 1e-5, out
+    assert out["grad_rel"] < 1e-3, out
+
+
+def test_uneven_heads_prefill_splits_the_query_rows():
+    """The prefill of musicgen-medium at smoke width with 3 heads, f32, 3
+    KV chunks on a (2, 2) group: the plain ``forward``'s logits, and each
+    rank's ``online_attn`` queries its two blocks of 384 rows (block r and
+    3 - r of 4) with all 3 heads, not every row."""
+    out = run_ranks("prefill_heads")
+    assert out["logits_rel"] < 1e-5, out
+    # two layers, two blocks each: rows 384 = 3 * KV_CHUNK / 4
+    assert out["online_calls"] == [[1, 3 * KV_CHUNK // 4, 3, 1, 16]] * 4, \
+        out
+
+
+def _recorded(run, op):
+    """``run()`` under the dry run's counter on the open fake group, after
+    a first run that fills DTensor's sharding caches (as the dry run warms
+    up: DTensor derives a new operator signature's output on global-shaped
+    tensors): the shapes of every ``op`` call's arguments, and the
+    counter."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        run()
+    counter = DR._counter()
+    base = type(counter)
+    calls = []
+
+    class Recorder(base):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = base.__torch_dispatch__(self, func, types, args, kwargs)
+            if out is not NotImplemented and func._overloadpacket is op:
+                calls.append([tuple(a.shape) for a in args])
+            return out
+    counter.__class__ = Recorder
+    with implicit_replication(), counter:
+        run()
+    return calls, counter
+
+
+def test_mamba_w_in_gradient_is_the_local_shards_product():
+    """jamba's Mamba sublayer at production width (d 4096, d_inner 8192)
+    on a fake 16 x 16 world, 16 rows of 256 tokens: ``x @ w_in``'s
+    halves stay sharded over "model", so the weight gradient's product is
+    the local shard's, ``(4096, 1024)``, and no product reaches all
+    2 * 8192 columns (the whole, 16x the share, read 56 such products a
+    train step)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import dtensor as DT
+    from repro_torch.models import core as M
+    cfg = CONFIGS["jamba-v0.1-52b"]
+    with fake_world(256):
+        mesh = make_production_mesh()
+        specs = sh.param_specs(cfg, mesh)["blocks"][2]
+        params = sh.distribute(mesh, M._mamba_params(None, cfg, 1), specs)
+        w_in = params["w_in"].requires_grad_(True)
+        x = distribute_tensor(
+            torch.empty((16, 256, cfg.d_model), device="meta",
+                        dtype=torch.bfloat16), mesh, (Shard(0), Replicate()))
+
+        def run():
+            p = DT.for_use([{n: DT.unbind(t)[0]
+                             for n, t in params.items()}])[0]
+            out, _ = M.mamba(p, cfg, DT.tp_in(x))
+            torch.autograd.grad(DT.summed(out).float().sum(), [w_in])
+        calls, _ = _recorded(run, torch.ops.aten.mm)
+    outs = [(a[0], b[1]) for a, b in calls]
+    assert (cfg.d_model, 2 * cfg.d_inner // 16) in outs, outs
+    assert all(2 * cfg.d_inner not in a + b for a, b in calls), calls
+
+
+def test_decode_experts_stay_on_their_ranks():
+    """jamba's MoE sublayer at a decode step's 128 token rows (sharded
+    over "data") on a fake 16 x 16 world: its expert weights are not
+    gathered for the step (fewer rows than a weight's 4096), so every
+    expert product reads the local expert's weight shard, ``(1, 256,
+    14336)`` or ``(1, 14336, 256)``, and the step all-gathers no weight
+    (the parent's read 117 MB a weight)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import dtensor as DT
+    from repro_torch.models import core as M
+    cfg = CONFIGS["jamba-v0.1-52b"]
+    B = st.SHAPES["decode_32k"]["batch"]
+    with fake_world(256):
+        mesh = make_production_mesh()
+        specs = sh.param_specs(cfg, mesh)["blocks"][3]
+        params = sh.distribute(mesh, M._moe_params(None, cfg, 1), specs)
+        x = distribute_tensor(
+            torch.empty((B, cfg.d_model), device="meta",
+                        dtype=torch.bfloat16), mesh, (Shard(0), Replicate()))
+
+        def run():
+            p = DT.for_use([{n: DT.unbind(t)[0]
+                             for n, t in params.items()}], rows=B)[0]
+            with torch.no_grad():
+                M.moe(p, cfg, x)
+        calls, counter = _recorded(run, torch.ops.aten.bmm)
+    d, ff = cfg.d_model // 16, cfg.moe_d_ff
+    assert sorted(w for _, w in calls) == [(1, d, ff), (1, d, ff),
+                                           (1, ff, d)], calls
+    assert counter.coll.get("all-gather", 0) < 1 << 20, counter.coll

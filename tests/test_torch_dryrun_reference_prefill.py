@@ -5,8 +5,9 @@ peak a device stays within 1.5x of the reference's XLA peak (the plain
 attention's S x S scores read 9.99x on 16 x 16); and the
 port's ``online_attn`` against the reference's ``_online_attn`` on the
 same seeded inputs.  The peak ratio is held from below too, at about 0.8
-of its reading (0.7467 / 0.5325 on the two meshes), so that a counter
-that stops counting live storage fails.  Needs ``jax`` (skipped without
+of its reading (0.6549 / 0.4136 on the two meshes since each device
+computes the rotary angles of its own batch rows; 0.7467 / 0.5325 before),
+so that a counter that stops counting live storage fails.  Needs ``jax`` (skipped without
 it)."""
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from test_torch_dryrun_reference import helper  # noqa: E402
 
 @pytest.mark.parametrize("multi_pod, least", [
     pytest.param(False, 0.6, id="16x16"),
-    pytest.param(True, 0.42, id="2x16x16")])
+    pytest.param(True, 0.33, id="2x16x16")])
 def test_prefill_peak_is_within_1_5x_of_the_reference(multi_pod, least):
     R = helper()
     ref = R.reference_cell("qwen3-8b", "prefill_32k", multi_pod, 1)

@@ -100,13 +100,16 @@ def port_cell(arch, shape, multi_pod, layers, tensors, parts=0):
 
             def _track(self, out):
                 peak = self.peak
-                base._track(self, out)
                 for t in out if isinstance(out, (tuple, list)) else (out,):
                     if type(t).__name__ == "Tensor":
                         st = t.untyped_storage()
-                        made.setdefault(st._cdata, (
-                            st.nbytes(), str(self.func), tuple(t.shape),
-                            str(t.dtype)))
+                        # a freed storage's key may come back: label the
+                        # storage that holds it now
+                        if st._cdata not in self.storages:
+                            made[st._cdata] = (
+                                st.nbytes(), str(self.func), tuple(t.shape),
+                                str(t.dtype))
+                base._track(self, out)
                 if self.peak > peak:
                     at_peak[:] = [made[k] for k in self.storages
                                   if k in made]

@@ -13,7 +13,10 @@ plain dispatch of the gathered rows), ``moe_grad`` (the same with
 gradients, the routing and the experts' buffer's layout), ``decode`` and
 ``decode_window`` (three f32 decode steps over a permuted block table
 against the plain ``decode_step``; the pool's local shape),
-``decode_bf16`` (the same in bf16), ``prefill`` (f32 prefill logits).
+``decode_bf16`` (the same in bf16), ``prefill`` (f32 prefill logits);
+``loss_heads`` and ``prefill_heads`` (the same two where the query heads
+do not divide the "model" axis), ``loss_mlstm`` (an mLSTM whose heads do
+not), ``loss_jamba`` (jamba at smoke width: Mamba, MoE, the window).
 """
 from __future__ import annotations
 
@@ -41,14 +44,18 @@ def rel(a, b):
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def case_loss(mesh):
+def case_loss(mesh, cfg=None, B=4, S=32, dtype=torch.bfloat16):
     """``loss_fn`` and ``autograd.grad`` on DTensors against the plain
-    ones: the loss's relative gap and each leaf's relative L2 gap."""
-    cfg = CONFIGS["qwen3-8b"].smoke()
-    params = M.init_params(cfg, 0, device="cpu")
+    ones (qwen3-8b at smoke width, or ``cfg`` on ``B`` rows of ``S``
+    tokens, the weights in ``dtype``): the loss's relative gap and each
+    leaf's relative L2 gap."""
+    cfg = cfg or CONFIGS["qwen3-8b"].smoke()
+    params = tree_map(lambda t: t.to(dtype) if t.is_floating_point() and
+                      t.dtype != torch.float32 else t,
+                      M.init_params(cfg, 0, device="cpu"))
     g = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=g)
-    labels = torch.randint(0, cfg.vocab, (4, 32), generator=g)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    labels = torch.randint(0, cfg.vocab, (B, S), generator=g)
     labels[0, :5] = -1
     batch = {"tokens": tokens.int(), "labels": labels.int()}
     leaves = tree_leaves(params)
@@ -67,7 +74,8 @@ def case_loss(mesh):
     got_g = torch.autograd.grad(got, dleaves)
     return {"loss": float(want), "loss_rel": abs(float(full(got)) -
                                                  float(want)) / float(want),
-            "grad_rel": max(rel(full(a), b) for a, b in zip(got_g, want_g))}
+            "grad_rel": max(rel(full(a), b) for a, b in zip(got_g, want_g)),
+            "grad_rels": [rel(full(a), b) for a, b in zip(got_g, want_g)]}
 
 
 def case_moe(mesh):
@@ -222,14 +230,43 @@ def case_moe_grad(mesh):
             "buffer_local": bufs, "experts": cfg.n_experts, "capacity": C}
 
 
-def case_prefill(mesh):
+#: smoke widths whose heads do not divide the (2, 2) group's "model" axis
+#: of 2: musicgen-medium's attention with 3 heads (48 columns, 24 a rank)
+UNEVEN = CONFIGS["musicgen-medium"].smoke().scaled(n_heads=3, n_kv_heads=3)
+#: and xlstm-350m's mLSTM with one head of 64 (32 columns a rank)
+UNEVEN_MLSTM = CONFIGS["xlstm-350m"].smoke().scaled(n_heads=1)
+
+
+def case_loss_heads(mesh):
+    """:func:`case_loss` where the query heads do not divide "model": the
+    attention's rows split over it (two blocks a rank, each against its
+    keys)."""
+    return case_loss(mesh, UNEVEN, dtype=torch.float32)
+
+
+def case_loss_mlstm(mesh):
+    """:func:`case_loss` of an mLSTM whose heads do not divide "model",
+    over two chunks of 256 rows: each rank runs its own chunk from the
+    state its predecessor's chunk folds in."""
+    return case_loss(mesh, UNEVEN_MLSTM, B=2, S=512, dtype=torch.float32)
+
+
+def case_loss_jamba(mesh):
+    """:func:`case_loss` of jamba at smoke width: the Mamba sublayer's
+    ``x @ w_in`` (256 columns over 2 ranks) split into halves each sharded
+    over both ranks, the MoE and the windowed attention."""
+    return case_loss(mesh, CONFIGS["jamba-v0.1-52b"].smoke(),
+                     dtype=torch.float32)
+
+
+def case_prefill(mesh, cfg=None):
     """The prefill step (``forward`` without autograd: the attention's
-    online KV chunks shard by shard) of qwen3-8b at smoke width, f32, on
-    DTensors laid out by the spec table, against the plain ``forward``:
-    the logits' relative gap, over a sequence of three KV chunks, and
-    the local query shapes ``online_attn`` ran on."""
+    online KV chunks shard by shard) of qwen3-8b (or ``cfg``) at smoke
+    width, f32, on DTensors laid out by the spec table, against the plain
+    ``forward``: the logits' relative gap, over a sequence of three KV
+    chunks, and the local query shapes ``online_attn`` ran on."""
     from repro_torch.kernels.flash_attention import ref as FR
-    cfg = CONFIGS["qwen3-8b"].smoke()
+    cfg = cfg or CONFIGS["qwen3-8b"].smoke()
     params = tree_map(lambda t: t.float(),
                       M.init_params(cfg, 0, device="cpu"))
     g = torch.Generator().manual_seed(5)
@@ -254,6 +291,11 @@ def case_prefill(mesh):
     return {"logits_rel": rel(full(got), want), "online_calls": calls}
 
 
+def case_prefill_heads(mesh):
+    """:func:`case_prefill` where the query heads do not divide "model"."""
+    return case_prefill(mesh, UNEVEN)
+
+
 def main():
     rank, world, port, case = (int(sys.argv[1]), int(sys.argv[2]),
                                int(sys.argv[3]), sys.argv[4])
@@ -272,6 +314,10 @@ def main():
                    "decode_window": case_decode_window,
                    "decode_bf16": case_decode_bf16,
                    "prefill": case_prefill,
+                   "prefill_heads": case_prefill_heads,
+                   "loss_heads": case_loss_heads,
+                   "loss_mlstm": case_loss_mlstm,
+                   "loss_jamba": case_loss_jamba,
                    "moe_grad": case_moe_grad}[case](mesh)
         if rank == 0:
             print(json.dumps(out), flush=True)
