@@ -91,10 +91,13 @@ a sliding window, in both designs), and drives the port's paths:
   xlstm-350m through ``train``; the windowed kernel timed at jamba's
   prefill shape;
 * the dry run (phase ``dryrun``): ``python -m repro_torch.launch.dryrun``
-  on three production cells (``meta`` tensors on the host's CPU, started
+  on five production cells (``meta`` tensors on the host's CPU, started
   with the build and run beside the card's phases), each cell's
-  argument and peak bytes a device beside its parent's, the decode cell's
-  KV pools a device the whole pools over its 256 devices, qwen3-8b
+  argument and peak bytes a device beside its parent's, a decode cell's
+  KV pools a device the whole pools over the devices that split them, a
+  decode row
+  the data axes do not shard (jamba-v0.1-52b ``long_500k``) gathering
+  under 1 MiB a device, qwen3-8b
   ``train_4k``'s peak a device beside its reading under DTensor's own
   layouts, and the card's measured bf16 GEMM and HBM copy rates;
 * the LM-side twins (phase ``lm_panels``): serving_traffic's poll sweep
@@ -136,9 +139,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # the timing helpers and seeded inputs the port's benchmark scripts share
 from repro_torch.bench.timing import (  # noqa: E402
-    CHUNK_CYCLES, LONG_SHAPE, LONG_TIMED_LENS, attention_inputs,
-    device_events, flash_inputs, graph_ms, loop_target, nvidia_smi_line,
-    time_ms)
+    CHUNK_CYCLES, LEAD_IN_LAUNCHES, LONG_SHAPE, LONG_TIMED_LENS,
+    attention_inputs, device_events, flash_inputs, graph_ms, lead_in,
+    loop_target, nvidia_smi_line, time_ms)
 
 #: hello, 1 core, 4 MiB image, 921600-baud UART, async queue pair
 HELLO_UART = dict(ticks=6_554_780,
@@ -1589,13 +1592,15 @@ def time_run_chunk(torch, tgt, latency):
     compare_states(torch, got, state_fields(t.st), "timed chunk")
     ms = time_ms(torch, lambda: chunk("kernel"), 50, warmup=5)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         for _ in range(20):
             chunk("kernel")
         torch.cuda.synchronize()
     kern = [e for e in device_events(prof.key_averages())
             if "run_chunk" in e.key]
-    check(len(kern) == 1 and kern[0].count >= 10,
-          "profile: the run_chunk kernel was not traced")
+    check(len(kern) == 1 and kern[0].count == 20,
+          f"profile: the run_chunk kernel was not traced 20 times: "
+          f"{[(e.key, e.count) for e in kern]}")
     dev_ms = kern[0].self_device_time_total / kern[0].count / 1e3
     # bytes: the state fields read once and written once (the image words
     # a chunk touches depend on the data and only raise the bound)
@@ -1623,20 +1628,22 @@ def profile_window(torch, tgt, s_per_substep, out_dir, chunks=16):
     t = loop_target(torch, tgt.nc, tgt.mem_bytes, **target_kwargs(cfg))
     t.run(max_cycles=CHUNK_CYCLES)                   # warm-up
     before = t.substeps
-    torch.cuda.synchronize()
-    t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
+        torch.cuda.synchronize()
+        t0 = time.time()
         for _ in range(chunks):
             t.run(max_cycles=4 * CHUNK_CYCLES)
         torch.cuda.synchronize()
-    wall = time.time() - t0
+        wall = time.time() - t0
     ka = prof.key_averages()
     on_dev = device_events(ka)
     dev_us = sum(e.self_device_time_total for e in on_dev)
     kern = [e for e in on_dev if "run_chunk" in e.key]
     check(len(kern) == 1, "profile: the run_chunk kernel was not traced")
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in ka
+                   if e.key == "cudaLaunchKernel") - LEAD_IN_LAUNCHES
     ran = t.substeps - before
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "substep_profile.txt"), "w") as f:
@@ -1651,6 +1658,7 @@ def profile_window(torch, tgt, s_per_substep, out_dir, chunks=16):
             None, torch.ones_like(st.pending))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as kprof:
+        lead_in(torch)
         for _ in range(200):
             ops.walk_fetch_block(*args)
         torch.cuda.synchronize()
@@ -1658,8 +1666,7 @@ def profile_window(torch, tgt, s_per_substep, out_dir, chunks=16):
              if e.device_type == DeviceType.CUDA and
              "walk_fetch_block" in e.key]
     n_alone = sum(e.count for e in alone)
-    # the tracer may miss a few launches at the start of its window
-    check(n_alone >= 100, f"profile: only {n_alone} of 200 "
+    check(n_alone == 200, f"profile: {n_alone} of 200 "
           f"walk_fetch_block launches traced")
     out = {"phase": "profile", "chunks": chunks, "substeps": ran,
            "wall_s_under_profiler": round(wall, 4),
@@ -1734,6 +1741,7 @@ def phase_full(torch, scale, worst, latency, profile_dir):
     check(walks > 0, "the full-width run walked no fetch block")
     # the same run again under the profiler: the chunk kernel's device time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         rt2, rep2, _ = drive()
         torch.cuda.synchronize()
     check(rep2.ticks == rep.ticks and rt2.target.substeps == sub,
@@ -1972,6 +1980,7 @@ def telemetry_full_width(torch, scale):
     kern_us = {}
     for label in ("unarmed", "armed"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             _, rep3, _ = drive(dict(armed) if label == "armed" else None)
             torch.cuda.synchronize()
         check(rep3.ticks == pins["ticks"], f"profiled {label}: ticks")
@@ -2073,6 +2082,7 @@ def time_run_chunk_trace(torch, latency):
                                                  "untraced" not in label),
                             50, warmup=5)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         for _ in range(20):
             chunk("kernel", False)
             chunk("kernel", True)
@@ -2361,6 +2371,7 @@ def fleet_profiled(torch, drive):
     microseconds, its traced launches, and every kernel's."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         drive()
         torch.cuda.synchronize()
     on_dev = device_events(prof.key_averages())
@@ -2531,12 +2542,13 @@ def time_run_chunk_fleet(torch, latency):
     compare_states(torch, got, fleet_state(ft), "timed global chunk")
     ms = time_ms(torch, lambda: chunk("kernel"), 50, warmup=5)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         for _ in range(20):
             chunk("kernel")
         torch.cuda.synchronize()
     on_dev = device_events(prof.key_averages())
     kern = [e for e in on_dev if "run_chunk_fleet" in e.key]
-    check(len(kern) == 1 and kern[0].count >= 10,
+    check(len(kern) == 1 and kern[0].count == 20,
           f"profile: the fleet kernel was not traced 20 times: "
           f"{[(e.key, e.count) for e in on_dev]}")
     dev_ms = kern[0].self_device_time_total / kern[0].count / 1e3
@@ -2982,6 +2994,7 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
     host_ms = {k: v / steps * 1e3 for k, v in eng.host_s.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
@@ -2990,9 +3003,9 @@ def serve_profile(torch, cfg, params, out_dir, warm=40, steps=16):
     dev_us = sum(e.self_device_time_total for e in on_dev) / steps
     attn = [e for e in on_dev if "paged_attention" in e.key]
     n_attn = sum(e.count for e in attn)
-    launches = sum(e.count for e in ka if e.key in (
+    launches = (sum(e.count for e in ka if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-        "cuLaunchKernelEx")) / steps
+        "cuLaunchKernelEx")) - LEAD_IN_LAUNCHES) / steps
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         tag = "" if cfg.name == SERVE_ARCH else f"_{cfg.name}"
@@ -3640,6 +3653,7 @@ def train_profile(torch, cfg, out_dir, s_per_step):
     del q, k, v, do
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         step(params, opt, batch)
         torch.cuda.synchronize()
     ka = prof.key_averages()
@@ -3647,7 +3661,7 @@ def train_profile(torch, cfg, out_dir, s_per_step):
     dev_us = sum(e.self_device_time_total for e in on_dev)
     launches = sum(e.count for e in ka if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-        "cuLaunchKernelEx"))
+        "cuLaunchKernelEx")) - LEAD_IN_LAUNCHES
     top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:12]
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
@@ -3932,19 +3946,28 @@ JAMBA_GRAD_LIMITS = (1.5e-3, TRAIN_GN_RTOL, 6.5e-2)
 #: the dry run's cells at production size (started with the build, they
 #: run on the host's CPU beside the card's phases, a minute or two each):
 #: the train step's layouts, prefill's online KV chunks (jamba's window,
-#: its MoE dispatch), and decode's KV pool sharded over its pages with a
-#: MoE dispatch of row-sharded tokens
+#: its MoE dispatch), decode's KV pool sharded over its pages with a
+#: MoE dispatch of row-sharded tokens, and one decode row (jamba's whole
+#: depth at ``long_500k``) contracted on the weights' own shards
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
                 ("jamba-v0.1-52b", "prefill_32k", True),
                 ("phi3.5-moe-42b-a6.6b", "decode_32k", False),
-                ("deepseek-coder-33b", "prefill_32k", False))
+                ("deepseek-coder-33b", "prefill_32k", False),
+                ("jamba-v0.1-52b", "long_500k", False))
 DRYRUN_TIMEOUT = 900
+#: the most a decode step of rows the data axes do not shard may
+#: all-gather a device: no weight, table or head gathered for one row (the
+#: reference's program gathers 544 bytes at jamba's period; the port's
+#: gathers of every dense weight read 761 MB at whole depth)
+ONE_ROW_GATHER_BYTES = 1 << 20
 #: each cell's argument and peak bytes a device before the pool was
 #: sharded, prefill ran the online chunks and the MoE dispatch moved rows
 #: (the dryrun phase's line on torch 2.11, the card's host), and
 #: deepseek-coder-33b's before its 56 query heads were kept whole with the
 #: query rows split over "model" (the 64-cell sweep on the card's host,
-#: torch 2.11), printed beside the run's own
+#: torch 2.11), and jamba-v0.1-52b long_500k's before its one row stopped
+#: gathering the weights (the same sweep's parent, torch 2.11), printed
+#: beside the run's own
 DRYRUN_PARENT = {
     ("qwen3-8b", "train_4k", "16x16"): (323_545_092, 3_153_803_284),
     ("jamba-v0.1-52b", "prefill_32k", "2x16x16"): (438_550_528,
@@ -3952,7 +3975,9 @@ DRYRUN_PARENT = {
     ("phi3.5-moe-42b-a6.6b", "decode_32k", "16x16"): (550_083_735_616,
                                                       1_375_206_199_628),
     ("deepseek-coder-33b", "prefill_32k", "16x16"): (262_539_264,
-                                                     38_722_484_748)}
+                                                     38_722_484_748),
+    ("jamba-v0.1-52b", "long_500k", "16x16"): (775_688_716,
+                                               1_919_354_416)}
 #: qwen3-8b train_4k's peak a device on 16 x 16 (GiB) when DTensor laid
 #: out every operator itself, weights gathered whole and the vocabulary
 #: gathered for the loss (fake tensors, torch 2.11, the card's host): the
@@ -4912,13 +4937,33 @@ def dryrun_pool_bytes(arch, shape):
                for n in ("kpool", "vpool"))
 
 
+def dryrun_pool_ways(arch, shape, cell):
+    """The devices a decode cell's KV pools are split over, by the
+    reference's rule (``sharding.decode_state_specs``): the data axes
+    where they divide the batch, then "model" where it divides a row's
+    pages (neither at one row of 129 pages: the pools whole on every
+    device, as the reference's)."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.launch import steps as st
+    from repro_torch.models.core import pages_per_seq
+    tp = cell["mesh_shape"]["model"]
+    dp = cell["n_chips"] // tp
+    pages = pages_per_seq(CONFIGS[arch], st.SHAPES[shape]["seq"])
+    return (dp if st.SHAPES[shape]["batch"] % dp == 0 else 1) * \
+        (tp if pages % tp == 0 else 1)
+
+
 def phase_dryrun(torch, dev, runs):
     """The dry-run cells started by ``start_dryrun`` (they ran beside the
-    card's phases), each report read back and ``OK``; the card's measured
-    rates beside the data sheet's the roofline divides by.  Returns the
+    card's phases), each report read back and ``OK``, a decode cell's KV
+    pools a device the whole pools over the devices that split them, a
+    decode whose rows the data axes do not shard all-gathering at most
+    ``ONE_ROW_GATHER_BYTES`` a device; the card's measured rates beside
+    the data sheet's the roofline divides by.  Returns the
     cells' reports and the rates."""
     from repro_torch.bench.roofline import measured_rates
     from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as st
     rates = measured_rates(torch, dev)
     out = []
     for (arch, shape, multi_pod), path, proc, times in runs:
@@ -4939,9 +4984,17 @@ def phase_dryrun(torch, dev, runs):
         pool = cell["per_device"].get("kv_pool_bytes")
         if pool is not None:
             whole = dryrun_pool_bytes(arch, shape)
-            check(pool * cell["n_chips"] == whole, f"dryrun {arch} {shape}:"
-                  f" the KV pools hold {pool} bytes a device, not the whole "
-                  f"pools' {whole} over {cell['n_chips']} devices")
+            ways = dryrun_pool_ways(arch, shape, cell)
+            check(pool * ways == whole, f"dryrun {arch} {shape}: the KV "
+                  f"pools hold {pool} bytes a device, not the whole pools' "
+                  f"{whole} over {ways} devices")
+        dp = cell["n_chips"] // cell["mesh_shape"]["model"]
+        if st.SHAPES[shape]["batch"] % dp:
+            gathered = cell["collective_bytes_per_device"].get(
+                "all-gather", 0)
+            check(gathered <= ONE_ROW_GATHER_BYTES, f"dryrun {arch} {shape}:"
+                  f" one row all-gathers {gathered} bytes a device, over "
+                  f"{ONE_ROW_GATHER_BYTES}")
         parent = DRYRUN_PARENT.get((arch, shape, cell["mesh"]))
         out.append({**cell, "wall_s": round(wall, 1),
                     "parent_per_device": parent and {

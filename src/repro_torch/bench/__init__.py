@@ -15,7 +15,7 @@ from __future__ import annotations
 #: the runnable scripts, by module name, in the order
 #: ``python -m repro_torch.bench`` lists them
 SCRIPTS = ("decode_kernels", "paged_attention_timeline", "port_kernels",
-           "dryrun_sweep",
+           "dryrun_sweep", "profile_drop",
            # the paper's FASE panels (twins of the reference's benchmarks)
            "htp_vs_direct", "stall_breakdown", "gapbs_accuracy",
            "coremark_accuracy", "baud_sweep", "hfutex_bench", "scale_sweep",
@@ -28,16 +28,16 @@ SCRIPTS = ("decode_kernels", "paged_attention_timeline", "port_kernels",
            # the LM-side twins
            "serving_traffic", "roofline", "hillclimb")
 #: the paper's eight FASE panels of :data:`SCRIPTS`, in its order
-PANELS = SCRIPTS[4:12]
+PANELS = SCRIPTS[5:13]
 #: the two speed panels of :data:`SCRIPTS`: guest instructions per second
 #: of each interpreter route, and wall a CoreMark iteration against PySim
-SPEED_PANELS = SCRIPTS[12:14]
+SPEED_PANELS = SCRIPTS[13:15]
 #: the fleet panels of :data:`SCRIPTS`: their boards are targets of the
 #: panel's kind behind one ``FleetRuntime``
-FLEET_PANELS = SCRIPTS[14:18]
+FLEET_PANELS = SCRIPTS[15:19]
 #: the LM-side twins of :data:`SCRIPTS`: the serving engine's poll sweep
 #: and co-residency, and two readings of the port's dry run
-LM_PANELS = SCRIPTS[18:]
+LM_PANELS = SCRIPTS[19:]
 #: the twins ``python -m repro_torch.bench --run`` runs, in the order of
 #: the reference's runner (``benchmarks/run.py``)
 RUN_ORDER = ("target_speed", "htp_vs_direct", "coremark_accuracy",

@@ -126,6 +126,7 @@ def profiler_us(torch, fn, name, iters):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        S.lead_in(torch)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()

@@ -57,6 +57,7 @@ def chunk_times(torch, tgt):
     paced = a.elapsed_time(b) * 1e3 / (tgt.substeps - sub0)
     sub0 = tgt.substeps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        S.lead_in(torch)
         for _ in range(CHUNKS):
             tgt.run(max_cycles=S.CHUNK_CYCLES)
         torch.cuda.synchronize()

@@ -108,12 +108,31 @@ CUPTI_OVERHEAD = frozenset((
     "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"))
 
 
+#: empty kernels that open a profile window (:func:`lead_in`)
+LEAD_IN_LAUNCHES = 1024
+#: the lead-in's kernel, ``torch.cuda._sleep``'s, as the profiler names it
+LEAD_IN_KERNEL = "spin_kernel"
+
+
+def lead_in(torch):
+    """Open a ``torch.profiler`` window with ``LEAD_IN_LAUNCHES`` empty
+    kernels.  With torch 2.11 and CUDA 12.8 on an H100 the tracer drops
+    the device records of a window's first launches, more the longer the
+    process has run, whether the launches start at once, after a pause
+    on the host or after a long kernel (``bench/profile_drop.py``
+    measures it).  The drop falls on these; :func:`device_events` leaves
+    them out."""
+    for _ in range(LEAD_IN_LAUNCHES):
+        torch.cuda._sleep(0)
+
+
 def device_events(ka):
     """The kernels, copies and memsets of a profile's ``key_averages()``:
-    its events on the CUDA device, CUPTI's overhead records left out."""
+    its events on the CUDA device, CUPTI's overhead records and the
+    lead-in's kernels left out."""
     from torch.autograd import DeviceType
     return [e for e in ka if e.device_type == DeviceType.CUDA and
-            e.key not in CUPTI_OVERHEAD]
+            e.key not in CUPTI_OVERHEAD and LEAD_IN_KERNEL not in e.key]
 
 
 def attention_inputs(torch, dev, B, H, Hkv, D, page, P, dtype, seed,

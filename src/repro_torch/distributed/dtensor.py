@@ -14,7 +14,10 @@ over vocabulary shards, the MoE dispatch moving each device's token rows
 into the experts' slots and back (:func:`by_rows`, :func:`send_rows`,
 :func:`take_rows`: every device routes its rows and computes the one plan
 of the batch from the gathered expert ids; at a decode step's few rows
-the expert weights stay on their ranks: :func:`for_use`), decode's KV
+the expert weights stay on their ranks: :func:`for_use`), at token rows
+the data axes do not shard (one decode row) no weight gathered, each
+product on the weight's own shards (:func:`whole_rows`, :func:`matmul`,
+the embedding's lookup and the head too), decode's KV
 pool sharded over its pages with split-KV decoding over the shards
 (:func:`write_rows`, :func:`local_decode`), query heads that do not
 divide the ranks kept whole with the query rows split instead
@@ -319,6 +322,18 @@ def gathered(w):
     return _Gather.apply(w)
 
 
+def whole_rows(rows):
+    """Whether DTensor ``rows`` (a step's token rows, dim 0) lies whole
+    over the data axes: a batch they do not divide (one decode row, as
+    :func:`~repro_torch.distributed.sharding.dp_for` keeps it replicated).
+    At such rows the reference's program contracts every product on the
+    weight's own FSDP shard and reduces the small partial rows, where it
+    gathers the weights for rows the data axes shard."""
+    names = rows.device_mesh.mesh_dim_names
+    return not any(pl.is_shard(0) and names[i] in _FSDP_AXES
+                   for i, pl in enumerate(rows.placements))
+
+
 def _stays(w, rows):
     """Whether an MoE sublayer's expert weights ``w`` ``(E, d, ...)`` stay
     on the ranks that hold them for a step of ``rows`` token rows: where
@@ -333,13 +348,41 @@ def for_use(layer, rows=None):
     """Each weight of a scan step's sublayer dicts :func:`gathered`; the
     dicts of plain tensors as they are (decided once, on the first weight:
     a model's weights are all DTensors or none).  With ``rows``, the step's
-    token rows, the expert weights :func:`_stays` keeps are not
-    gathered: the experts' products contract over the weights' own shards
-    (:func:`by_expert`)."""
+    token rows ``(B, ...)``: where they lie whole over the data axes
+    (:func:`whole_rows`) no weight is gathered, each product contracting
+    the row's columns on the weight's own shards (:func:`matmul`);
+    otherwise the expert weights
+    :func:`_stays` keeps are not gathered: the experts' products contract
+    over the weights' own shards (:func:`by_expert`)."""
     if not is_dtensor(next(iter(layer[0].values()))):
         return layer
-    return [{n: w if _stays(w, rows) else gathered(w)
-             for n, w in sub.items()} for sub in layer]
+    if rows is not None and whole_rows(rows):
+        return layer
+    n = None if rows is None else rows.shape[0]
+    return [{k: w if _stays(w, n) else gathered(w)
+             for k, w in sub.items()} for sub in layer]
+
+
+def matmul(x, w):
+    """``x @ w``; on DTensor rows whole over the data axes
+    (:func:`whole_rows`), where ``w`` stays on its ranks (:func:`for_use`),
+    the product's partial sums over ``w``'s shards reduced at once, so
+    that DTensor does not pick the reduction (or a gather of ``w``) by
+    itself at the operator that reads them."""
+    out = x @ w
+    return summed(out) if is_dtensor(x) and whole_rows(x) else out
+
+
+def routed(fn, n_out, x, w):
+    """``fn(x.float() @ w.float())`` -> ``n_out`` tensors of the rows of
+    ``x`` ``(T, d)`` (a router's logits and what follows them).  On
+    DTensor rows each device runs it on its own rows with ``w`` whole
+    (:func:`by_rows`); on rows whole over the data axes
+    (:func:`whole_rows`) the product contracts on ``w``'s own shards and
+    is reduced first, so ``w`` is not gathered."""
+    if is_dtensor(x) and whole_rows(x):
+        return by_rows(fn, n_out, (summed(x.float() @ w.float()),))
+    return by_rows(lambda x, w: fn(x.float() @ w.float()), n_out, (x,), w)
 
 
 def _head_logits(x, head):
@@ -382,19 +425,23 @@ def embed(table, tokens):
     """The rows of ``table`` at ``tokens``.  On DTensors vocab-parallel:
     the table gathered over the data axes (:func:`gathered`), each device
     looks up the tokens its vocabulary shard holds, and the partial rows
-    are summed.  DTensor has no rule for indexing a sharded table, and
-    its own ``embedding`` rule builds the whole table's gradient on every
-    device."""
+    are summed.  At tokens whole over the data axes (:func:`whole_rows`:
+    one decode row) the table is not gathered: each device looks them up
+    in its own shard, and the rows come out split over its columns as
+    the table's are.  DTensor has no rule for indexing a sharded table,
+    and its own ``embedding`` rule builds the whole table's gradient on
+    every device."""
     if not is_dtensor(table):
         return table[tokens.long()]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    w = gathered(table)
+    w = table if whole_rows(tokens) else gathered(table)
     tpl = tuple(w.placements)
     rows = tuple(pl if pl.is_shard(0) and not w_pl.is_shard(0)
                  else Replicate()
                  for pl, w_pl in zip(tokens.placements, tpl))
-    out = tuple(Partial() if w_pl.is_shard(0) else r
+    out = tuple(Partial() if w_pl.is_shard(0) else
+                Shard(tokens.dim()) if w_pl.is_shard(1) else r
                 for r, w_pl in zip(rows, tpl))
     grad = tuple(Partial() if r.is_shard(0) else w_pl
                  for r, w_pl in zip(rows, tpl))
@@ -647,7 +694,8 @@ def take_rows(out, expert, slot, keep, sort, gates, by_id):
     (``gates`` ``(T, K)``, laid out as the rows), a token's summed in
     ``by_id`` order (its assignments by expert id) in ``out``'s dtype.
     On DTensors, gathered over the slots where the rows are sharded (and
-    over the width where it is split: :func:`for_use`), each
+    over the width where it is split: :func:`for_use`; at rows whole over
+    the data axes the width stays split, and so do the outputs), each
     device takes its rows' assignments to the experts and slots it holds;
     the partial sums of the devices that hold the other experts and slots
     are pending (summed as a sublayer's output is)."""
@@ -666,16 +714,20 @@ def take_rows(out, expert, slot, keep, sort, gates, by_id):
         for r in range(K):
             y = y + per_tok[:, r]
         return y
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     ex = tuple(pl.is_shard(0) for pl in out.placements)
     rows = _rows(gates, ex)
     gates, by_id = (t.redistribute(placements=rows) for t in (gates, by_id))
-    held = tuple(Replicate() if r.is_shard(0) or pl.is_shard(2) else pl
-                 for r, pl in zip(rows, out.placements))
+    # at rows whole over the data axes the width stays split, as the
+    # residual stream's columns are
+    whole = whole_rows(gates)
+    held = tuple(Replicate() if r.is_shard(0) or pl.is_shard(2) and not whole
+                 else pl for r, pl in zip(rows, out.placements))
     out = pinned(out, held)
-    y_pl = tuple(pl if pl.is_shard(0) else Partial() if not h.is_replicate()
-                 else Replicate() for pl, h in zip(rows, held))
+    y_pl = tuple(pl if pl.is_shard(0) else Shard(1) if h.is_shard(2) else
+                 Partial() if not h.is_replicate() else Replicate()
+                 for pl, h in zip(rows, held))
     out_grad = tuple(Partial() if r.is_shard(0) else h
                      for r, h in zip(rows, held))
     tok = _ids(gates.shape[0], gates, 0)

@@ -148,7 +148,8 @@ def softplus(x):
 
 
 def swiglu(p, x):
-    return (silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    return DT.matmul(silu(DT.matmul(x, p["w_gate"])) *
+                     DT.matmul(x, p["w_in"]), p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +351,9 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     cache a prefill leaves."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = DT.query_heads(x @ p["wq"], B, S, H, D, causal=True)
-    k = DT.heads(x @ p["wk"], B, S, Hkv, D)
-    v = DT.heads(x @ p["wv"], B, S, Hkv, D)
+    q = DT.query_heads(DT.matmul(x, p["wq"]), B, S, H, D, causal=True)
+    k = DT.heads(DT.matmul(x, p["wk"]), B, S, Hkv, D)
+    v = DT.heads(DT.matmul(x, p["wv"]), B, S, Hkv, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -360,7 +361,8 @@ def attention(p, cfg: ModelConfig, x, cos, sin, impl="kernel"):
     k = rope_apply(k, cos, sin)
     window = {"window": cfg.sliding_window} if cfg.sliding_window else {}
     o = flash_mha(q, k, v, causal=True, impl=impl, **window)
-    return DT.query_heads(o, B, S, H * D, causal=True) @ p["wo"], k, v
+    return DT.matmul(DT.query_heads(o, B, S, H * D, causal=True),
+                     p["wo"]), k, v
 
 
 def moe(p, cfg: ModelConfig, x2d):
@@ -383,12 +385,12 @@ def route(p, cfg: ModelConfig, x2d):
     """The router of :func:`moe`: its f32 probabilities ``(T, E)`` and each
     token's top-``K`` experts ``(T, K)``, the highest first (on DTensor
     rows each device routes its own: :func:`DT.by_rows`)."""
-    def routed(x, router):
-        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    def top(logits):
+        probs = torch.softmax(logits, dim=-1)
         idx = torch.argsort(probs, dim=-1, descending=True,
                             stable=True)[:, :cfg.top_k]
         return probs, idx
-    return DT.by_rows(routed, 2, (x2d,), p["router"])
+    return DT.routed(top, 2, x2d, p["router"])
 
 
 def dispatch_plan(idx, E, C):
@@ -486,7 +488,7 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     Returns ``(out, (h, conv))``."""
     B, S, d = x.shape
     di, N, W = cfg.d_inner, cfg.ssm_state, cfg.conv_width
-    xi, z = DT.halves(x @ p["w_in"])
+    xi, z = DT.halves(DT.matmul(x, p["w_in"]))
     # causal depthwise conv1d: a Python sum of W bf16 products, in order
     pad = xi.new_zeros((B, W - 1, di)) if state is None else state[1]
     xc = torch.cat([pad, xi], dim=1)
@@ -498,8 +500,8 @@ def mamba(p, cfg: ModelConfig, x, state=None):
     # adds the sharded bias to the reduced product by gathering the bias)
     dt = softplus(DT.laid_out_as(DT.summed(xi @ p["w_dt"]), xi) +
                   p["dt_bias"])
-    Bm = xi @ p["w_B"]                                        # (B,S,N)
-    Cm = xi @ p["w_C"]
+    Bm = DT.matmul(xi, p["w_B"])                              # (B,S,N)
+    Cm = DT.matmul(xi, p["w_C"])
     A = -torch.exp(p["A_log"].float())                        # (di,N)
     decay = torch.exp(dt.float()[..., None] * A)              # (B,S,di,N)
     drive = (dt.float() * xi.float())[..., None] * \
@@ -525,7 +527,7 @@ def mamba(p, cfg: ModelConfig, x, state=None):
         ys.append(y_j)
     y = torch.cat(ys, dim=1).to(x.dtype)
     y = y + xi * p["d_skip"]
-    out = (y * silu(z)) @ p["w_out"]
+    out = DT.matmul(y * silu(z), p["w_out"])
     return out, (h, new_conv)
 
 
@@ -578,11 +580,13 @@ def mlstm(p, cfg: ModelConfig, x, state=None):
     D = d // H
     nchunk = max(S // SSM_CHUNK, 1)
     c = S // nchunk
-    q = DT.query_heads(x @ p["wq"], B, S, H, D, unit=c)
-    k = DT.query_heads(x @ p["wk"], B, S, H, D, unit=c) / math.sqrt(D)
-    v = DT.query_heads(x @ p["wv"], B, S, H, D, unit=c)
-    f = torch.sigmoid((x @ p["wf"]).reshape(B, S, H).float())
-    i = torch.exp(-softplus(-(x @ p["wi"]).reshape(B, S, H).float()))
+    q = DT.query_heads(DT.matmul(x, p["wq"]), B, S, H, D, unit=c)
+    k = DT.query_heads(DT.matmul(x, p["wk"]), B, S, H, D,
+                       unit=c) / math.sqrt(D)
+    v = DT.query_heads(DT.matmul(x, p["wv"]), B, S, H, D, unit=c)
+    f = torch.sigmoid(DT.matmul(x, p["wf"]).reshape(B, S, H).float())
+    i = torch.exp(-softplus(-DT.matmul(x, p["wi"]).reshape(B, S, H)
+                            .float()))
 
     def start():        # the intra-chunk causal mask and the state
         mask = torch.ones((c, c), dtype=torch.bool,
@@ -606,7 +610,7 @@ def mlstm(p, cfg: ModelConfig, x, state=None):
             ys.append(y_j)
         y = DT.heads(torch.cat(ys, dim=1), B, S, H * D).to(x.dtype)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
-    return DT.columns(y) @ p["wo"], C
+    return DT.matmul(DT.columns(y), p["wo"]), C
 
 
 #: the time loop of :func:`slstm`: ``TIME_LOOP(trip, (h, c), S)`` returns
@@ -622,10 +626,10 @@ def slstm(p, cfg: ModelConfig, x, state=None):
     c))``.  ``h @ r`` is an f32 product (TF32 stays off, PyTorch's
     default)."""
     B, S, d = x.shape
-    zi = (x @ p["w_z"]).float()
-    fi = (x @ p["w_f"]).float()
-    ii = (x @ p["w_i"]).float()
-    oi = (x @ p["w_o"]).float()
+    zi = DT.matmul(x, p["w_z"]).float()
+    fi = DT.matmul(x, p["w_f"]).float()
+    ii = DT.matmul(x, p["w_i"]).float()
+    oi = DT.matmul(x, p["w_o"]).float()
     if state is None:
         h = x.new_zeros((B, d), dtype=F32)
         c = x.new_zeros((B, d), dtype=F32)
@@ -648,7 +652,7 @@ def slstm(p, cfg: ModelConfig, x, state=None):
         y = torch.stack(hs, dim=1)
     else:
         y, (h, c) = TIME_LOOP(trip, (h, c), S)
-    return y.to(x.dtype) @ p["w_out"], (h, c)
+    return DT.matmul(y.to(x.dtype), p["w_out"]), (h, c)
 
 
 # ---------------------------------------------------------------------------
@@ -889,14 +893,14 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
           for n, t in state.items() if n not in ("seq_lens", "block_tables")}
     for i, layer in enumerate(steps):
         j = dict.fromkeys(_STATEFUL, 0)
-        step = DT.for_use(layer, rows=B)
+        step = DT.for_use(layer, rows=x)
         for name, p in zip(layout, step):
             h = rmsnorm(x, p["norm"], cfg.norm_eps)
             if name == "attn":
                 a = j["attn"]
-                q = DT.heads(h @ p["wq"], B, 1, H, D)
-                k = DT.heads(h @ p["wk"], B, 1, Hkv, D)
-                v = DT.heads(h @ p["wv"], B, 1, Hkv, D)
+                q = DT.heads(DT.matmul(h, p["wq"]), B, 1, H, D)
+                k = DT.heads(DT.matmul(h, p["wk"]), B, 1, Hkv, D)
+                v = DT.heads(DT.matmul(h, p["wv"]), B, 1, Hkv, D)
                 if cfg.qk_norm:
                     q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
                     k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -907,7 +911,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
                 DT.write_rows(vp, page_of_slot, off, v[:, 0])
                 o = paged_decode(q[:, 0], kp, vp, bt, lens, impl=impl,
                                  window=window)               # (B,H,D)
-                o = DT.heads(o, B, 1, H * D) @ p["wo"]
+                o = DT.matmul(DT.heads(o, B, 1, H * D), p["wo"])
             elif name == "mlp":
                 o = swiglu(p, h)
             elif name == "moe":
@@ -940,4 +944,4 @@ def decode_step(cfg: ModelConfig, params, state, tokens, impl="kernel"):
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return (x @ head)[:, 0], state
+    return DT.matmul(x, head)[:, 0], state

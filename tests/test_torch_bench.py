@@ -74,7 +74,8 @@ def test_port_bench_package_passes_its_own_audit():
     bench.audit()
     assert set(bench.SCRIPTS) == {"decode_kernels", "dryrun_sweep",
                                   "paged_attention_timeline",
-                                  "port_kernels", *bench.PANELS,
+                                  "port_kernels", "profile_drop",
+                                  *bench.PANELS,
                                   *bench.FLEET_PANELS, *bench.LM_PANELS,
                                   *bench.SPEED_PANELS}
     assert len(bench.PANELS) == 8 and "panels" in bench.EXCLUDED
@@ -102,7 +103,7 @@ def test_port_bench_runner_lists_every_script():
                                   "net_scale", "stall_attribution",
                                   "migration", "serving_traffic",
                                   "roofline", "hillclimb", "target_speed",
-                                  "speedup"])
+                                  "speedup", "profile_drop"])
 def test_each_script_runs_as_a_module_of_the_port(name):
     """``python -m repro_torch.bench.<name>``: ``--help`` where the script
     takes flags, else the refusal without a card (exit 1, no result).
@@ -181,3 +182,28 @@ def test_use_tree_loads_the_port_from_another_directory(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "other tree"
+
+
+def test_a_profile_window_opens_with_the_lead_in_and_reads_past_it():
+    """``lead_in`` launches ``LEAD_IN_LAUNCHES`` empty kernels (here on a
+    stand-in ``torch``), and ``device_events`` keeps the device's kernels
+    and copies but the lead-in's kernel, CUPTI's overhead records and the
+    host's events."""
+    from torch.autograd import DeviceType
+    from repro_torch.bench import timing
+    sleeps = []
+    fake = types.SimpleNamespace(
+        cuda=types.SimpleNamespace(_sleep=sleeps.append))
+    timing.lead_in(fake)
+    assert sleeps == [0] * timing.LEAD_IN_LAUNCHES
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = [types.SimpleNamespace(key=k, device_type=d) for k, d in (
+        ("at::cuda::(anonymous namespace)::spin_kernel(long)", cuda),
+        ("void (anonymous namespace)::run_chunk_fleet_kernel<false, "
+         "false>((anonymous namespace)::Params, long long const*, "
+         "long long)", cuda),
+        ("Memcpy HtoD (Pageable -> Device)", cuda),
+        ("Activity Buffer Request", cuda),
+        ("cudaLaunchKernel", cpu))]
+    assert [e.key for e in timing.device_events(events)] == [
+        events[1].key, events[2].key]

@@ -5,8 +5,10 @@ over the shards; prefill attention in the reference's online KV chunks;
 the MoE dispatch moving token rows, not the batch; query heads that do
 not divide "model" kept whole with the query rows split (the attention's
 blocks, the mLSTM's runs of chunks); Mamba's ``x @ w_in`` in halves
-sharded over "model"; decode's expert weights kept on their ranks.  The
-numbers come from
+sharded over "model"; decode's expert weights kept on their ranks; and
+(ROADMAP Queue C 12) at one token row, which the data axes do not shard,
+no weight gathered: each product, the embedding's lookup and the head on
+the weights' own shards.  The numbers come from
 four processes of a real gloo group on the CPU
 (``tests/torch_dtensor_worker.py``) against the plain model; the bytes
 from the dry run itself on a fake group."""
@@ -329,7 +331,7 @@ def test_decode_experts_stay_on_their_ranks():
 
         def run():
             p = DT.for_use([{n: DT.unbind(t)[0]
-                             for n, t in params.items()}], rows=B)[0]
+                             for n, t in params.items()}], rows=x)[0]
             with torch.no_grad():
                 M.moe(p, cfg, x)
         calls, counter = _recorded(run, torch.ops.aten.bmm)
@@ -337,3 +339,96 @@ def test_decode_experts_stay_on_their_ranks():
     assert sorted(w for _, w in calls) == [(1, d, ff), (1, d, ff),
                                            (1, ff, d)], calls
     assert counter.coll.get("all-gather", 0) < 1 << 20, counter.coll
+
+
+@pytest.mark.parametrize("case", ["decode_row", "decode_row_bf16"])
+def test_one_row_decodes_as_the_plain_decode(case):
+    """Three decode steps of one row (batch 1: the data axes do not shard
+    it) of qwen3-8b, jamba (Mamba, MoE, the windowed ring) and xlstm-350m
+    (mLSTM, sLSTM) at smoke width on a (2, 2) gloo group, no weight
+    gathered, against the plain decode from the same seeded state.  f32:
+    the logits and every float of the state within the f32 summation
+    order of :func:`test_sharded_decode_equals_the_plain_decode_on_a_\
+permuted_table`.  bf16: the logits within its bf16 limit, the state
+    within 3e-2 (the recurrent states carry the rounding of the bf16
+    projections that feed them: up to 1.4e-2 on the route that gathers
+    the weights at 4 rows, 1.4e-2 here; a partial sum reduced over the
+    wrong ranks moves them by their own size)."""
+    out = run_ranks(case)
+    logits, states = (1e-5, 1e-6) if case == "decode_row" else (3e-2, 3e-2)
+    for arch, o in out.items():
+        assert o["logits_rel"] < logits and o["state_rel"] < states, \
+            (arch, o)
+        assert o["ints_equal"] and o["gathers"] == 0, (arch, o)
+
+
+def _cell_calls(arch, shape, layers, ops):
+    """The dry run's cell on 16 x 16 cut to ``layers``, and the argument
+    shapes and dtype of every ``ops`` call of its counted run, by op."""
+    counter, calls = DR._counter, {}
+
+    def recording():
+        c = counter()
+        base = type(c)
+
+        class Recorder(base):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = base.__torch_dispatch__(self, func, types, args,
+                                              kwargs)
+                if out is not NotImplemented and func._overloadpacket in ops:
+                    calls.setdefault(func._overloadpacket, []).append(
+                        (tuple(tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor)), args[0].dtype))
+                return out
+        c.__class__ = Recorder
+        return c
+    DR._counter = recording
+    try:
+        rep = DR.run_cell(arch, shape, False, verbose=False, n_layers=layers)
+    finally:
+        DR._counter = counter
+    assert rep["status"] == "OK", rep
+    return rep, calls
+
+
+@pytest.mark.parametrize("arch, layers, weights, table, head", [
+    # Mamba's w_in, the MLP's w_gate/w_in and w_out, Mamba's w_out
+    pytest.param("jamba-v0.1-52b", 8, [(256, 1024), (256, 896), (896, 256),
+                                       (512, 256)], (4096, 256), (256, 4096),
+                 id="jamba"),
+    # the mLSTM's and sLSTM's (d, d), the MLP's w_gate/w_in and w_out
+    pytest.param("xlstm-350m", 2, [(64, 64), (64, 256), (256, 64)],
+                 (3144, 64), (64, 3144), id="xlstm")])
+def test_one_row_contracts_on_the_weights_own_shards(arch, layers, weights,
+                                                     table, head):
+    """``long_500k``'s one decode row on a fake 16 x 16 world at production
+    width: every bf16 product reads its weight's local shard, ``(d / 16,
+    n / 16)`` (none reads the whole width ``d``), the embedding looks the
+    token up in the table's own ``(vocab / 16, d / 16)`` shard, the head
+    contracts its ``(d / 16, vocab / 16)`` shard, and the step all-gathers
+    under 1 MiB a device (the weights gathered over the data axes read
+    10.8 MB at xlstm-350m's 2 layers, 216 MB at jamba's 8)."""
+    d = CONFIGS[arch].d_model
+    rep, calls = _cell_calls(arch, "long_500k", layers,
+                             (torch.ops.aten.mm, torch.ops.aten.embedding))
+    mm = [w for (_, w), dt in calls[torch.ops.aten.mm]
+          if dt == torch.bfloat16]
+    assert all(w[0] != d for w in mm), mm
+    assert set(weights + [head]) <= set(mm), mm
+    assert [a[0] for a, _ in calls[torch.ops.aten.embedding]] == [table]
+    assert rep["collective_bytes_per_device"]["all-gather"] < 1 << 20, rep
+
+
+def test_many_rows_still_gather_the_dense_weights():
+    """At ``decode_32k``'s 128 rows, which the data axes shard, the dense
+    weights are gathered for the step as the reference's program gathers
+    them there (jamba at one period on 16 x 16): the products read
+    weights whole over the width, ``(4096, n / 16)``, and the embedding
+    the table's rows gathered over the data axes, ``(4096, 4096)``."""
+    _, calls = _cell_calls("jamba-v0.1-52b", "decode_32k", 8,
+                           (torch.ops.aten.mm, torch.ops.aten.embedding))
+    mm = {w for (_, w), dt in calls[torch.ops.aten.mm]
+          if dt == torch.bfloat16}
+    assert {(4096, 1024), (4096, 896)} <= mm, mm
+    assert [a[0] for a, _ in calls[torch.ops.aten.embedding]] == \
+        [(4096, 4096)]

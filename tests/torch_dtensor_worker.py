@@ -13,7 +13,9 @@ plain dispatch of the gathered rows), ``moe_grad`` (the same with
 gradients, the routing and the experts' buffer's layout), ``decode`` and
 ``decode_window`` (three f32 decode steps over a permuted block table
 against the plain ``decode_step``; the pool's local shape),
-``decode_bf16`` (the same in bf16), ``prefill`` (f32 prefill logits);
+``decode_bf16`` (the same in bf16), ``decode_row`` and
+``decode_row_bf16`` (one row of qwen3-8b, jamba and xlstm-350m, f32 and
+bf16), ``prefill`` (f32 prefill logits);
 ``loss_heads`` and ``prefill_heads`` (the same two where the query heads
 do not divide the "model" axis), ``loss_mlstm`` (an mLSTM whose heads do
 not), ``loss_jamba`` (jamba at smoke width: Mamba, MoE, the window).
@@ -113,48 +115,67 @@ def case_moe(mesh):
             "max_want": float(want.float().abs().max())}
 
 
-def _decode(mesh, window, dtype):
-    """Three decode steps of qwen3-8b at smoke width on DTensors laid out
-    by the dry run's spec table against the plain ``decode_step``, from
-    the same state: the weights and pools in ``dtype`` (f32: the two
-    routes differ only in the order of f32 sums), the pools filled with
-    seeded values, the lengths seeded (past the ring's wrap with
-    ``window``), the block table a seeded permutation of the pages.
-    Returns the largest relative gap of the logits and of the state after
-    each step, the pool's local shape and whether every integer of the
-    state is equal."""
-    cfg = CONFIGS["qwen3-8b"].smoke()
+def _decode(mesh, window, dtype, arch="qwen3-8b", B=4):
+    """Three decode steps of ``arch`` (qwen3-8b) at smoke width on
+    DTensors laid out by the dry run's spec table against the plain
+    ``decode_step``, from the same state: the weights and the state in
+    ``dtype`` where it is f32 (the two routes differ only in the order of
+    f32 sums), the model's own dtypes otherwise; every float of the state
+    (the pools, the recurrent states) filled with seeded values, the
+    lengths seeded (past the ring's wrap under a window), the block table
+    a seeded permutation of the pages.  Returns the largest relative gap
+    of the logits and of the state after each step, the pool's local
+    shape, whether every integer of the state is equal, and how many
+    weights were gathered over the data axes (``DT.gathered``)."""
+    from repro_torch.distributed import dtensor as DT
+    cfg = CONFIGS[arch].smoke()
     if window:
         cfg = cfg.scaled(sliding_window=window)
-    params = tree_map(lambda t: t.to(dtype),
+    f32 = dtype == torch.float32
+    params = tree_map(lambda t: t.to(dtype) if f32 else t,
                       M.init_params(cfg, 0, device="cpu"))
-    B, S = 4, 256
+    S = 256
     g = torch.Generator().manual_seed(3)
     state = M.make_decode_state(cfg, B, S, device="cpu")
-    NP = state["kpool"].shape[2]
-    for name in ("kpool", "vpool"):
-        state[name] = torch.randn(state[name].shape, generator=g).to(dtype)
-    state["block_tables"].copy_(torch.randperm(NP, generator=g).int()
-                                .view(B, -1))
-    top = S + 64 if window else S - 8
+    floats = [n for n, t in state.items() if t.is_floating_point()]
+    for name in floats:
+        state[name] = torch.randn(state[name].shape, generator=g).to(
+            dtype if f32 else state[name].dtype)
+    if "kpool" in state:
+        NP = state["kpool"].shape[2]
+        state["block_tables"].copy_(torch.randperm(NP, generator=g).int()
+                                    .view(B, -1))
+    top = S + 64 if cfg.sliding_window else S - 8
     state["seq_lens"].copy_(torch.randint(0, top, (B,), generator=g).int())
     dstate = sh.distribute(mesh, tree_map(lambda t: t.clone(), state),
                            sh.decode_state_specs(cfg, mesh, state))
     dparams = sh.distribute(mesh, params, sh.param_specs(cfg, mesh))
     logits, states, ints = [], [], True
-    for _ in range(3):
-        tokens = torch.randint(0, cfg.vocab, (B,), generator=g)
-        want, _ = M.decode_step(cfg, params, state, tokens, impl="ref")
-        got, _ = M.decode_step(cfg, dparams, dstate, sh.distribute(
-            mesh, tokens, sh.tokens_spec(mesh, B)), impl="ref")
-        logits.append(rel(full(got), want))
-        states.append(max(rel(full(dstate[n]), state[n])
-                          for n in ("kpool", "vpool")))
-        ints = ints and all(torch.equal(full(dstate[n]), state[n])
-                            for n in ("seq_lens", "block_tables"))
-    return {"logits_rel": max(logits), "state_rel": max(states),
-            "ints_equal": ints, "pages": NP,
-            "pool_local": list(dstate["kpool"].to_local().shape)}
+    gathers, real = [], DT._Gather.apply
+
+    def gather(w):
+        gathers.append(tuple(w.shape))
+        return real(w)
+    DT._Gather.apply = gather
+    try:
+        for _ in range(3):
+            tokens = torch.randint(0, cfg.vocab, (B,), generator=g)
+            want, _ = M.decode_step(cfg, params, state, tokens, impl="ref")
+            got, _ = M.decode_step(cfg, dparams, dstate, sh.distribute(
+                mesh, tokens, sh.tokens_spec(mesh, B)), impl="ref")
+            logits.append(rel(full(got), want))
+            states.append(max(rel(full(dstate[n]), state[n])
+                              for n in floats))
+            ints = ints and all(torch.equal(full(dstate[n]), state[n])
+                                for n in ("seq_lens", "block_tables"))
+    finally:
+        DT._Gather.apply = real
+    out = {"logits_rel": max(logits), "state_rel": max(states),
+           "ints_equal": ints, "gathers": len(gathers)}
+    if "kpool" in state:
+        out.update(pages=NP, pool_local=list(dstate["kpool"].to_local()
+                                             .shape))
+    return out
 
 
 def case_decode(mesh):
@@ -167,6 +188,22 @@ def case_decode_window(mesh):
 
 def case_decode_bf16(mesh):
     return _decode(mesh, 0, torch.bfloat16)
+
+
+#: the families :func:`case_decode_row` decodes one row of: dense, hybrid
+#: (Mamba, MoE, the windowed ring), xLSTM (mLSTM, sLSTM)
+ROW_ARCHS = ("qwen3-8b", "jamba-v0.1-52b", "xlstm-350m")
+
+
+def case_decode_row(mesh, dtype=torch.float32):
+    """:func:`_decode` of one row (batch 1, which the data axes do not
+    shard: no weight gathered, each product on the weights' own shards)
+    for each of ``ROW_ARCHS``, by arch."""
+    return {arch: _decode(mesh, 0, dtype, arch, B=1) for arch in ROW_ARCHS}
+
+
+def case_decode_row_bf16(mesh):
+    return case_decode_row(mesh, torch.bfloat16)
 
 
 def case_moe_grad(mesh):
@@ -313,6 +350,8 @@ def main():
                    "decode": case_decode,
                    "decode_window": case_decode_window,
                    "decode_bf16": case_decode_bf16,
+                   "decode_row": case_decode_row,
+                   "decode_row_bf16": case_decode_row_bf16,
                    "prefill": case_prefill,
                    "prefill_heads": case_prefill_heads,
                    "loss_heads": case_loss_heads,
